@@ -10,13 +10,15 @@ failure:
   1. device   the card's name and power limit (nvidia-smi)
   2. build    every csrc/*.cu kernel from this checkout's sources
   3. kernels  each hand kernel held to its plain PyTorch version on the
-              card (exact equality), then timed at the main path's shape
-              beside the plain version and the nearest library call
+              card (exact equality of every output), then timed at the
+              main path's shape beside the plain version and the nearest
+              library calls (bf16 bmm, and int8 torch._int_mm)
   4. main     `analyze-store --checker append` on cuda over a synthetic
               two-level store of 64 runs x 10,000 ops (T=5000 txns,
               K=64 keys, every 8th run carrying a G1c cycle): exactly the
               corrupt runs must come out G1c/invalid, the launch counts
-              must show the closures went through the kernel, and a
+              must show the closures went through the kernel (and
+              CUDA event pairs around each launch time it), and a
               re-run with the plain squaring on a copy of the store must
               write byte-identical results; then the installed CLI,
               `python -m jepsen_tpu_torch.cli ... --device cuda`, on a
@@ -84,84 +86,133 @@ def peaks(name: str) -> tuple[float, float]:
     return PEAKS[-1][1], PEAKS[-1][2]
 
 
-def cuda_ms(fn, reps: int) -> list[float]:
-    """Per-launch milliseconds of `fn`, each from a CUDA event pair."""
+def cuda_ms(fn, reps: int, burst: int = 5) -> list[float]:
+    """Per-launch milliseconds of `fn`: `reps` samples, each a CUDA event
+    pair around `burst` back-to-back calls, so that the host's launch
+    overhead overlaps the device's work instead of adding to it."""
     out = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(burst):
+            fn()
         b.record()
         b.synchronize()
-        out.append(a.elapsed_time(b))
+        out.append(a.elapsed_time(b) / burst)
     return out
 
 
-def random_bool(B: int, T: int, density: float, seed: int) -> torch.Tensor:
+def random_bool(B: int, T: int, density: float, seed: int,
+                reflexive: bool = True) -> torch.Tensor:
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     m = torch.rand((B, T, T), generator=g, device="cuda") < density
-    return m | torch.eye(T, dtype=torch.bool, device="cuda")
+    if reflexive:
+        m |= torch.eye(T, dtype=torch.bool, device="cuda")
+    return m
 
 
-def phase_kernels(name: str) -> dict:
-    """closure_square against closure_square_ref on the card, then its
-    timing at the main path's shape."""
-    from jepsen_tpu_torch.checker.elle import closure_square as cs
+def transposed(m: torch.Tensor) -> torch.Tensor:
+    return m.transpose(1, 2).contiguous()
 
+
+def kernel_cases() -> list:
+    """(label, m) pairs: random batches at T not a multiple of the
+    256-wide column tile and at the main path's own bucket shapes (B=4
+    and B=5 at T=5120), then special inputs."""
     cases = []
     seed = 0
-    # B=5 and B=4 at T=5120 are the main path's own bucket shapes
-    shapes = [(B, T) for B in (1, 3) for T in (128, 256, 384, 5120)]
+    shapes = [(B, T) for B in (1, 3) for T in (128, 384, 640)]
     for B, T in shapes + [(MAIN_B - 1, MAIN_T), (MAIN_B, MAIN_T)]:
         for density in (0.001, 0.01, 0.05):
             seed += 1
             cases.append((f"B={B} T={T} p={density}",
                           random_bool(B, T, density, seed)))
-    cases.append(("zeros", torch.zeros((2, 256, 256), dtype=torch.bool,
+    cases.append(("zeros", torch.zeros((2, 384, 384), dtype=torch.bool,
                                        device="cuda")))
-    cases.append(("ones", torch.ones((2, 256, 256), dtype=torch.bool,
+    cases.append(("ones", torch.ones((2, 384, 384), dtype=torch.bool,
                                      device="cuda")))
     wide = torch.zeros((1, 384, 384), dtype=torch.bool, device="cuda")
     wide[0, 5, :] = True      # 384 products per cell: past int8's range
     wide[0, :, 7] = True
     cases.append(("wide row", wide))
+    eye = torch.eye(640, dtype=torch.bool, device="cuda")
+    cases.append(("identity", eye.expand(3, 640, 640).contiguous()))
+    cases.append(("non-reflexive", random_bool(3, 640, 0.004, 98,
+                                               reflexive=False)))
+    # converged (identity) and unconverged histories in one batch
+    cases.append(("mixed", torch.cat([eye[:384, :384][None],
+                                      random_bool(2, 384, 0.01, 97)])))
+    return cases
+
+
+def phase_kernels(name: str) -> dict:
+    """closure_square against closure_square_ref on the card (out, outT
+    and changed, exactly), then its timing at the main path's shape."""
+    from jepsen_tpu_torch.checker.elle import closure_square as cs
+
+    cases = kernel_cases()
     max_err = 0.0
     for label, m in cases:
-        got = cs.closure_square(m)
-        want = cs.closure_square_ref(m)
+        mt = transposed(m)
+        got = cs.closure_square(m, mt)
+        want = cs.closure_square_ref(m, mt)
         torch.cuda.synchronize()
-        err = float((got != want).any())
-        max_err = max(max_err, err)
-        check(err == 0.0, f"closure_square differs from its plain version "
-                          f"on {label}")
+        for part, g, w in zip(("out", "outT", "changed"), got, want):
+            err = float((g != w).any())
+            max_err = max(max_err, err)
+            check(err == 0.0, f"closure_square's {part} differs from its "
+                              f"plain version on {label}")
+        if label == "identity":
+            check(not bool(got[2].any()), "identity squared came out "
+                                          "changed")
     say(f"closure_square == closure_square_ref on {len(cases)} cases "
-        "(exact)")
+        "(out, outT and changed; exact)")
 
     m = random_bool(MAIN_B, MAIN_T, 0.01, 99)
+    mt = transposed(m)
     mb = m.to(torch.bfloat16)
-    kernel = lambda: cs.closure_square(m)                      # noqa: E731
-    plain = lambda: cs.closure_square_ref(m)                   # noqa: E731
+    mi = m.view(torch.int8)
+    kernel = lambda: cs.closure_square(m, mt)                  # noqa: E731
+    plain = lambda: cs.closure_square_ref(m, mt)               # noqa: E731
     library = lambda: torch.bmm(mb, mb) > 0                    # noqa: E731
-    check(torch.equal(kernel(), library()),
+
+    def int8_library():
+        return torch.stack([torch._int_mm(mi[b], mi[b]) > 0
+                            for b in range(MAIN_B)])
+
+    want = library()
+    check(torch.equal(kernel()[0], want),
           "closure_square differs from bf16 bmm at the main shape")
-    for fn in (kernel, plain, library):
+    fns = {"kernel": kernel, "plain": plain, "library": library,
+           "int8_library": int8_library}
+    try:
+        got8 = int8_library()
+    except RuntimeError as e:          # a yardstick only: never fatal
+        say(f"torch._int_mm is not available here ({e}); int8_library_ms "
+            "is null")
+        del fns["int8_library"]
+    else:
+        check(torch.equal(got8, want),
+              "torch._int_mm > 0 differs from bf16 bmm at the main shape")
+    for fn in fns.values():
         cuda_ms(fn, 3)                                         # warm-up
-    samples: dict = {"kernel": [], "plain": [], "library": []}
-    for _ in range(5):                  # in turns, so drift hits all three
-        for key, fn in (("plain", plain), ("kernel", kernel),
-                        ("library", library), ("library", library),
-                        ("kernel", kernel), ("plain", plain)):
-            samples[key] += cuda_ms(fn, 1)
+    samples: dict = {k: [] for k in fns}
+    order = list(fns) + list(reversed(fns))
+    for _ in range(5):                  # in turns, so drift hits them all
+        for key in order:
+            samples[key] += cuda_ms(fns[key], 1)
     ms = {k: statistics.median(v) for k, v in samples.items()}
     ops_peak, bw_peak = peaks(name)
-    ops = 2 * MAIN_B * MAIN_T ** 3           # boolean multiply-adds
-    nbytes = 2 * MAIN_B * MAIN_T ** 2        # m read once, out written once
+    ops = 2 * MAIN_B * MAIN_T ** 3           # multiply-adds
+    # m and mT read once, out and outT written once, B changed bytes
+    nbytes = 4 * MAIN_B * MAIN_T ** 2 + MAIN_B
     t_ops, t_bytes = ops / ops_peak * 1e3, nbytes / bw_peak * 1e3
     say(f"closure_square B={MAIN_B} T={MAIN_T} median ms: kernel "
         f"{ms['kernel']}, plain (fp32 bmm) {ms['plain']}, library (bf16 "
-        f"bmm > 0) {ms['library']}; bound {max(t_ops, t_bytes)} "
+        f"bmm > 0) {ms['library']}, int8 library (torch._int_mm > 0 per "
+        f"history) {ms.get('int8_library')}; bound {max(t_ops, t_bytes)} "
         f"(operations {t_ops}, bytes {t_bytes})")
     return {"name": "closure_square", "route": "cuda",
             "source": "jepsen_tpu_torch/csrc/closure_square.cu",
@@ -170,7 +221,8 @@ def phase_kernels(name: str) -> dict:
             "ms": ms["kernel"], "plain_ms": ms["plain"],
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": ms["library"]}
+            "library_ms": ms["library"],
+            "int8_library_ms": ms.get("int8_library")}
 
 
 def sweep(store: Path, **kw) -> tuple[int, list, float, str]:
@@ -199,8 +251,9 @@ def same_outputs(a: Path, b: Path, runs: list[str]) -> None:
           f"verdicts.jsonl differs between {a.parent} and {b.parent}")
 
 
-def phase_main() -> int:
-    """The main path on the card; returns its closure_square launches."""
+def phase_main() -> tuple[int, float]:
+    """The main path on the card; returns its closure_square launches
+    and their summed device milliseconds."""
     from jepsen_tpu_torch.checker.elle import closure_square as cs
     from jepsen_tpu_torch.checker.elle import synth
 
@@ -213,8 +266,14 @@ def phase_main() -> int:
         f"{time.perf_counter() - t0:.1f}s")
 
     cs.closure_square.launches = 0
-    rc, log, wall, out = sweep(store, device=DEVICE)
+    cs.closure_square.events = events = []
+    try:
+        rc, log, wall, out = sweep(store, device=DEVICE)
+    finally:
+        cs.closure_square.events = None
     launches = cs.closure_square.launches
+    check(len(events) == launches, "an event pair per launch")
+    square_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
     check(rc == 1, f"analyze-store exited {rc}, expected 1 (invalid runs)")
     check(len(out.splitlines()) == STORE_RUNS,
           "expected one summary line per run")
@@ -237,7 +296,8 @@ def phase_main() -> int:
         f"{len(log)} buckets of "
         f"{[b['histories'] for b in log]} at T_pad "
         f"{sorted({b['t_pad'] for b in log})}, closure rounds per bucket "
-        f"{rounds}, {launches} closure_square launches")
+        f"{rounds}, {launches} closure_square launches taking "
+        f"{square_s:.6f}s of device time (CUDA event pairs)")
 
     rc_p, log_p, wall_p, _ = sweep(plain_store, device=DEVICE,
                                    square=cs.closure_square_ref)
@@ -248,7 +308,7 @@ def phase_main() -> int:
     say(f"plain-squaring sweep: {wall_p:.3f}s wall, "
         f"{sum(b['seconds'] for b in log_p):.3f}s in bucket checks; "
         "results.json, results.edn and verdicts.jsonl byte-identical")
-    return launches
+    return launches, square_s * 1e3
 
 
 def phase_cli() -> None:
@@ -300,7 +360,7 @@ def main() -> int:
     WORK.mkdir()
     try:
         record = phase_kernels(name)
-        record["launches"] = phase_main()
+        record["launches"], record["main_path_ms"] = phase_main()
         phase_cli()
     finally:
         shutil.rmtree(WORK, ignore_errors=True)

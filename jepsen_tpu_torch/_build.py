@@ -20,24 +20,28 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
-#: Hopper only: `sm_90a` keeps wgmma/setmaxnreg available to later
-#: kernels; -Xptxas=-v makes ptxas report registers, shared memory and
-#: spills into the build log.
+#: Hopper only: `wgmma` and `setmaxnreg` exist only for `sm_90a`;
+#: -Xptxas=-v makes ptxas report registers, shared memory and spills
+#: into the build log. No -lcuda: the TMA descriptors' encoder is taken
+#: from libcuda at run time (cudaGetDriverEntryPoint).
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 #: ctypes prototypes of each library's C interface.
 PROTOTYPES = {
     "closure_square": {
+        # (m, mT, out, outT, changed, B, T, device, stream)
         "closure_square_launch": (
             ctypes.c_int,
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_void_p]),
         "closure_square_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
@@ -136,6 +140,8 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def build_all() -> dict[str, Path]:
-    """Build every `csrc/*.cu`, one after another; raises the first
-    KernelBuildError."""
-    return {p.stem: build(p.stem) for p in sorted(SRC_DIR.glob("*.cu"))}
+    """Build every `csrc/*.cu`, one nvcc per source, all started together;
+    raises the first KernelBuildError."""
+    names = [p.stem for p in sorted(SRC_DIR.glob("*.cu"))]
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(build, names)))

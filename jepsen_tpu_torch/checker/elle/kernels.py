@@ -33,8 +33,11 @@ from .encode import EncodedHistory, effective_complete_index
 G0, G1C, G_SINGLE, G2_ITEM, CYCLE = 0, 1, 2, 3, 4
 FLAG_NAMES = {G0: "G0", G1C: "G1c", G_SINGLE: "G-single", G2_ITEM: "G2-item"}
 
-#: A squaring function: [B,T,T] bool -> [B,T,T] bool.
-Square = Callable[[torch.Tensor], torch.Tensor]
+#: A squaring function: (m, mT) [B,T,T] bool, mT each history's
+#: transpose -> (out, outT, changed): the round, its transpose and a [B]
+#: bool "out differs from m" (see closure_square.closure_square).
+Square = Callable[[torch.Tensor, torch.Tensor],
+                  tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
 
 def pad_to(x: int, multiple: int) -> int:
@@ -204,10 +207,11 @@ def _edges_batched(appends: torch.Tensor, reads: torch.Tensor, n_keys: int,
     return ww, wr, rw
 
 
-def _square(m: torch.Tensor, square: Square | None) -> torch.Tensor:
-    """ONE boolean matrix squaring: the hand kernel on cuda (its plain
-    version on cpu) unless the caller names another squaring."""
-    return cs.closure_square(m) if square is None else square(m)
+def _square(m: torch.Tensor, mT: torch.Tensor, square: Square | None):
+    """ONE boolean matrix squaring with its transpose and changed flags:
+    the hand kernel on cuda (its plain version on cpu) unless the caller
+    names another squaring."""
+    return (cs.closure_square if square is None else square)(m, mT)
 
 
 def _closure_batched(m: torch.Tensor, steps: int,
@@ -216,16 +220,19 @@ def _closure_batched(m: torch.Tensor, steps: int,
     """Transitive closure of [B,T,T] boolean adjacencies: `m | eye`
     squared to the batch-level fixpoint, at most `steps` rounds. Path
     lengths double each round, so convergence takes ~log2(diameter)
-    rounds; the loop reads one bool back per round. `rounds`, when
-    given, gets the number of squarings appended."""
+    rounds. The squaring returns the round's transpose (the next round's
+    second operand; made once here, before the first round) and its
+    per-history changed flags, so the loop reads back one bool per round
+    and compares no matrices. `rounds`, when given, gets the number of
+    squarings appended."""
     T = m.shape[-1]
     m = m | torch.eye(T, dtype=torch.bool, device=m.device)
+    mT = m.transpose(1, 2).contiguous()
     i = 0
     changed = True
     while changed and i < steps:
-        m2 = _square(m, square)
-        changed = not torch.equal(m2, m)
-        m = m2
+        m, mT, flags = _square(m, mT, square)
+        changed = bool(flags.any())
         i += 1
     if rounds is not None:
         rounds.append(i)

@@ -139,9 +139,10 @@ def test_closure_rounds_and_plain_square_parameter():
     batch = convert.from_reference_batch(_batch("g1c"), CPU)
     calls = []
 
-    def counting_square(m):
+    def counting_square(m, mT):
         calls.append(m.shape)
-        return K.cs.closure_square_ref(m)
+        assert torch.equal(mT, m.transpose(1, 2))
+        return K.cs.closure_square_ref(m, mT)
 
     rounds: list = []
     got = K.check_batch_device(batch, square=counting_square,
@@ -165,3 +166,37 @@ def test_pack_batch_matches_reference():
     assert got["shape"].__dict__ == ref["shape"].__dict__
     for k in NAMES:
         assert np.array_equal(got[k], ref[k]), k
+
+
+def chain_batch(diameters, T: int, seed: int) -> np.ndarray:
+    """[B,T,T] adjacencies, one per diameter d: a path through d+1 random
+    nodes plus a few random edges among the other nodes."""
+    rng = np.random.default_rng(seed)
+    m = np.zeros((len(diameters), T, T), bool)
+    for b, d in enumerate(diameters):
+        nodes = rng.permutation(T)
+        path = nodes[:d + 1]
+        m[b, path[:-1], path[1:]] = True
+        rest = nodes[d + 1:]
+        if len(rest) > 1:
+            k = len(rest) // 4
+            m[b, rng.choice(rest, k), rng.choice(rest, k)] = True
+    return m
+
+
+@pytest.mark.parametrize("diameters,seed", [
+    ((1, 7, 40), 0), ((2, 100, 255), 1), ((0, 0, 3), 2), ((31, 32, 33), 3),
+    ((200, 5, 64), 4)])
+def test_closure_rounds_match_reference(diameters, seed):
+    """The flag folded into the squaring ends the loop at the reference's
+    round: rounds == the `i` of kernels._closure_batched, and the
+    closures agree."""
+    T = 256
+    m = chain_batch(diameters, T, seed)
+    steps = RK.closure_steps(T)
+    want_c, want_i = RK._closure_batched(jnp.asarray(m), steps,
+                                         RK._identity)
+    rounds: list = []
+    got = K._closure_batched(torch.from_numpy(m), steps, rounds=rounds)
+    assert rounds == [int(want_i)]
+    assert (got.numpy() == np.asarray(want_c)).all()
