@@ -23,9 +23,29 @@ failure:
               write byte-identical results; then the installed CLI,
               `python -m jepsen_tpu_torch.cli ... --device cuda`, on a
               small store, byte-identical to a --device cpu run
+  5. wr       `analyze-store --checker wr` on cuda over a synthetic
+              rw-register store of 32 runs x 10,000 ops (5,000 txns, K=64
+              keys, every 8th run carrying a write-skew pair): exactly
+              those runs must come out G2-item/invalid, the launches must
+              equal the buckets' closure rounds, and a plain-squaring
+              re-run on a copy of 8 of the runs must write byte-identical
+              results
+  6. long     `analyze-store --checker append` over 3 list-append runs of
+              100,000 ops (50,000 txns, K=64), past the dense limit, so
+              through SCC condensation: a valid run (no SCC, no launch),
+              one with an adjacent G1c pair (a 2-txn SCC) and one whose
+              read observes an append 16,304 txns into its future (one
+              SCC of ~4,000 txns, classified by closure_square at
+              T_pad=4096); verdicts as designed, launches equal to the
+              closure rounds, and a plain-squaring re-run of the two
+              cyclic runs byte-identical
 
-The last lines are a `{"kernels": [...]}` record per kernel, the
-nvidia-smi line, and `{"ok": true, "device": {...}}`. Scratch data goes
+Each path is driven with the kernel's launch count set to 0 just before
+it and read just after; a path that launched it no time fails.
+
+The last lines are a `{"kernels": [...]}` record per kernel (with its
+launches and summed device milliseconds per path), the nvidia-smi line,
+and `{"ok": true, "device": {...}}`. Scratch data goes
 to `.chip_smoke/` in the checkout and is removed at the end.
 """
 
@@ -55,6 +75,14 @@ PEAKS = (("H100 PCIe", 1513e12, 2.0e12), ("H100", 1979e12, 3.35e12))
 MAIN_B, MAIN_T = 5, 5120
 DEVICE = "cuda"
 STORE_RUNS, STORE_T, STORE_K, BAD_EVERY = 64, 5000, 64, 8
+#: Phase 5: rw-register runs; the plain re-run takes the first WR_PLAIN.
+WR_RUNS, WR_T, WR_K, WR_BAD_EVERY, WR_PLAIN = 32, 5000, 64, 8, 8
+#: Phase 6: long list-append runs (synth.LONG_RUN_KINDS) and the
+#: anomaly types each must come out with. The future run's classes are
+#: those the host classifier (graph.classify_cycles) finds in its SCC.
+LONG_T, LONG_K, LONG_GAP = 50_000, 64, 16_304
+LONG_EXPECT = {"valid": [], "pair": ["G1c"],
+               "future": ["G-single", "G1c", "G2-item"]}
 
 
 class SmokeFailure(RuntimeError):
@@ -119,11 +147,16 @@ def transposed(m: torch.Tensor) -> torch.Tensor:
 
 def kernel_cases() -> list:
     """(label, m) pairs: random batches at T not a multiple of the
-    256-wide column tile and at the main path's own bucket shapes (B=4
-    and B=5 at T=5120), then special inputs."""
+    256-wide column tile, at the wr and long paths' shapes and at the
+    main path's own bucket shapes (B=4 and B=5 at T=5120), then special
+    inputs."""
     cases = []
     seed = 0
     shapes = [(B, T) for B in (1, 3) for T in (128, 384, 640)]
+    # the wr and long paths' shapes: the last wr bucket (32 runs = 6 x 5
+    # + 2), condensed SCCs at B=1 (a ragged 128-multiple, and the long
+    # run's T_pad=4096)
+    shapes += [(2, MAIN_T), (1, 3968), (1, 4096)]
     for B, T in shapes + [(MAIN_B - 1, MAIN_T), (MAIN_B, MAIN_T)]:
         for density in (0.001, 0.01, 0.05):
             seed += 1
@@ -225,7 +258,8 @@ def phase_kernels(name: str) -> dict:
             "int8_library_ms": ms.get("int8_library")}
 
 
-def sweep(store: Path, **kw) -> tuple[int, list, float, str]:
+def sweep(store: Path, checker: str = "append",
+          **kw) -> tuple[int, list, float, str]:
     """One in-process analyze-store sweep; its stdout summary lines are
     captured, not printed."""
     from jepsen_tpu_torch import cli
@@ -235,19 +269,49 @@ def sweep(store: Path, **kw) -> tuple[int, list, float, str]:
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        rc = cli.analyze_store(Store(store), checker="append",
+        rc = cli.analyze_store(Store(store), checker=checker,
                                bucket_log=log, **kw)
     torch.cuda.synchronize()
     return rc, log, time.perf_counter() - t0, buf.getvalue()
 
 
+def counted(fn):
+    """Run fn() with closure_square's launch count set to 0 and a CUDA
+    event pair recorded around each launch; returns (fn's result, the
+    launches, their summed device milliseconds)."""
+    from jepsen_tpu_torch.checker.elle import closure_square as cs
+
+    cs.closure_square.launches = 0
+    cs.closure_square.events = events = []
+    try:
+        out = fn()
+    finally:
+        cs.closure_square.events = None
+    launches = cs.closure_square.launches
+    check(len(events) == launches, "an event pair per launch")
+    return out, launches, sum(a.elapsed_time(b) for a, b in events)
+
+
+def copy_runs(src: Path, dst: Path, runs: list[str]) -> None:
+    for run in runs:
+        shutil.copytree(src / run, dst / run)
+
+
 def same_outputs(a: Path, b: Path, runs: list[str]) -> None:
+    """results.json/.edn of `runs` byte-identical under test dirs a and
+    b, and so are the stores' verdicts.jsonl lines for those runs."""
     for run in runs:
         for f in ("results.json", "results.edn"):
             check((a / run / f).read_bytes() == (b / run / f).read_bytes(),
                   f"{f} of {run} differs between {a} and {b}")
-    check((a.parent / "verdicts.jsonl").read_text()
-          == (b.parent / "verdicts.jsonl").read_text(),
+    dirs = {f"{a.name}/{run}" for run in runs}
+
+    def lines(store: Path) -> list[str]:
+        return [ln for ln in (store / "verdicts.jsonl").read_text()
+                .splitlines() if json.loads(ln)["dir"] in dirs]
+
+    check(len(lines(a.parent)) == len(runs)
+          and lines(a.parent) == lines(b.parent),
           f"verdicts.jsonl differs between {a.parent} and {b.parent}")
 
 
@@ -265,15 +329,9 @@ def phase_main() -> tuple[int, float]:
     say(f"wrote {STORE_RUNS} runs x {2 * STORE_T} ops in "
         f"{time.perf_counter() - t0:.1f}s")
 
-    cs.closure_square.launches = 0
-    cs.closure_square.events = events = []
-    try:
-        rc, log, wall, out = sweep(store, device=DEVICE)
-    finally:
-        cs.closure_square.events = None
-    launches = cs.closure_square.launches
-    check(len(events) == launches, "an event pair per launch")
-    square_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
+    (rc, log, wall, out), launches, square_ms = counted(
+        lambda: sweep(store, device=DEVICE))
+    square_s = square_ms / 1e3
     check(rc == 1, f"analyze-store exited {rc}, expected 1 (invalid runs)")
     check(len(out.splitlines()) == STORE_RUNS,
           "expected one summary line per run")
@@ -299,16 +357,16 @@ def phase_main() -> tuple[int, float]:
         f"{rounds}, {launches} closure_square launches taking "
         f"{square_s:.6f}s of device time (CUDA event pairs)")
 
-    rc_p, log_p, wall_p, _ = sweep(plain_store, device=DEVICE,
-                                   square=cs.closure_square_ref)
+    (rc_p, log_p, wall_p, _), relaunched, _ = counted(
+        lambda: sweep(plain_store, device=DEVICE,
+                      square=cs.closure_square_ref))
     check(rc_p == rc, f"plain-squaring sweep exited {rc_p}")
-    check(cs.closure_square.launches == launches,
-          "the plain-squaring sweep launched the kernel")
+    check(relaunched == 0, "the plain-squaring sweep launched the kernel")
     same_outputs(store / "synth", plain_store / "synth", runs)
     say(f"plain-squaring sweep: {wall_p:.3f}s wall, "
         f"{sum(b['seconds'] for b in log_p):.3f}s in bucket checks; "
         "results.json, results.edn and verdicts.jsonl byte-identical")
-    return launches, square_s * 1e3
+    return launches, square_ms
 
 
 def phase_cli() -> None:
@@ -330,6 +388,134 @@ def phase_cli() -> None:
                  sorted(p.name for p in (gpu / "synth").iterdir()))
     say("python -m jepsen_tpu_torch.cli --device cuda == --device cpu "
         "(byte-identical)")
+
+
+def phase_wr() -> tuple[int, float]:
+    """`analyze-store --checker wr` on the card; returns its
+    closure_square launches and their summed device milliseconds."""
+    from jepsen_tpu_torch.checker.elle import closure_square as cs
+    from jepsen_tpu_torch.checker.elle import synth
+
+    t0 = time.perf_counter()
+    store, plain_store = WORK / "wr", WORK / "wr-plain"
+    synth.write_wr_run_store(store, B=WR_RUNS, T=WR_T, K=WR_K,
+                             bad_every=WR_BAD_EVERY)
+    runs = sorted(p.name for p in (store / "wr").iterdir())
+    copy_runs(store / "wr", plain_store / "wr", runs[:WR_PLAIN])
+    say(f"wrote {WR_RUNS} rw-register runs x {2 * WR_T} ops in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    (rc, log, wall, out), launches, square_ms = counted(
+        lambda: sweep(store, checker="wr", device=DEVICE))
+    check(rc == 1, f"wr analyze-store exited {rc}, expected 1")
+    check(len(out.splitlines()) == WR_RUNS,
+          "expected one summary line per run")
+    for h, run in enumerate(runs):
+        res = json.loads((store / "wr" / run / "results.json").read_text())
+        if h % WR_BAD_EVERY == WR_BAD_EVERY - 1:
+            check(res["valid?"] is False
+                  and res["anomaly-types"] == ["G2-item"],
+                  f"{run} should be invalid with G2-item: {res}")
+        else:
+            check(res["valid?"] is True and res["anomaly-types"] == [],
+                  f"{run} should be valid: {res}")
+    rounds = [b["closure_rounds"] for b in log]
+    check(launches == sum(map(sum, rounds)) and launches > 0,
+          f"{launches} kernel launches for {rounds} closure rounds")
+    say(f"wr path ({DEVICE}, hand kernel): {wall:.3f}s wall, "
+        f"{WR_RUNS / wall:.3f} histories/s, "
+        f"{sum(b['seconds'] for b in log):.3f}s of it in bucket checks "
+        f"(pack, copy, scatter, kernels, flags), {len(log)} buckets of "
+        f"{[b['histories'] for b in log]} at T_pad "
+        f"{[b['t_pad'] for b in log]}, closure rounds per bucket "
+        f"{rounds}, {launches} closure_square launches taking "
+        f"{square_ms / 1e3:.6f}s of device time (CUDA event pairs)")
+
+    (rc_p, log_p, wall_p, _), relaunched, _ = counted(
+        lambda: sweep(plain_store, checker="wr", device=DEVICE,
+                      square=cs.closure_square_ref))
+    check(rc_p == 1, f"plain-squaring wr sweep exited {rc_p}")
+    check(relaunched == 0, "the plain-squaring sweep launched the kernel")
+    same_outputs(store / "wr", plain_store / "wr", runs[:WR_PLAIN])
+    say(f"plain-squaring wr sweep of {WR_PLAIN} runs: {wall_p:.3f}s wall, "
+        f"{sum(b['seconds'] for b in log_p):.3f}s in bucket checks; "
+        "byte-identical")
+    return launches, square_ms
+
+
+def phase_long() -> tuple[int, float]:
+    """Long list-append runs on the card through SCC condensation;
+    returns the closure_square launches and their summed device
+    milliseconds."""
+    from jepsen_tpu_torch import parallel
+    from jepsen_tpu_torch.checker.elle import closure_square as cs
+    from jepsen_tpu_torch.checker.elle import condense, kernels, synth
+
+    t0 = time.perf_counter()
+    store, plain_store = WORK / "long", WORK / "long-plain"
+    synth.write_long_append_store(store, T=LONG_T, K=LONG_K,
+                                  future_gap=LONG_GAP)
+    runs = sorted(p.name for p in (store / "long").iterdir())
+    kinds = dict(zip(runs, synth.LONG_RUN_KINDS))
+    cyclic = [r for r in runs if LONG_EXPECT[kinds[r]]]
+    copy_runs(store / "long", plain_store / "long", cyclic)
+    say(f"wrote {len(runs)} list-append runs x {2 * LONG_T} ops in "
+        f"{time.perf_counter() - t0:.1f}s")
+    check(LONG_T > parallel.DENSE_TXN_LIMIT, "long runs must be condensed")
+
+    clog: list = []
+    (rc, log, wall, _), launches, square_ms = counted(
+        lambda: sweep(store, device=DEVICE, condense_log=clog))
+    check(rc == 1, f"long analyze-store exited {rc}, expected 1")
+    for run in runs:
+        res = json.loads((store / "long" / run / "results.json")
+                         .read_text())
+        want = LONG_EXPECT[kinds[run]]
+        check(res["valid?"] is (not want) and res["anomaly-types"] == want,
+              f"{run} ({kinds[run]}) should come out {want}: "
+              f"{res['valid?']} {res['anomaly-types']}")
+    check(len(clog) == len(runs), f"{len(clog)} condensed histories")
+    by_kind = dict(zip(synth.LONG_RUN_KINDS, clog))
+    check(by_kind["valid"]["scc_sizes"] == []
+          and by_kind["valid"]["closure_rounds"] == 0,
+          f"the valid run found an SCC or launched: {by_kind['valid']}")
+    check(by_kind["pair"]["scc_sizes"] == [2],
+          f"the pair run's SCCs: {by_kind['pair']['scc_sizes']}")
+    fut = by_kind["future"]
+    check(len(fut["scc_sizes"]) == 1
+          and LONG_GAP // 8 < fut["scc_sizes"][0]
+          and fut["scc_sizes"][0] <= condense.DEVICE_SCC_LIMIT
+          and fut["t_pads"] == [kernels.pad_to(fut["scc_sizes"][0], 128)]
+          and fut["closure_rounds"] > 0,
+          f"the future run's SCC was not classified on the card: {fut}")
+    for kind, rec in by_kind.items():
+        if rec["host_scc_sizes"]:
+            say(f"long {kind}: SCCs of {rec['host_scc_sizes']} txns went "
+                f"to the host classifier (> {condense.DEVICE_SCC_LIMIT})")
+    rounds = [b["closure_rounds"] for b in log]
+    check(launches == sum(map(sum, rounds)) and launches > 0,
+          f"{launches} kernel launches for {rounds} closure rounds")
+    say(f"long path ({DEVICE}, hand kernel): {wall:.3f}s wall, "
+        f"{len(runs) / wall:.3f} histories/s; condensation (edge build + "
+        f"SCCs) {sum(r['condense_seconds'] for r in clog):.6f}s, "
+        f"classification {sum(r['classify_seconds'] for r in clog):.6f}s "
+        f"of which {sum(b['seconds'] for b in log):.6f}s in device "
+        f"buckets and {square_ms / 1e3:.6f}s closure_square device time "
+        f"(CUDA event pairs); the rest is load + encode. SCC sizes "
+        + ", ".join(f"{k} {r['scc_sizes']} (T_pad {r['t_pads']}, "
+                    f"{r['closure_rounds']} rounds)"
+                    for k, r in by_kind.items())
+        + f"; {launches} closure_square launches")
+
+    (rc_p, _, wall_p, _), relaunched, _ = counted(
+        lambda: sweep(plain_store, device=DEVICE,
+                      square=cs.closure_square_ref))
+    check(rc_p == 1, f"plain-squaring long sweep exited {rc_p}")
+    check(relaunched == 0, "the plain-squaring sweep launched the kernel")
+    same_outputs(store / "long", plain_store / "long", cyclic)
+    say(f"plain-squaring long sweep of {cyclic}: {wall_p:.3f}s wall; "
+        "byte-identical")
+    return launches, square_ms
 
 
 def main() -> int:
@@ -360,8 +546,14 @@ def main() -> int:
     WORK.mkdir()
     try:
         record = phase_kernels(name)
-        record["launches"], record["main_path_ms"] = phase_main()
+        paths = {}
+        paths["append"] = phase_main()
         phase_cli()
+        paths["wr"] = phase_wr()
+        paths["long"] = phase_long()
+        record["launches"] = sum(n for n, _ in paths.values())
+        record["paths"] = {k: {"launches": n, "device_ms": ms}
+                           for k, (n, ms) in paths.items()}
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     say(f"all phases passed in {time.perf_counter() - t_start:.1f}s")

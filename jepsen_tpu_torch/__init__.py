@@ -8,13 +8,19 @@ where it needs a module of the JAX package it keeps its own copy, under
 the same name and in the same place, so each module here has an
 obvious counterpart there.
 
-The ported slice is the batch Elle list-append sweep:
+The ported slice is the batch Elle sweep, list-append (dense, and past
+the dense limit by SCC condensation) and rw-register:
 
     cli            python -m jepsen_tpu_torch.cli analyze-store
     store          run-dir walk, verdict journal, results.edn rendering
-    ingest         serial history -> EncodedHistory encoding
-    parallel       length bucketing, packing, host->device copy
-    checker/elle   encoder, edge build, closure, anomaly flags, verdicts
+    ingest         serial history -> encoding (append or wr)
+    parallel       length bucketing, packing, host->device copy, and
+                   check_long_history for runs past DENSE_TXN_LIMIT
+    checker/elle   encoders, edge build, closure, anomaly flags, verdicts
+      kernels      dense closures over packed histories or edge lists
+      condense     SCC condensation of long histories (numpy + scipy)
+      graph        the host cycle classifier (oversized SCCs)
+      wr           the rw-register encoder and verdict
       closure_square + csrc/closure_square.cu   the hand kernel
     _build         compiles csrc/*.cu with nvcc at first use
     devices        the torch.device every entry point runs on

@@ -1,10 +1,13 @@
 """Device kernels for Elle-style cycle detection, in PyTorch.
 
 Counterpart of `jepsen_tpu/checker/elle/kernels.py`. Encoded histories
-are packed into padded integer tensors; dependency edges are built with
-dense scatters; cycle detection is a boolean transitive closure by
-repeated squaring (`closure_square`, the hand kernel on cuda); anomaly
-classes fall out of closure/edge intersections:
+are packed into padded integer tensors and their dependency edges built
+with dense scatters; host-built edge lists (rw-register runs, the SCCs
+of condensed long histories) are scattered into the same [B,T,T]
+matrices (`check_edge_batch`). Cycle detection is a boolean
+transitive closure by repeated squaring (`closure_square`, the hand
+kernel on cuda); anomaly classes fall out of closure/edge
+intersections:
 
   G0        some ww edge (u,v) with v→u in closure(ww)
   G1c       some wr edge (u,v) with v→u in closure(ww|wr)
@@ -20,6 +23,7 @@ takes tensors on one device and runs there.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Callable
 
@@ -361,6 +365,151 @@ def check_batch_device(batch: dict, *, classify: bool = True,
         steps=closure_steps(shape.n_txns), classify=classify,
         realtime=realtime, process_order=process_order, fused=fused,
         square=square, rounds=rounds)
+
+
+def classify_matrices_device(batch: dict, *, classify: bool = True,
+                             realtime: bool = False,
+                             process_order: bool = False,
+                             fused: bool = True,
+                             square: Square | None = None,
+                             rounds: list | None = None) -> torch.Tensor:
+    """Single-device entry over a device-resident packed edge batch
+    (from `edge_batch_to_device`): [B] int32 flag words, on the batch's
+    device. `square` and `rounds` as in `check_batch_device`."""
+    return classify_matrices_impl(
+        batch["ww"], batch["wr"], batch["rw"], batch["invoke_index"],
+        batch["complete_index"], batch["process"], batch["n_txns"],
+        steps=closure_steps(batch["T"]), classify=classify,
+        realtime=realtime, process_order=process_order, fused=fused,
+        square=square, rounds=rounds)
+
+
+#: The edge classes an edge batch takes (graph.WW, graph.WR, graph.RW),
+#: by the name of the matrix each fills. Realtime and process edges are
+#: built on the device from the timing tensors instead.
+EDGE_CLASSES = {"ww": 0, "wr": 1, "rw": 2}
+
+
+def pack_edge_matrices(per_history: list[dict], multiple: int = 128) -> dict:
+    """Pack host-built sparse edges for the device-side scatter.
+
+    per_history: dicts with keys n (txn count), edges ((src, dst, cls)
+    triples as a list or an [E,3] array, cls in {graph.WW, WR, RW}),
+    invoke_index, complete_index, process (arrays of length n).
+
+    Returns numpy arrays: per edge class, the [E,3] (history, src, dst)
+    cells to set (self-loops dropped), the [B,T] timing arrays, the [B]
+    txn counts and T, the padded txn count. The [B,T,T] matrices
+    themselves are made on the device (`edge_batch_to_device`), so only
+    the index lists cross to it. An edge of another class, or with an
+    end outside [0, n), raises ValueError."""
+    B = len(per_history)
+    T = pad_to(max((h["n"] for h in per_history), default=1), multiple)
+    invoke_idx = np.zeros((B, T), np.int64)
+    complete_idx = np.zeros((B, T), np.int64)
+    process = np.full((B, T), -1, np.int32)
+    n_live = np.zeros((B,), np.int32)
+    cells: dict = {name: [] for name in EDGE_CLASSES}
+    for i, hist in enumerate(per_history):
+        n = hist["n"]
+        e = np.asarray(hist["edges"], np.int64).reshape(-1, 3)
+        s, d, c = e[:, 0], e[:, 1], e[:, 2]
+        known = np.isin(c, list(EDGE_CLASSES.values()))
+        if not known.all():
+            raise ValueError(f"history {i}: edge class {int(c[~known][0])} "
+                             "is not ww, wr or rw")
+        if ((s < 0) | (s >= n) | (d < 0) | (d >= n)).any():
+            raise ValueError(f"history {i}: an edge leaves its {n} txns")
+        keep = s != d
+        for name, cls in EDGE_CLASSES.items():
+            m = keep & (c == cls)
+            cells[name].append(np.stack(
+                [np.full(int(m.sum()), i, np.int64), s[m], d[m]], axis=1))
+        n_live[i] = n
+        invoke_idx[i, :n] = hist["invoke_index"]
+        complete_idx[i, :n] = hist["complete_index"]
+        process[i, :n] = hist["process"]
+    out = {name: np.concatenate(c) if c else np.zeros((0, 3), np.int64)
+           for name, c in cells.items()}
+    out.update(invoke_index=invoke_idx, complete_index=complete_idx,
+               process=process, n_txns=n_live, T=T)
+    return out
+
+
+def edge_batch_to_device(packed: dict, device: torch.device) -> dict:
+    """The host->device copy of a packed edge batch: the timing arrays
+    as int64 tensors and, per edge class, a [B,T,T] bool matrix
+    scattered on `device` from its cell list."""
+    T = packed["T"]
+    B = len(packed["n_txns"])
+    out = {k: torch.as_tensor(np.asarray(packed[k])).to(device=device,
+                                                         dtype=torch.int64)
+           for k in ("invoke_index", "complete_index", "process",
+                     "n_txns")}
+    for name in EDGE_CLASSES:
+        bsd = torch.as_tensor(packed[name]).to(device)
+        flat = (bsd[:, 0] * T + bsd[:, 1]) * T + bsd[:, 2]
+        m = torch.zeros(B * T * T, dtype=torch.bool, device=device)
+        m.index_fill_(0, flat, True)
+        out[name] = m.view(B, T, T)
+    out["T"] = T
+    return out
+
+
+def check_edge_batch(per_history: list[dict], device=None, *,
+                     realtime: bool = False, process_order: bool = False,
+                     classify: bool = True, fused: bool = True,
+                     square: Square | None = None,
+                     rounds: list | None = None) -> list[dict]:
+    """Device cycle check over host-built edge lists: per-history
+    {anomaly-name: True} dicts (the rw-register path, and the per-SCC
+    classify stage of the condensed long-history path), on `device`
+    (default cuda; see devices.resolve_device). `square` and `rounds`
+    as in `check_batch_device`."""
+    if not per_history:
+        return []
+    from ...devices import resolve_device
+    batch = edge_batch_to_device(pack_edge_matrices(per_history),
+                                 resolve_device(device))
+    flags = classify_matrices_device(
+        batch, classify=classify, realtime=realtime,
+        process_order=process_order, fused=fused, square=square,
+        rounds=rounds).tolist()
+    return [flags_to_names(w) for w in flags]
+
+
+def check_edge_batch_bucketed(per_history: list[dict], device=None, *,
+                              realtime: bool = False,
+                              process_order: bool = False,
+                              classify: bool = True,
+                              budget_cells: int = 1 << 27,
+                              fused: bool = True,
+                              square: Square | None = None,
+                              bucket_log: list | None = None
+                              ) -> list[dict]:
+    """check_edge_batch over length buckets (parallel.bucket_by_length:
+    B·T_pad² cells per bucket under `budget_cells`, for each of the
+    three edge matrices), results in input order. `bucket_log` gets
+    one dict per bucket, as parallel.check_bucketed writes them."""
+    from ...parallel import bucket_by_length
+    out: list[dict | None] = [None] * len(per_history)
+    for bucket in bucket_by_length(per_history, budget_cells=budget_cells):
+        t0 = time.perf_counter()
+        group = [per_history[j] for j in bucket]
+        rounds: list[int] = []
+        res = check_edge_batch(group, device, realtime=realtime,
+                               process_order=process_order,
+                               classify=classify, fused=fused,
+                               square=square, rounds=rounds)
+        for j, r in zip(bucket, res):
+            out[j] = r
+        if bucket_log is not None:
+            bucket_log.append({
+                "histories": len(bucket),
+                "t_pad": pad_to(max(h["n"] for h in group), 128),
+                "closure_rounds": rounds,
+                "seconds": time.perf_counter() - t0})
+    return out  # type: ignore[return-value]
 
 
 def flags_to_names(word: int) -> dict:

@@ -2,7 +2,8 @@
 
 This system has no weights: the state a check runs on is the packed
 batch (`kernels.pack_batch`) and the `EncodedHistory` it is packed
-from. Both are plain numpy on either side, so carrying them across is
+from, or, for rw-register runs, the `WrEncoded` whose edge lists
+`kernels.pack_edge_matrices` packs. Both are plain numpy on either side, so carrying them across is
 a copy into the port's own types — which lets a test feed the JAX
 function and its port counterpart identical inputs. Nothing here
 imports the JAX package: the reference objects arrive as numpy arrays,
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from .checker.elle.encode import EncodedHistory
+from .checker.elle.wr import WrEncoded
 from .checker.elle.kernels import BatchShape, batch_to_device
 
 #: The EncodedHistory fields a check reads.
@@ -50,3 +52,23 @@ def encoded_from_arrays(*, n, n_keys, max_pos, appends, reads, status,
         op_index=np.array(complete_index, np.int64),
         anomalies=dict(anomalies or {}),
         key_names=list(key_names or []))
+
+
+#: The WrEncoded fields a check and its verdict read.
+WR_ENCODED_FIELDS = ("n", "edges", "status", "process", "invoke_index",
+                     "complete_index", "anomalies", "key_count")
+
+
+def wr_encoded_from_fields(*, n, edges, status, process, invoke_index,
+                           complete_index, anomalies=None,
+                           key_count=0) -> WrEncoded:
+    """A port WrEncoded from a reference one's fields
+    (`{f: getattr(ref, f) for f in WR_ENCODED_FIELDS}`), arrays and the
+    edge list copied."""
+    return WrEncoded(
+        n=int(n), edges=[tuple(int(x) for x in e) for e in edges],
+        status=np.array(status, np.int32),
+        process=np.array(process, np.int32),
+        invoke_index=np.array(invoke_index, np.int64),
+        complete_index=np.array(complete_index, np.int64),
+        anomalies=dict(anomalies or {}), key_count=int(key_count))

@@ -1,9 +1,11 @@
-"""Store -> EncodedHistory ingest, serial.
+"""Store -> encoding ingest, serial.
 
 Counterpart of `jepsen_tpu/ingest.py` (`encode_run_dir`,
 `iter_encode_chunks`) over the port's own store loader and pure-Python
-encoder. The reference's process pool, shared-memory transport,
-sidecar cache and native encoder are not ported yet.
+encoders: `encode.encode_history` for list-append runs and
+`wr.encode_wr_history` for rw-register runs. The reference's process
+pool, shared-memory transport, sidecar cache and native encoder are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -13,21 +15,31 @@ from typing import Sequence
 
 from .checker.elle.encode import EncodedHistory, encode_history, \
     lean_anomalies
+from .checker.elle.wr import WrEncoded, encode_wr_history, \
+    lean_wr_anomalies
 from .store import load_history_dir
 
+#: checker -> (encoder, lean-witness reducer)
+ENCODERS = {"append": (encode_history, lean_anomalies),
+            "wr": (encode_wr_history, lean_wr_anomalies)}
 
-def encode_run_dir(run_dir: str | os.PathLike) -> EncodedHistory:
-    """Load + encode one list-append run dir, lean: witnesses reduced to
-    the lean shape (`lean_anomalies`, as the reference's batch sweep
+
+def encode_run_dir(run_dir: str | os.PathLike, checker: str = "append"
+                   ) -> EncodedHistory | WrEncoded:
+    """Load + encode one run dir for `checker` ("append" or "wr"), lean:
+    witnesses reduced to the lean shape (as the reference's batch sweep
     persists them) and the per-row completion ops dropped."""
-    enc = encode_history(load_history_dir(run_dir))
-    enc.anomalies = lean_anomalies(enc)
+    if checker not in ENCODERS:
+        raise ValueError(f"unknown checker {checker!r}")
+    encode, lean = ENCODERS[checker]
+    enc = encode(load_history_dir(run_dir))
+    enc.anomalies = lean(enc)
     enc.txn_ops = []
     return enc
 
 
 def iter_encode_chunks(run_dirs: Sequence[str | os.PathLike],
-                       chunk: int = 64):
+                       checker: str = "append", chunk: int = 64):
     """Yield lists of (run_dir, encoding) pairs, in order, `chunk` at a
     time. A run dir that fails to load or encode yields the Exception
     in place of its encoding."""
@@ -36,7 +48,7 @@ def iter_encode_chunks(run_dirs: Sequence[str | os.PathLike],
         out = []
         for d in dirs[i:i + chunk]:
             try:
-                out.append((d, encode_run_dir(d)))
+                out.append((d, encode_run_dir(d, checker)))
             except Exception as e:   # per-run isolation: caller reports it
                 out.append((d, e))
         yield out

@@ -3,8 +3,10 @@
 Counterpart of `jepsen_tpu/parallel/__init__.py`, synchronous: each
 length bucket is packed on the host, copied to the device, checked, and
 its flags read back before the next bucket starts. Results come back in
-input order. The reference's async pipeline, OOM backdown, watchdog and
-AOT cache are not ported yet.
+input order. One history past `DENSE_TXN_LIMIT` txns goes through
+`check_long_history`, which condenses it to its strongly connected
+components first. The reference's async pipeline, OOM backdown,
+watchdog and AOT cache are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,8 +19,42 @@ import torch
 from ..checker.elle import kernels as K
 
 # Above this txn count the dense [T,T] closure no longer fits a device;
-# the reference switches to SCC condensation there (not ported yet).
+# check_long_history switches to SCC condensation (elle.condense).
 DENSE_TXN_LIMIT = 32_768
+
+
+def check_long_history(enc, device=None, *, classify: bool = True,
+                       realtime: bool = False, process_order: bool = False,
+                       dense_limit: int = DENSE_TXN_LIMIT,
+                       square: K.Square | None = None,
+                       bucket_log: list | None = None,
+                       condense_log: list | None = None) -> dict:
+    """Check ONE encoded history on `device` (default cuda); returns
+    {anomaly: True} flags.
+
+    Up to `dense_limit` txns: the dense closure, as a bucket of one
+    (`check_bucketed`). Beyond it: host SCC condensation feeding the
+    device classification per nontrivial SCC (`condense.check_condensed`,
+    which also takes `condense_log`) — the 100k-op path, exact because
+    every anomaly query is answered inside one SCC. `square` and
+    `bucket_log` as in `check_bucketed`."""
+    from ..devices import resolve_device
+    dev = resolve_device(device)
+    if enc.n > dense_limit:
+        from ..checker.elle import condense
+        return condense.check_condensed(
+            enc, dev, classify=classify, realtime=realtime,
+            process_order=process_order, square=square,
+            bucket_log=bucket_log, condense_log=condense_log)
+    return check_bucketed([enc], dev, classify=classify, realtime=realtime,
+                          process_order=process_order, square=square,
+                          bucket_log=bucket_log)[0]
+
+
+def _size_of(e) -> int:
+    """Txn count of an encoded history (attribute) or packed edge dict
+    (key) — both bucket the same way."""
+    return e["n"] if isinstance(e, dict) else e.n
 
 
 def bucket_by_length(encs: Sequence, *, multiple: int = 128,
@@ -26,13 +62,15 @@ def bucket_by_length(encs: Sequence, *, multiple: int = 128,
     """Partition history indices into buckets of similar padded txn
     count. Each bucket satisfies B * T_pad² <= budget_cells, where T_pad
     is the bucket max rounded up to `multiple` and B the bucket size.
-    Returns buckets of indices into encs, longest histories first."""
-    order = sorted(range(len(encs)), key=lambda i: -encs[i].n)
+    Returns buckets of indices into encs, longest histories first.
+    Elements may be EncodedHistory-like (`.n`) or packed edge dicts
+    (`["n"]`)."""
+    order = sorted(range(len(encs)), key=lambda i: -_size_of(encs[i]))
     buckets: list[list[int]] = []
     cur: list[int] = []
     cur_tpad = 0
     for i in order:
-        tpad = max(K.pad_to(max(encs[i].n, 1), multiple), 1)
+        tpad = max(K.pad_to(max(_size_of(encs[i]), 1), multiple), 1)
         t = max(cur_tpad, tpad)
         if cur and (len(cur) + 1) * t * t > budget_cells:
             buckets.append(cur)

@@ -41,12 +41,17 @@ spec = importlib.util.spec_from_file_location(
 smoke = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(smoke)        # main() stays unrun
 assert callable(smoke.main)
-print(len(mods))
+print(" ".join(mods))
 """
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=300, cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split()[-1]) >= 15
+    mods = set(proc.stdout.split())
+    assert len(mods) >= 19
+    # the edge-matrix path's modules (scipy, never the reference's
+    # native library)
+    assert {f"jepsen_tpu_torch.checker.elle.{m}"
+            for m in ("graph", "condense", "wr")} <= mods
 
 
 @pytest.mark.parametrize("path", port_sources(),

@@ -1,13 +1,16 @@
 """The ported slice end to end: `python -m jepsen_tpu_torch.cli
-analyze-store --checker append --device cpu` against the JAX package's
-`python -m jepsen_tpu.cli analyze-store --checker append` on two copies
-of one store.
+analyze-store --checker append|wr --device cpu` against the JAX
+package's `python -m jepsen_tpu.cli analyze-store` on two copies of one
+store — dense list-append runs, list-append runs past a lowered
+`DENSE_TXN_LIMIT` (set in both packages; the SCC-condensation path) and
+rw-register runs.
 
 Tolerance: byte-identical results.json / results.edn per run, identical
 verdicts.jsonl lines, equal exit codes."""
 
 import json
 import os
+import random
 import shutil
 import subprocess
 import sys
@@ -19,22 +22,35 @@ from jepsen_tpu_torch import cli
 from jepsen_tpu_torch.checker.elle import synth
 from jepsen_tpu_torch.checker.elle.closure_square import closure_square_ref
 from jepsen_tpu_torch.store import Store
+from test_fuzz_differential import rand_wr_history
 
 REPO = Path(__file__).resolve().parent.parent
 N_RUNS, T, KEYS, BAD_EVERY = 6, 300, 16, 3   # runs 2 and 5 carry G1c
 
 
-def run_cli(module: str, store: Path, *extra: str, tmp: Path):
+def run_cli(module: str, store: Path, *extra: str, tmp: Path,
+            checker: str = "append", dense_limit: int | None = None):
+    """`python -m <module> analyze-store` in a subprocess; with
+    `dense_limit`, the module's package gets that DENSE_TXN_LIMIT first."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
     # the reference's executable cache stays private to this test
     env["JEPSEN_TPU_AOT_CACHE"] = "0"
     env["JEPSEN_TPU_COMPILE_CACHE_DIR"] = str(tmp / "aot")
     env["JAX_PLATFORMS"] = "cpu"
-    return subprocess.run(
-        [sys.executable, "-m", module, "analyze-store", "--store",
-         str(store), "--checker", "append", *extra],
-        cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+    argv = [module, "analyze-store", "--store", str(store), "--checker",
+            checker, *extra]
+    if dense_limit is None:
+        cmd = [sys.executable, "-m", *argv]
+    else:
+        pkg = module.split(".")[0]
+        cmd = [sys.executable, "-c",
+               f"import runpy, sys; sys.argv = {argv!r}; "
+               f"import {pkg}.parallel as p; "
+               f"p.DENSE_TXN_LIMIT = {dense_limit}; "
+               f"runpy.run_module({module!r}, run_name='__main__')"]
+    return subprocess.run(cmd, cwd=tmp, env=env, capture_output=True,
+                          text=True, timeout=600)
 
 
 @pytest.fixture(scope="module")
@@ -91,17 +107,161 @@ def test_cli_without_cuda_exits_nonzero(tmp_path, monkeypatch):
 
 def test_unported_runs_are_named_not_verdicted(tmp_path, monkeypatch,
                                                capsys):
+    """Only the stored-checker cases go unverdicted: runs past the dense
+    limit are condensed and get verdicts; a txn-less run is named."""
     store = tmp_path / "s"
     synth.write_synth_run_store(store, B=2, T=200, K=4, bad_every=0)
     (store / "synth" / "run-00002").mkdir()
     (store / "synth" / "run-00002" / "history.jsonl").write_text(
         '{"type":"invoke","process":0,"f":"read","value":null,"index":0}\n')
     monkeypatch.setattr("jepsen_tpu_torch.parallel.DENSE_TXN_LIMIT", 100)
-    rc = cli.analyze_store(Store(store), device="cpu")
+    log: list = []
+    rc = cli.analyze_store(Store(store), device="cpu", condense_log=log)
     err = capsys.readouterr().err
     assert rc == 2
-    assert err.count(cli.NOT_PORTED) == 3
-    assert not list(store.rglob("results.json"))
+    assert err.count(cli.NOT_PORTED) == 1 and "run-00002" in err
+    assert "no txn ops" in err
+    assert sorted(p.parent.name for p in store.rglob("results.json")) == \
+        ["run-00000", "run-00001"]
+    assert [r["n"] for r in log] == [200, 200]
+
+
+@pytest.mark.parametrize("checker", ["append", "wr"])
+def test_unencodable_runs_are_named(tmp_path, capsys, checker):
+    store = tmp_path / "s"
+    if checker == "wr":
+        synth.write_wr_run_store(store, B=1, T=50, K=4, bad_every=0,
+                                 name="synth")
+    else:
+        synth.write_synth_run_store(store, B=1, T=50, K=4, bad_every=0)
+    bad = store / "synth" / "run-00001"
+    bad.mkdir()
+    (bad / "history.jsonl").write_text("{not json\n")
+    rc = cli.analyze_store(Store(store), checker=checker, device="cpu")
+    err = capsys.readouterr().err
+    assert rc == 2
+    assert err.count(cli.NOT_PORTED) == 1
+    assert f"not encodable as {checker}" in err and "run-00001" in err
+    assert not (bad / "results.json").exists()
+    assert (store / "synth" / "run-00000" / "results.json").exists()
+
+
+# The new paths against the reference CLI. "long": dense list-append runs
+# beside runs past a DENSE_TXN_LIMIT lowered to 1,000 in both packages
+# (valid, adjacent G1c pair, future read: an SCC of ~250 txns) — rc 1;
+# "wr": rw-register runs, every third with a write-skew pair (G2-item),
+# plus two corrupted fuzz runs (host anomalies, lean witnesses) — rc 1.
+LONG_LIMIT = 1_000
+
+
+def write_wr_store(base: Path) -> None:
+    synth.write_wr_run_store(base, B=6, T=300, K=8, bad_every=3)
+    for i, seed in enumerate((5, 12)):
+        rng = random.Random(seed)
+        d = base / "fuzz" / f"run-{i:05d}"
+        d.mkdir(parents=True)
+        d.joinpath("history.jsonl").write_text("".join(
+            json.dumps(o) + "\n"
+            for o in rand_wr_history(rng, 120, 6, 6)))
+
+
+@pytest.fixture(scope="module", params=["long", "wr"])
+def swept_new(request, tmp_path_factory):
+    kind = request.param
+    tmp = tmp_path_factory.mktemp(f"slice-{kind}")
+    if kind == "wr":
+        write_wr_store(tmp / "ref")
+        kw = dict(checker="wr")
+    else:
+        synth.write_synth_run_store(tmp / "ref", B=3, T=300, K=16,
+                                    bad_every=2)
+        synth.write_long_append_store(tmp / "ref", T=3_000, K=16,
+                                      future_gap=1_003)
+        kw = dict(dense_limit=LONG_LIMIT)
+    shutil.copytree(tmp / "ref", tmp / "port")
+    ref = run_cli("jepsen_tpu.cli", tmp / "ref", tmp=tmp, **kw)
+    port = run_cli("jepsen_tpu_torch.cli", tmp / "port", "--device", "cpu",
+                   tmp=tmp, **kw)
+    return kind, tmp, ref, port
+
+
+def test_new_paths_exit_codes_match(swept_new):
+    _, _, ref, port = swept_new
+    assert ref.returncode == port.returncode == 1, (ref.stderr[-2000:],
+                                                    port.stderr[-2000:])
+    assert cli.NOT_PORTED not in port.stderr
+
+
+@pytest.mark.parametrize("fname", ["results.json", "results.edn",
+                                   ".sweep-append", ".sweep-wr"])
+def test_new_paths_results_byte_identical(swept_new, fname):
+    kind, tmp, _, _ = swept_new
+    runs = sorted(p.parent.relative_to(tmp / "ref")
+                  for p in (tmp / "ref").rglob("history.jsonl"))
+    assert len(runs) == (8 if kind == "wr" else 6)
+    marker = fname.startswith(".sweep")
+    want_marker = fname == (".sweep-wr" if kind == "wr" else ".sweep-append")
+    for run in runs:
+        a, b = tmp / "ref" / run / fname, tmp / "port" / run / fname
+        if marker and not want_marker:
+            assert not a.exists() and not b.exists(), run
+            continue
+        assert a.read_bytes() == b.read_bytes(), run
+
+
+def test_new_paths_journal_lines_identical(swept_new):
+    kind, tmp, _, _ = swept_new
+    ref = (tmp / "ref" / "verdicts.jsonl").read_text().splitlines()
+    port = (tmp / "port" / "verdicts.jsonl").read_text().splitlines()
+    assert ref == port
+    bad = {json.loads(ln)["dir"]: json.loads(ln)["valid?"] for ln in port}
+    if kind == "long":
+        # dense runs first, then the condensed ones, as the reference
+        assert list(bad) == [f"synth/run-0000{i}" for i in range(3)] + \
+            [f"long/run-0000{i}" for i in range(3)]
+        assert [bad[f"long/run-0000{i}"] for i in range(3)] == \
+            [True, False, False]
+    else:
+        assert [bad[f"wr/run-0000{i}"] for i in range(6)] == \
+            [True, True, False, True, True, False]
+
+
+def test_new_paths_condensed_or_g2_verdicts(swept_new):
+    kind, tmp, _, _ = swept_new
+    res = {p.parent.name: json.loads(p.read_text()) for p in
+           (tmp / "port" / ("wr" if kind == "wr" else "long"))
+           .rglob("results.json")}
+    if kind == "wr":
+        assert res["run-00002"]["anomaly-types"] == ["G2-item"]
+    else:
+        assert res["run-00001"]["anomaly-types"] == ["G1c"]
+        assert "G1c" in res["run-00002"]["anomaly-types"]
+        assert res["run-00002"]["txn-count"] == 3_000 > LONG_LIMIT
+
+
+@pytest.mark.parametrize("kind", ["wr", "long"])
+def test_plain_square_gives_identical_verdicts_on_new_paths(
+        tmp_path, monkeypatch, kind):
+    monkeypatch.setattr("jepsen_tpu_torch.parallel.DENSE_TXN_LIMIT",
+                        LONG_LIMIT)
+    for sub in ("a", "b"):
+        if kind == "wr":
+            synth.write_wr_run_store(tmp_path / sub, B=4, T=300, K=8,
+                                     bad_every=2)
+        else:
+            synth.write_long_append_store(tmp_path / sub, T=2_000, K=16,
+                                          future_gap=611)
+    checker = "wr" if kind == "wr" else "append"
+    log_a: list = []
+    assert cli.analyze_store(Store(tmp_path / "a"), checker=checker,
+                             device="cpu", bucket_log=log_a) == 1
+    assert cli.analyze_store(Store(tmp_path / "b"), checker=checker,
+                             device="cpu", square=closure_square_ref) == 1
+    for p in (tmp_path / "a").rglob("results.*"):
+        assert p.read_bytes() == \
+            (tmp_path / "b" / p.relative_to(tmp_path / "a")).read_bytes()
+    assert sum(b["histories"] for b in log_a) == (4 if kind == "wr" else 2)
+    assert all(sum(b["closure_rounds"]) > 0 for b in log_a)
 
 
 def test_plain_square_gives_identical_verdicts(tmp_path):
