@@ -1,11 +1,11 @@
 """Command line of the PyTorch port:
 
     python -m jepsen_tpu_torch.cli analyze-store --store DIR \\
-        --checker append|wr [--device cuda|cpu]
+        --checker append|wr|register [--device cuda|cpu]
 
-Counterpart of `jepsen_tpu/cli.py`'s `analyze-store` for the Elle
-checkers: every stored run is encoded and checked on the device, and
-each verdict lands as the reference writes it — `results.edn`,
+Counterpart of `jepsen_tpu/cli.py`'s `analyze-store` for the Elle and
+register checkers: every stored run is checked on the device, and each
+verdict lands as the reference writes it — `results.edn`,
 `results.json` (atomic), the `.sweep-<checker>` resume marker, one
 `verdicts.jsonl` line and one JSON summary line on stdout.
 
@@ -15,12 +15,17 @@ each verdict lands as the reference writes it — `results.edn`,
 - `wr` (rw-register): host-built dependency edges, length-bucketed
   through the same device classification
   (`kernels.check_edge_batch_bucketed`).
+- `register` (per-key CAS-register linearizability): every run's values
+  are re-lifted to `[k v]` and split per key in one pass, and every key
+  of every run goes down in one `Linearizable.check_batch` (dense grid
+  -> bounded frontier -> CPU WGL); verdicts regroup per run.
 
 Exit codes, as the reference's: 0 every run valid, 1 some run invalid,
 2 validity unknown, 254 usage error (or no stored runs), 255 crash or
-no CUDA device. A run the port cannot check yet — not encodable, or
-with no txn ops (the reference's stored-checker path) — gets no
-verdict: it is named on stderr and the sweep exits 2 at least.
+no CUDA device. A run the port cannot check yet — one the reference
+sends to its stored-checker path: not encodable, with no txn ops, or
+for `register` not register-shaped — gets no verdict: it is named on
+stderr and the sweep exits 2 at least.
 """
 
 from __future__ import annotations
@@ -77,27 +82,128 @@ def _write_results(d, res: dict, checker: str, journal=None) -> int:
     line = {"dir": str(d), "valid?": res.get("valid?")}
     if "anomaly-types" in res:
         line["anomalies"] = res.get("anomaly-types", [])
+    if "failures" in res:
+        line["failures"] = res["failures"]
     print(json.dumps(line))
     return validity_exit_code(res)
 
 
+def _register_sweep(run_dirs: list, dev, emit, skipped: list,
+                    dense_scan=None, register_log: dict | None = None
+                    ) -> None:
+    """Per-key CAS-register linearizability over every run: each key's
+    subhistory from every run goes down in one tiered `check_batch`,
+    then verdicts regroup per run and `emit` writes them, in run order.
+    If the batch raises (a malformed run), each key is re-checked alone
+    and a key that raises again gets `{"valid?": "unknown", "error"}` —
+    except a build or device failure, which is no run's fault and
+    propagates. Runs the reference sends to its stored checker land in
+    `skipped`."""
+    from . import _build, independent, ingest
+    from .checker import linearizable, merge_valid, models
+    from .devices import DeviceUnavailable
+
+    c = linearizable(models.cas_register(), device=dev,
+                     dense_scan=dense_scan)
+    t0 = time.perf_counter()
+    hists = ingest.load_runs(run_dirs)
+    t1 = time.perf_counter()
+    subs: list[list] = []          # flattened subhistories
+    owners: list[tuple[int, object]] = []   # (run index, key)
+    checked: set[int] = set()
+    for i, (d, hist) in enumerate(zip(run_dirs, hists)):
+        if isinstance(hist, Exception):
+            skipped.append((d, f"not loadable: {hist!r}"))
+            continue
+        hist = independent.relift_history(hist)
+        client_fs = {o.get("f") for o in hist
+                     if o.get("process") != "nemesis"
+                     and o.get("f") is not None}
+        if not client_fs or not client_fs <= {"read", "write", "cas"}:
+            skipped.append((d, f"not register-shaped (client f "
+                               f"{sorted(map(str, client_fs))})"))
+            continue
+        by_key = independent.subhistories(hist)   # one pass, all keys
+        ks = list(by_key)
+        # a plain cas value is [old new] (scalars); a LIFTED cas value
+        # is [key [old new]] — second element a list marks it lifted
+        if not ks and any(
+                isinstance(o.get("value"), (list, tuple))
+                and len(o["value"]) == 2
+                and (o.get("f") != "cas"
+                     or isinstance(o["value"][1], (list, tuple)))
+                for o in hist if o.get("process") != "nemesis"):
+            # looks lifted ([k v] values) but relift declined (e.g. no
+            # ok read survived the faults): checking it as ONE register
+            # would feed the oracle [key value] pairs
+            skipped.append((d, "lifted values, but relift declined"))
+            continue
+        checked.add(i)
+        for k in (ks or [None]):
+            subs.append(by_key[k] if ks else hist)
+            owners.append((i, k))
+    t2 = time.perf_counter()
+    tiers: list = []
+    try:
+        results = c.check_batch({}, subs, {}, tier_log=tiers) \
+            if subs else []
+    except (_build.KernelBuildError, DeviceUnavailable):
+        raise
+    except Exception:
+        # one malformed run must not sink the sweep: re-dispatch each
+        # subhistory in isolation, degrading only the broken ones
+        log.warning("batched register sweep failed; isolating per key",
+                    exc_info=True)
+        results = []
+        for s in subs:
+            try:
+                results.append(c.check_batch({}, [s], {})[0])
+            except (_build.KernelBuildError, DeviceUnavailable):
+                raise
+            except Exception as e:
+                results.append({"valid?": "unknown",
+                                "error": repr(e)[:200]})
+    t3 = time.perf_counter()
+    if register_log is not None:
+        register_log.update(load_s=t1 - t0, split_s=t2 - t1,
+                            check_s=t3 - t2, keys=len(subs), tiers=tiers)
+    per_run: dict[int, dict] = {}
+    for (i, k), res in zip(owners, results):
+        per_run.setdefault(i, {})[k] = res
+    for i, d in enumerate(run_dirs):
+        if i not in checked:
+            continue
+        keyed = per_run.get(i, {})
+        emit(d, {"valid?": merge_valid([r.get("valid?", True)
+                                        for r in keyed.values()] or [True]),
+                 "checker": "register",       # --resume marker
+                 "key-count": len(keyed),
+                 "results": {str(k): r for k, r in keyed.items()},
+                 "failures": sorted(str(k) for k, r in keyed.items()
+                                    if r.get("valid?") is False)})
+
+
 def analyze_store(store: Store, checker: str = "append", device=None,
                   square=None, bucket_log: list | None = None,
-                  condense_log: list | None = None) -> int:
-    """Batch re-check every stored run with `checker` ("append" or "wr")
-    on `device` (default cuda; raises devices.DeviceUnavailable without
-    one). `square` replaces the closure squaring (e.g.
-    `closure_square_ref`, the plain version, in place of the hand
-    kernel); `bucket_log` collects one dict per device bucket (see
-    parallel.check_bucketed) and `condense_log` one dict per condensed
-    long history (see condense.check_condensed). Returns the worst exit
-    code."""
+                  condense_log: list | None = None, dense_scan=None,
+                  register_log: dict | None = None) -> int:
+    """Batch re-check every stored run with `checker` ("append", "wr"
+    or "register") on `device` (default cuda; raises
+    devices.DeviceUnavailable without one). `square` replaces the
+    closure squaring (e.g. `closure_square_ref`, the plain version, in
+    place of the hand kernel) and `dense_scan` the register checker's
+    dense scan (e.g. `dense.scan_dense_ref` in place of
+    `knossos_dense_scan`); `bucket_log` collects one dict per device
+    bucket (see parallel.check_bucketed), `condense_log` one dict per
+    condensed long history (see condense.check_condensed) and
+    `register_log` the register sweep's load/split/check seconds, key
+    count and device tiers. Returns the worst exit code."""
     from . import ingest, parallel
     from .checker import elle
     from .checker.elle import kernels, wr
     from .devices import resolve_device
 
-    if checker not in ("append", "wr"):
+    if checker not in ("append", "wr", "register"):
         raise ValueError(f"checker {checker!r} is not ported")
     dev = resolve_device(device)
     run_dirs = list(store.iter_run_dirs())
@@ -112,6 +218,15 @@ def analyze_store(store: Store, checker: str = "append", device=None,
         nonlocal worst
         res["checker"] = checker   # the reference's --resume marker
         worst = max(worst, _write_results(d, res, checker, journal=journal))
+
+    if checker == "register":
+        try:
+            _register_sweep(run_dirs, dev, emit, skipped,
+                            dense_scan=dense_scan,
+                            register_log=register_log)
+        finally:
+            journal.close()
+        return _report_skipped(skipped, worst)
 
     def render(enc, cycles) -> dict:
         if checker == "wr":
@@ -155,12 +270,16 @@ def analyze_store(store: Store, checker: str = "append", device=None,
                 condense_log=condense_log)))
     finally:
         journal.close()
+    return _report_skipped(skipped, worst)
+
+
+def _report_skipped(skipped: list, worst: int) -> int:
+    """Name the runs left without a verdict on stderr; the sweep's exit
+    code is then 2 at least."""
     for d, why in skipped:
         print(f"{NOT_PORTED}: {d} ({why}); no verdict written",
               file=sys.stderr)
-    if skipped:
-        worst = max(worst, 2)
-    return worst
+    return max(worst, 2) if skipped else worst
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -171,7 +290,7 @@ def main(argv: list[str] | None = None) -> int:
         help="batch re-check every stored run on the GPU")
     a.add_argument("--store", default="store")
     a.add_argument("--checker", default="append",
-                   choices=["append", "wr"])
+                   choices=["append", "wr", "register"])
     a.add_argument("--device", default=None, choices=["cuda", "cpu"],
                    help="where the kernels run (default cuda; cpu only "
                         "when asked)")

@@ -3,9 +3,12 @@
 This system has no weights: the state a check runs on is the packed
 batch (`kernels.pack_batch`) and the `EncodedHistory` it is packed
 from, or, for rw-register runs, the `WrEncoded` whose edge lists
-`kernels.pack_edge_matrices` packs. Both are plain numpy on either side, so carrying them across is
-a copy into the port's own types — which lets a test feed the JAX
-function and its port counterpart identical inputs. Nothing here
+`kernels.pack_edge_matrices` packs, or, for linearizability, the dense
+grid's `DenseEncoded` timeline and the frontier's
+`EncodedRegisterHistory` event stream. All are plain numpy on either
+side, so carrying them across is a copy into the port's own types —
+which lets a test feed the JAX function and its port counterpart
+identical inputs. Nothing here
 imports the JAX package: the reference objects arrive as numpy arrays,
 dicts and plain attributes.
 """
@@ -16,6 +19,8 @@ import numpy as np
 import torch
 
 from .checker.elle.encode import EncodedHistory
+from .checker.knossos.dense import DenseEncoded
+from .checker.knossos.encode import EncodedRegisterHistory
 from .checker.elle.wr import WrEncoded
 from .checker.elle.kernels import BatchShape, batch_to_device
 
@@ -72,3 +77,38 @@ def wr_encoded_from_fields(*, n, edges, status, process, invoke_index,
         invoke_index=np.array(invoke_index, np.int64),
         complete_index=np.array(complete_index, np.int64),
         anomalies=dict(anomalies or {}), key_count=int(key_count))
+
+
+#: The DenseEncoded fields (all of them).
+DENSE_FIELDS = ("regs", "comp_slot", "n_steps", "n_slots", "n_values",
+                "n_ops")
+
+
+def dense_from_fields(*, regs, comp_slot, n_steps, n_slots, n_values,
+                      n_ops) -> DenseEncoded:
+    """A port DenseEncoded from a reference one's fields
+    (`{f: getattr(ref, f) for f in DENSE_FIELDS}`), arrays copied."""
+    return DenseEncoded(
+        regs=np.array(regs, np.int32).reshape(-1, int(n_slots), 4),
+        comp_slot=np.array(comp_slot, np.int32).reshape(-1),
+        n_steps=int(n_steps), n_slots=int(n_slots),
+        n_values=int(n_values), n_ops=int(n_ops))
+
+
+#: The EncodedRegisterHistory fields (all of them).
+REGISTER_FIELDS = ("events", "n_events", "n_slots", "n_values", "values",
+                   "uncond_peak", "half_doublings_peak")
+
+
+def register_from_fields(*, events, n_events, n_slots, n_values, values,
+                         uncond_peak, half_doublings_peak
+                         ) -> EncodedRegisterHistory:
+    """A port EncodedRegisterHistory from a reference one's fields
+    (`{f: getattr(ref, f) for f in REGISTER_FIELDS}`), arrays and the
+    intern table copied."""
+    return EncodedRegisterHistory(
+        events=np.array(events, np.int32).reshape(-1, 6),
+        n_events=int(n_events), n_slots=int(n_slots),
+        n_values=int(n_values), values=list(values),
+        uncond_peak=int(uncond_peak),
+        half_doublings_peak=int(half_doublings_peak))

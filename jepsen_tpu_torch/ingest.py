@@ -1,7 +1,8 @@
 """Store -> encoding ingest, serial.
 
 Counterpart of `jepsen_tpu/ingest.py` (`encode_run_dir`,
-`iter_encode_chunks`) over the port's own store loader and pure-Python
+`iter_encode_chunks`, and `load_runs`, the serial twin of its
+`parallel_load`) over the port's own store loader and pure-Python
 encoders: `encode.encode_history` for list-append runs and
 `wr.encode_wr_history` for rw-register runs. The reference's process
 pool, shared-memory transport, sidecar cache and native encoder are not
@@ -52,3 +53,16 @@ def iter_encode_chunks(run_dirs: Sequence[str | os.PathLike],
             except Exception as e:   # per-run isolation: caller reports it
                 out.append((d, e))
         yield out
+
+
+def load_runs(run_dirs: Sequence[str | os.PathLike]) -> list:
+    """The raw op histories of `run_dirs`, in order: each run's history,
+    or the Exception its load raised (per-run isolation: the caller
+    reports it)."""
+    out: list = []
+    for d in run_dirs:
+        try:
+            out.append(load_history_dir(d))
+        except Exception as e:
+            out.append(e)
+    return out

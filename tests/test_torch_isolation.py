@@ -52,6 +52,12 @@ print(" ".join(mods))
     # native library)
     assert {f"jepsen_tpu_torch.checker.elle.{m}"
             for m in ("graph", "condense", "wr")} <= mods
+    # the register path's modules (the WGL library is the port's own
+    # build of csrc/wgl.cc, never the reference's)
+    assert {f"jepsen_tpu_torch.checker.knossos.{m}"
+            for m in ("dense", "encode", "kernels", "packed", "synth")} \
+        | {"jepsen_tpu_torch.checker.models",
+           "jepsen_tpu_torch.independent"} <= mods
 
 
 @pytest.mark.parametrize("path", port_sources(),
