@@ -41,11 +41,13 @@ failure:
               cyclic runs byte-identical
   7. knossos  the dense configuration-grid kernel, knossos_dense_scan,
               held to its plain version scan_dense_ref on the card (exact
-              equality of valid [B]) at S in {1, 4, 10, 14} slots x V in
-              {8, 64} values, ragged histories with pad steps, valid and
-              corrupt, B from 1 to 256; then timed beside the plain
-              version at the main shape: 100 histories of 1,000 ops at
-              concurrency 10 (BASELINE config #1)
+              equality of valid [B] and of the Jacobi rounds [B]) at S from
+              1 to 14 slots x V from 3 to 64 values, ragged histories with
+              pad steps, valid and corrupt, B from 1 to 256: at least two
+              cases in each tier (warp, block) and a case on each side of
+              the tier boundary at V = 8 and V = 64; then timed beside the
+              plain version at the main shape: 100 histories of 1,000 ops
+              at concurrency 10 (BASELINE config #1)
   8. register `analyze-store --checker register` on cuda over a store of
               64 lifted CAS-register runs x 1,000 ops over 50 keys
               (every 8th run carrying a read of a value never written on
@@ -73,6 +75,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -101,15 +104,21 @@ STORE_RUNS, STORE_T, STORE_K, BAD_EVERY = 64, 5000, 64, 8
 #: Phase 5: rw-register runs; the plain re-run takes the first WR_PLAIN.
 WR_RUNS, WR_T, WR_K, WR_BAD_EVERY, WR_PLAIN = 32, 5000, 64, 8, 8
 #: Phase 7: (slots S, values V, histories B, ops a history) of each
-#: kernel-vs-plain case, and the main shape (BASELINE config #1).
+#: kernel-vs-plain case, and the main shape (BASELINE config #1). The
+#: tier boundary (dense.plan_scan) lies between S = 11 and 12 at V = 8,
+#: and between S = 8 and 9 at V = 64.
 KN_CASES = [(1, 8, 256, 40), (1, 64, 1, 200), (4, 8, 37, 80),
-            (4, 64, 256, 60), (10, 8, 100, 120), (10, 64, 8, 120),
-            (14, 8, 16, 80), (14, 64, 2, 80)]
+            (4, 64, 256, 60), (5, 3, 64, 60), (6, 16, 37, 120),
+            (10, 8, 100, 120), (9, 32, 16, 150), (8, 64, 16, 150),
+            (11, 8, 16, 120), (12, 8, 16, 100), (9, 64, 16, 150),
+            (10, 64, 8, 120), (14, 8, 16, 80), (14, 64, 2, 80)]
 KN_B, KN_OPS, KN_CONC = 100, 1000, 10
 #: Phase 8: lifted register runs (bench.py's register sweep shape), and
 #: each conc-20 population's size and ops.
 REG_RUNS, REG_OPS, REG_KEYS, REG_BAD_EVERY = 64, 1000, 50, 8
 C20_B, C20_OPS = 20, 400
+#: The frontier tier's arena (kernels.check_encoded_batch's default).
+FRONTIER = 512
 #: Phase 6: long list-append runs (synth.LONG_RUN_KINDS) and the
 #: anomaly types each must come out with. The future run's classes are
 #: those the host classifier (graph.classify_cycles) finds in its SCC.
@@ -567,18 +576,10 @@ def dense_batch(S: int, V: int, B: int, n_ops: int, seed: int):
     """B synthetic register histories (every other one corrupted) at
     concurrency S, packed at exactly S slots and V values with 3 pad
     steps past the longest: (regs, comp) on the device."""
-    from jepsen_tpu_torch.checker.knossos import dense, synth
+    from jepsen_tpu_torch.checker.knossos import synth
 
-    hs = synth.synth_register_batch(B=B, n_ops=n_ops, n_procs=S,
-                                    n_values=5 if V == 8 else 60,
-                                    info_prob=0.02, seed=seed,
-                                    max_pending=S)
-    encs = [dense.encode_dense_history(synth.corrupt(h, seed=i) if i % 2
-                                       else h) for i, h in enumerate(hs)]
-    b = dense.pack_dense_batch(encs, dense.DenseBatchShape(
-        n_steps=max(e.n_steps for e in encs) + 3, n_slots=S, n_values=V))
-    return (torch.from_numpy(b["regs"]).to(DEVICE),
-            torch.from_numpy(b["comp"]).to(DEVICE))
+    regs, comp = synth.dense_batch(S, V, B, n_ops, seed)
+    return torch.from_numpy(regs).to(DEVICE), torch.from_numpy(comp).to(DEVICE)
 
 
 def event_ms(fn):
@@ -597,22 +598,30 @@ def phase_knossos(name: str) -> dict:
     exactly), then its timing at the main shape."""
     from jepsen_tpu_torch.checker.knossos import dense, synth
 
-    seen = set()
+    seen, by_tier = set(), {}
     for i, (S, V, B, n_ops) in enumerate(KN_CASES):
         regs, comp = dense_batch(S, V, B, n_ops, seed=i)
+        plan = dense.plan_scan(S, V)
         got = dense.knossos_dense_scan(regs, comp, V, S)
         want = dense.scan_dense_ref(regs, comp, V, S)
         torch.cuda.synchronize()
-        check(torch.equal(got[0], want[0]),
-              f"knossos_dense_scan's valid differs from scan_dense_ref at "
-              f"S={S} V={V} B={B}: {got[0].tolist()} vs {want[0].tolist()}")
-        # in place, a round adds at least what a Jacobi round does
-        check(bool((got[1] <= want[1]).all()),
-              f"more in-place rounds than Jacobi rounds at S={S} V={V}")
+        for part, g, w in zip(("valid", "rounds"), got, want):
+            check(torch.equal(g, w),
+                  f"knossos_dense_scan's {part} differs from scan_dense_ref "
+                  f"at S={S} V={V} B={B} ({plan.tier} tier): {g.tolist()} "
+                  f"vs {w.tolist()}")
         seen.update(got[0].tolist())
+        by_tier.setdefault(plan.tier, []).append((S, V, B, n_ops))
+        say(f"  S={S} V={V} B={B} ops={n_ops}: {plan.tier} tier "
+            f"({plan.threads} threads, {plan.smem_bytes} B shared), "
+            f"{int(got[1].sum())} rounds, equal")
     check(seen == {True, False}, "the cases hold valid and invalid ones")
+    check(set(by_tier) == {"warp", "block"}
+          and all(len(c) >= 2 for c in by_tier.values()),
+          f"each tier needs two cases or more: {by_tier}")
     say(f"knossos_dense_scan == scan_dense_ref on {len(KN_CASES)} cases "
-        f"(S, V, B, ops) {KN_CASES} (valid [B], exact)")
+        f"(valid [B] and rounds [B], exact); by tier (S, V, B, ops) "
+        f"{by_tier}")
 
     hs = synth.synth_register_batch(B=KN_B, n_ops=KN_OPS, n_procs=KN_CONC,
                                     info_prob=0.0, seed=1)
@@ -625,9 +634,10 @@ def phase_knossos(name: str) -> dict:
     (valid, rounds), _ = event_ms(kernel)
     (pvalid, prounds), plain_ms = event_ms(
         lambda: dense.scan_dense_ref(regs, comp, V, S))
-    check(torch.equal(valid, pvalid) and bool(valid.all()),
-          "config #1's histories: kernel and plain disagree, or one is "
-          "not valid")
+    check(torch.equal(valid, pvalid) and bool(valid.all())
+          and torch.equal(rounds, prounds),
+          "config #1's histories: kernel and plain disagree (valid or "
+          "rounds), or one is not valid")
     cuda_ms(kernel, 2)                                          # warm-up
     ms = statistics.median(cuda_ms(kernel, 5, burst=3))
     # the bound: regs and comp read once, valid and rounds written once;
@@ -640,10 +650,12 @@ def phase_knossos(name: str) -> dict:
     ops = int(rounds.sum()) * V * W * (2 * S + 1) + steps * V * W * 2
     t_ops = ops / word_peak(name) * 1e3
     t_bytes = nbytes / peaks(name)[1] * 1e3
+    plan = dense.plan_scan(S, V)
     say(f"knossos_dense_scan at the main shape B={KN_B} C_pad={sh.n_steps} "
-        f"S={S} V={V} ({steps} completion steps, kernel rounds "
-        f"{int(rounds.sum())}, plain (Jacobi) rounds {int(prounds.sum())}): "
-        f"kernel median {ms} ms, plain (scan_dense_ref) {plain_ms} ms; "
+        f"S={S} V={V}, {plan.tier} tier ({plan.histories_per_block} "
+        f"histories a block) ({steps} completion steps, rounds "
+        f"{int(rounds.sum())}, equal to the plain version's): kernel "
+        f"median {ms} ms, plain (scan_dense_ref) {plain_ms} ms; "
         f"bound {max(t_ops, t_bytes)} ms (operations {t_ops}: {ops} word "
         f"ops; bytes {t_bytes}: {nbytes} B); no single PyTorch call "
         "computes it")
@@ -654,7 +666,8 @@ def phase_knossos(name: str) -> dict:
             "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None,
-            "shape": {"B": KN_B, "C_pad": sh.n_steps, "S": S, "V": V}}
+            "shape": {"B": KN_B, "C_pad": sh.n_steps, "S": S, "V": V},
+            "tier": plan.tier, "rounds": int(rounds.sum())}
 
 
 def oracle(hs: list) -> list:
@@ -668,12 +681,14 @@ def tiers(log: list) -> str:
                      for t in log)
 
 
-def phase_register() -> dict:
-    """The register checker on the card; returns per path (launches,
-    device milliseconds) of knossos_dense_scan."""
+def phase_register(name: str) -> dict:
+    """The register checker on the card (`name` the card's, for the
+    frontier's bound); returns per path (launches, device milliseconds)
+    of knossos_dense_scan."""
     from jepsen_tpu_torch.checker import Linearizable, models
     from jepsen_tpu_torch.checker.knossos import dense, kernels, synth
     from jepsen_tpu_torch.checker.knossos import encode as kenc
+    from jepsen_tpu_torch.checker.knossos import packed as kpacked
 
     paths = {}
     t0 = time.perf_counter()
@@ -768,13 +783,33 @@ def phase_register() -> dict:
     front = [r["analyzer"] == "tpu-jit" for r in got]
     encs = [kenc.encode_register_history(h)
             for h, f in zip(hs, front) if f]
-    timed = {}
-    for packed in (False, True):
+    timed, rounds = {}, {}
+    for packed, fixpoint in ((False, kernels._expand_fixpoint),
+                             (True, kpacked._expand_fixpoint_packed)):
         res, timed[packed] = event_ms(lambda: kernels.check_encoded_batch(
             encs, device=DEVICE, packed=packed))
         check([r["valid?"] for r in res]
               == [v for v, f in zip(want, front) if f],
               f"the frontier (packed={packed}) differs from the oracle")
+        fixpoint.rounds = log = []       # again, untimed, counting rounds
+        try:
+            kernels.check_encoded_batch(encs, device=DEVICE, packed=packed)
+        finally:
+            fixpoint.rounds = None
+        rounds[packed] = sum(int(r.sum()) for r in log)
+    # each frontier's bound: its events read once, valid and overflow
+    # written once; per round it ran on a history (its exit test is its
+    # own, so the two differ), one sort and one dedupe pass over the
+    # F * (S+1) candidates (N log2 N + N compares, the least a comparison
+    # sort does), at the 32-bit rate
+    fs = kernels.pack_register_batch(encs)["shape"]
+    n_cand = FRONTIER * (fs.n_slots + 1)
+    f_bytes = 4 * 6 * len(encs) * fs.n_events + 2 * len(encs)
+    bounds = {}
+    for packed, n in rounds.items():
+        f_ops = n * (n_cand * math.ceil(math.log2(n_cand)) + n_cand)
+        bounds[packed] = (f_ops / word_peak(name) * 1e3,
+                          f_bytes / peaks(name)[1] * 1e3, f_ops)
     say(f"conc-20 ({2 * C20_B} histories): check_batch {wall:.3f}s wall, "
         f"tiers {tally} ({tiers(tl)}), {launches} knossos_dense_scan "
         f"launches taking {dense_ms} ms of device time; the frontier's "
@@ -782,7 +817,14 @@ def phase_register() -> dict:
         f"E={max(e.n_events for e in encs)}): _scan_history "
         f"{timed[False]} ms, _scan_history_packed {timed[True]} ms "
         "(CUDA events around the call; its rounds read one flag each "
-        "from the host); every valid? equal to the native WGL's")
+        "from the host); "
+        + "; ".join(f"{label}: {rounds[k]} rounds, bound {max(b[:2])} ms "
+                    f"(operations {b[0]}: {b[2]} compares; bytes {b[1]}: "
+                    f"{f_bytes} B)"
+                    for k, label, b in ((False, "_scan_history", bounds[False]),
+                                        (True, "_scan_history_packed",
+                                         bounds[True])))
+        + "; every valid? equal to the native WGL's")
     return paths
 
 
@@ -821,7 +863,7 @@ def main() -> int:
         paths["wr"] = phase_wr()
         paths["long"] = phase_long()
         dense_record = phase_knossos(name)
-        dense_paths = phase_register()
+        dense_paths = phase_register(name)
         for rec, ps in ((record, paths), (dense_record, dense_paths)):
             rec["launches"] = sum(n for n, _ in ps.values())
             rec["paths"] = {k: {"launches": n, "device_ms": ms}

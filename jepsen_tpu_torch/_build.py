@@ -54,12 +54,14 @@ PROTOTYPES = {
         "closure_square_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
     "knossos_dense": {
-        # (regs, comp, valid, rounds, B, C, S, V, device, stream)
+        # (regs, comp, valid, rounds, B, C, S, V, tier, threads, device,
+        #  stream)
         "knossos_dense_launch": (
             ctypes.c_int,
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p]),
         "knossos_dense_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
     "wgl": {

@@ -12,9 +12,11 @@ pending-slot register file at each completion is precomputed on the
 host as a [C, S, 4] timeline.
 
 The walk over C completion steps, each with up to S+2 expansion rounds,
-is the hand kernel `knossos_dense_scan` (`csrc/knossos_dense.cu`, one
-thread block per history, the whole walk in one launch) on a CUDA
-tensor, and its plain PyTorch version `scan_dense_ref` on a CPU tensor.
+is the hand kernel `knossos_dense_scan` (`csrc/knossos_dense.cu`, the
+whole walk in one launch: one warp a history with the grid in registers
+for grids of up to `WARP_MAX_WORDS` words, else one block a history with
+the grid in shared memory; `plan_scan` picks) on a CUDA tensor, and its
+plain PyTorch version `scan_dense_ref` on a CPU tensor.
 Histories past the grid's budgets (more than 14 pending slots, more
 than 64 values) raise EncodingError and go to the bounded frontier
 (`.kernels`) or the CPU oracle.
@@ -35,6 +37,18 @@ from .encode import CAS, READ, WRITE, EncodingError, _reduced_seq
 
 #: The kernel's grid budget: S <= 14 slots (2^14 masks), V <= 64 values.
 MAX_SLOTS, MAX_VALUES = 14, 64
+#: The warp tier holds grids of up to this many 32-bit words (V rounded
+#: up to a power of two, at least 8): 16 words a lane, the most its
+#: instantiations hold in registers without spilling. Larger grids take
+#: the block tier.
+WARP_MAX_WORDS = 512
+#: The block tier keeps up to this many of a thread's words' new values
+#: in registers, the rest in shared memory past the grid.
+BLOCK_MAX_REG_WORDS = 8
+#: Histories (warps) a block of the warp tier.
+WARP_HISTORIES_PER_BLOCK = 2
+#: Threads a block may have.
+MAX_THREADS = 1024
 
 _F_CODES = {"read": READ, "write": WRITE, "cas": CAS}
 
@@ -199,10 +213,12 @@ def scan_dense_ref(regs: torch.Tensor, comp: torch.Tensor, n_values: int,
     run). Batched over B; a loop over the C steps and S+2 rounds, each
     round gated per history by its own `changed & (round < S+2)` — what
     vmap of the reference's while_loop does — with no host sync in the
-    loop. A round loops over slots and accumulates add[B,V,M] rather
+    loop on a card (on the CPU a step stops once no history is still
+    active). A round loops over slots and accumulates add[B,V,M] rather
     than materialising all slots at once."""
     B, C, S, _ = regs.shape
     V, dev = n_values, regs.device
+    on_cpu = dev.type == "cpu"
     has, flip, up = _mask_tables(S, dev)
     grid = torch.zeros((B, V, 1 << S), dtype=torch.bool, device=dev)
     grid[:, 0, 0] = True
@@ -224,6 +240,8 @@ def scan_dense_ref(regs: torch.Tensor, comp: torch.Tensor, n_values: int,
         active = cs >= 0
         rnd = torch.zeros(B, dtype=torch.int32, device=dev)
         for _ in range(S + 2):
+            if on_cpu and not bool(active.any()):
+                break        # no host sync on a card; here it costs nothing
             add = torch.zeros_like(grid)
             for s in range(S):
                 # x[b, u, m] = grid[b, u, m ^ bit_s] for m with bit s
@@ -244,6 +262,51 @@ def scan_dense_ref(regs: torch.Tensor, comp: torch.Tensor, n_values: int,
             & ~has[k][:, None, :] & (cs < S)[:, None, None]
         grid = torch.where((cs >= 0)[:, None, None], retired, grid)
     return grid.flatten(1).any(1), rounds
+
+
+@dataclass(frozen=True)
+class ScanPlan:
+    """How `knossos_dense_scan` launches for one (S, V): the tier
+    ("warp": one warp a history, the grid in registers; "block": one
+    block a history, the grid in shared memory), threads a block,
+    dynamic shared memory a block, and histories a block."""
+
+    tier: str
+    threads: int
+    smem_bytes: int
+    histories_per_block: int
+
+
+def grid_words(n_slots: int, n_values: int) -> tuple[int, int]:
+    """(words a row, words of the grid) of the [V, 2^S]-bit grid."""
+    w = 1 << max(0, n_slots - 5)
+    return w, n_values * w
+
+
+def warp_values(n_values: int) -> int:
+    """Rows the warp tier lays a grid of V values out as: V rounded up
+    to a power of two, at least 8 (8 rows across a warp's lanes)."""
+    return max(8, 1 << (n_values - 1).bit_length())
+
+
+def plan_scan(n_slots: int, n_values: int, *,
+              histories_per_block: int = WARP_HISTORIES_PER_BLOCK,
+              warp_max_words: int = WARP_MAX_WORDS) -> ScanPlan:
+    """The launch of `knossos_dense_scan` for S slots and V values: the
+    warp tier while the grid, with V rounded up (`warp_values`), has at
+    most `warp_max_words` words, else the block tier (threads enough
+    for at most 32 words each; the grid and the rows' OR in shared
+    memory, and past them the new values of a round's words beyond 8 a
+    thread). The kernel refuses a warp-tier grid past 512 words."""
+    w, words = grid_words(n_slots, n_values)
+    if warp_values(n_values) * w <= min(warp_max_words, WARP_MAX_WORDS):
+        return ScanPlan("warp", 32 * histories_per_block, 0,
+                        histories_per_block)
+    threads = min(MAX_THREADS, -(-words // 32) * 32)
+    in_regs = threads * min(BLOCK_MAX_REG_WORDS,
+                            1 << (-(-words // threads) - 1).bit_length())
+    return ScanPlan("block", threads,
+                    4 * (words + w + max(0, words - in_regs)), 1)
 
 
 def _check_scan_args(regs: torch.Tensor, comp: torch.Tensor, n_values: int,
@@ -270,19 +333,23 @@ def _check_scan_args(regs: torch.Tensor, comp: torch.Tensor, n_values: int,
 
 
 def knossos_dense_scan(regs: torch.Tensor, comp: torch.Tensor,
-                       n_values: int, n_slots: int
-                       ) -> tuple[torch.Tensor, torch.Tensor]:
+                       n_values: int, n_slots: int, plan: ScanPlan | None
+                       = None) -> tuple[torch.Tensor, torch.Tensor]:
     """The dense scan of a batch (regs [B,C,S,4] int32, comp [B,C]
     int32, contiguous, S <= 14, V <= 64): returns (valid [B] bool,
-    rounds [B] int32) from the CUDA kernel for CUDA tensors, from the
-    plain version for CPU tensors. The two agree exactly on `valid`;
-    `rounds` can differ (the kernel's rounds are in place)."""
+    rounds [B] int32) from the CUDA kernel for CUDA tensors, launched as
+    `plan` says (default `plan_scan(S, V)`), from the plain version for
+    CPU tensors. The two agree exactly on both outputs: the kernel's
+    rounds are Jacobi rounds, as the plain version's and the
+    reference's are."""
     _check_scan_args(regs, comp, n_values, n_slots)
     if regs.device.type == "cpu":
         return scan_dense_ref(regs, comp, n_values, n_slots)
     if regs.device.type != "cuda":
         raise ValueError(f"knossos_dense_scan runs on cuda or cpu, not "
                          f"{regs.device}")
+    if regs.data_ptr() % 16:
+        raise ValueError("knossos_dense_scan takes regs aligned to 16 bytes")
     B, C = comp.shape
     valid = torch.empty(B, dtype=torch.bool, device=regs.device)
     rounds = torch.empty(B, dtype=torch.int32, device=regs.device)
@@ -290,6 +357,7 @@ def knossos_dense_scan(regs: torch.Tensor, comp: torch.Tensor,
         return valid, rounds
     from ... import _build
 
+    plan = plan or plan_scan(n_slots, n_values)
     lib = _build.load("knossos_dense")
     stream = torch.cuda.current_stream(regs.device)
     events = knossos_dense_scan.events
@@ -298,12 +366,13 @@ def knossos_dense_scan(regs: torch.Tensor, comp: torch.Tensor,
         start.record(stream)
     rc = lib.knossos_dense_launch(
         regs.data_ptr(), comp.data_ptr(), valid.data_ptr(),
-        rounds.data_ptr(), B, C, n_slots, n_values, regs.device.index,
+        rounds.data_ptr(), B, C, n_slots, n_values,
+        0 if plan.tier == "warp" else 1, plan.threads, regs.device.index,
         stream.cuda_stream)
     if rc != 0:
         msg = lib.knossos_dense_error_string(rc).decode()
         raise RuntimeError(f"knossos_dense_scan launch failed (B={B}, C={C},"
-                           f" S={n_slots}, V={n_values}): {msg}")
+                           f" S={n_slots}, V={n_values}, {plan}): {msg}")
     knossos_dense_scan.launches += 1
     if events is not None:
         end = torch.cuda.Event(enable_timing=True)

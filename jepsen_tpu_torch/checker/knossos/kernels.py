@@ -116,7 +116,14 @@ def _expand_fixpoint(states, masks, valid, slot_f, slot_a1, slot_a2,
         overflow |= active & (n > F)
         rnd += active
         active &= changed & (rnd < S + 2)
+    if _expand_fixpoint.rounds is not None:
+        _expand_fixpoint.rounds.append(rnd)
     return states, masks, valid, overflow
+
+
+#: When set to a list, each expansion appends its rounds per history
+#: ([B] int32, on the device; measurement only).
+_expand_fixpoint.rounds = None
 
 
 def _set_slot(regs: list, at, values: list) -> list:

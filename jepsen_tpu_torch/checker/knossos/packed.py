@@ -63,7 +63,14 @@ def _expand_fixpoint_packed(cfgs, slot_f, slot_a1, slot_a2, slot_known,
         overflow |= active & (n > F)
         rnd += active
         active &= changed & (rnd < S + 2)
+    if _expand_fixpoint_packed.rounds is not None:
+        _expand_fixpoint_packed.rounds.append(rnd)
     return cfgs, overflow
+
+
+#: When set to a list, each expansion appends its rounds per history
+#: ([B] int32, on the device; measurement only).
+_expand_fixpoint_packed.rounds = None
 
 
 def _scan_history_packed(events, F: int, S: int):

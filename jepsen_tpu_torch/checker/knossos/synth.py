@@ -182,3 +182,23 @@ def write_register_run_store(store_base, runs: int, ops: int, keys: int,
         (d / "history.jsonl").write_text("\n".join(lines) + "\n")
         dirs.append(d)
     return dirs
+
+
+def dense_batch(S: int, V: int, B: int, n_ops: int, seed: int):
+    """B histories at concurrency S (every other one corrupted) encoded
+    for the dense grid and packed at exactly S slots and V values, with
+    3 pad steps past the longest: (regs [B,C,S,4], comp [B,C]) int32
+    numpy arrays, the cases the dense kernel is held to its plain
+    version on. V <= 8 draws min(5, V - 2) values, else V - 4 (and a
+    corrupted read adds one)."""
+    from .dense import DenseBatchShape, encode_dense_history, \
+        pack_dense_batch
+
+    hs = synth_register_batch(B=B, n_ops=n_ops, n_procs=S,
+                              n_values=min(5, V - 2) if V <= 8 else V - 4,
+                              info_prob=0.02, seed=seed, max_pending=S)
+    encs = [encode_dense_history(corrupt(h, seed=i) if i % 2 else h)
+            for i, h in enumerate(hs)]
+    b = pack_dense_batch(encs, DenseBatchShape(
+        n_steps=max(e.n_steps for e in encs) + 3, n_slots=S, n_values=V))
+    return b["regs"], b["comp"]

@@ -22,7 +22,10 @@ verdict lands as the reference writes it — `results.edn`,
 
 Exit codes, as the reference's: 0 every run valid, 1 some run invalid,
 2 validity unknown, 254 usage error (or no stored runs), 255 crash or
-no CUDA device. A run the port cannot check yet — one the reference
+no CUDA device. A long list-append run whose condensed check raises is
+quarantined alone (`valid? unknown`, the cause kept in its results)
+and the sweep goes on; a build or device failure still ends it. A run
+the port cannot check yet — one the reference
 sends to its stored-checker path: not encodable, with no txn ops, or
 for `register` not register-shaped — gets no verdict: it is named on
 stderr and the sweep exits 2 at least.
@@ -84,8 +87,25 @@ def _write_results(d, res: dict, checker: str, journal=None) -> int:
         line["anomalies"] = res.get("anomaly-types", [])
     if "failures" in res:
         line["failures"] = res["failures"]
+    if "quarantined" in res:
+        line["quarantined"] = res["quarantined"]
+        line["error"] = res.get("error")
     print(json.dumps(line))
     return validity_exit_code(res)
+
+
+def _quarantine_run(d, err, stage: str, checker: str, journal=None) -> int:
+    """Record a run the sweep abandoned as a `valid? unknown` verdict —
+    never a false verdict, never a dead sweep — persisting the cause for
+    triage and journaling it. The reference's tracer span, counter and
+    flight-recorder event are left out (the port has no tracer yet), and
+    so is its strict gate (JEPSEN_TPU_STRICT=1 re-raising): the port has
+    no supervisor gates yet."""
+    from . import supervisor
+    log.warning("quarantining %s (%s): %s", d, stage, err)
+    return _write_results(d, supervisor.quarantine_verdict(err, stage,
+                                                           checker),
+                          checker, journal=journal)
 
 
 def _register_sweep(run_dirs: list, dev, emit, skipped: list,
@@ -198,10 +218,10 @@ def analyze_store(store: Store, checker: str = "append", device=None,
     condensed long history (see condense.check_condensed) and
     `register_log` the register sweep's load/split/check seconds, key
     count and device tiers. Returns the worst exit code."""
-    from . import ingest, parallel
+    from . import _build, ingest, parallel
     from .checker import elle
     from .checker.elle import kernels, wr
-    from .devices import resolve_device
+    from .devices import DeviceUnavailable, resolve_device
 
     if checker not in ("append", "wr", "register"):
         raise ValueError(f"checker {checker!r} is not ported")
@@ -264,10 +284,20 @@ def analyze_store(store: Store, checker: str = "append", device=None,
             for (d, enc), cycles in zip(good, cycles_per):
                 emit(d, render(enc, cycles))
         for d, enc in huge:
-            emit(d, render(enc, parallel.check_long_history(
-                enc, dev, dense_limit=parallel.DENSE_TXN_LIMIT,
-                square=square, bucket_log=bucket_log,
-                condense_log=condense_log)))
+            try:
+                cycles = parallel.check_long_history(
+                    enc, dev, dense_limit=parallel.DENSE_TXN_LIMIT,
+                    square=square, bucket_log=bucket_log,
+                    condense_log=condense_log)
+            except (_build.KernelBuildError, DeviceUnavailable):
+                raise
+            except Exception as e:
+                # one monster history must fail alone, not take the
+                # whole sweep's remaining verdicts with it
+                worst = max(worst, _quarantine_run(d, e, "check", checker,
+                                                   journal=journal))
+                continue
+            emit(d, render(enc, cycles))
     finally:
         journal.close()
     return _report_skipped(skipped, worst)
@@ -294,7 +324,10 @@ def main(argv: list[str] | None = None) -> int:
     a.add_argument("--device", default=None, choices=["cuda", "cpu"],
                    help="where the kernels run (default cuda; cpu only "
                         "when asked)")
-    args = p.parse_args(argv)
+    try:
+        args = p.parse_args(argv)
+    except SystemExit as e:
+        return 254 if e.code not in (0, None) else 0
     logging.basicConfig(level=logging.WARNING)
     from .devices import DeviceUnavailable
     try:

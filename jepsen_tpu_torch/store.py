@@ -80,7 +80,7 @@ class Store:
 class VerdictJournal:
     """Append-only per-history verdict log (`verdicts.jsonl`), one
     flushed line per verdict: {"dir" (relative to the store), "checker",
-    "valid?"}. Writes are best-effort: a read-only store must not sink
+    "valid?"}, plus "quarantined" and "error" for a quarantined run. Writes are best-effort: a read-only store must not sink
     the sweep."""
 
     def __init__(self, path: str | os.PathLike,
@@ -103,6 +103,9 @@ class VerdictJournal:
         """Append one verdict line; True when it landed."""
         entry = {"dir": self.rel(run_dir), "checker": checker,
                  "valid?": res.get("valid?")}
+        for k in ("quarantined", "error"):
+            if k in res:
+                entry[k] = res[k]
         try:
             if self._f is None:
                 self.path.parent.mkdir(parents=True, exist_ok=True)

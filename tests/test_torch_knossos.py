@@ -145,11 +145,19 @@ def dense_population(seed: int, n: int, **kw) -> list[list[dict]]:
 
 
 @pytest.mark.parametrize("S,V,procs,n_values", [(4, 8, 3, 5),
-                                                (7, 16, 6, 12)])
+                                                (7, 16, 6, 12),
+                                                (5, 8, 5, 5),
+                                                (6, 16, 6, 12),
+                                                (14, 64, 14, 50)])
 def test_scan_dense_ref_equals_reference(S, V, procs, n_values):
     """The plain scan against the reference's scan (with its stats) at
-    a padded shape with pad steps: verdicts and Jacobi rounds equal."""
-    hs = dense_population(S, 6, n_procs=procs, n_values=n_values,
+    a padded shape with pad steps: verdicts and Jacobi rounds equal —
+    the contract the kernel is held to on the card. S = 5 and 6 straddle
+    the grid's word boundary (a row is one 32-bit word up to S = 5), and
+    S = 14, V = 64 is the largest grid, at a small C."""
+    # the largest grid (2^14 masks x 64 values a history) at 3 histories
+    n = 2 if S == pdense.MAX_SLOTS else 6
+    hs = dense_population(S, n, n_procs=procs, n_values=n_values,
                           max_pending=S)
     ref_encs = [rdense.encode_dense_history(h) for h in hs]
     encs = [convert.dense_from_fields(
@@ -170,6 +178,53 @@ def test_scan_dense_ref_equals_reference(S, V, procs, n_values):
     assert pv.tolist() == valid.tolist()
     assert pr.tolist() == rounds.tolist()
     assert not all(valid) and any(valid)
+
+
+V_GRID = list(range(8, pdense.MAX_VALUES + 1, 8))
+
+
+@pytest.mark.parametrize("V", V_GRID)
+def test_plan_scan_launches_what_the_card_accepts(V):
+    """Every (S, V) gets a tier the kernel takes: threads a multiple of
+    32 within 1,024, shared memory within Hopper's 227 KB; the warp
+    tier at most 16 words a lane, the block tier at most 32 words a
+    thread and in its shared memory the grid, the rows' OR and the new
+    values of the words past the 8 a thread keeps in registers."""
+    for S in range(1, pdense.MAX_SLOTS + 1):
+        plan = pdense.plan_scan(S, V)
+        w, words = pdense.grid_words(S, V)
+        assert plan.threads % 32 == 0
+        assert 32 <= plan.threads <= pdense.MAX_THREADS
+        assert plan.smem_bytes <= 232_448         # 227 KB, Hopper
+        if plan.tier == "warp":
+            assert pdense.warp_values(V) * w // 32 <= 16
+            assert plan.threads == 32 * plan.histories_per_block
+            assert plan.smem_bytes == 0
+        else:
+            assert plan.tier == "block" and plan.histories_per_block == 1
+            assert plan.threads * 32 >= words
+            in_regs = plan.threads * min(
+                pdense.BLOCK_MAX_REG_WORDS,
+                1 << (-(-words // plan.threads) - 1).bit_length())
+            assert plan.smem_bytes == 4 * (words + w
+                                           + max(0, words - in_regs))
+
+
+@pytest.mark.parametrize("V", V_GRID)
+def test_plan_scan_tier_changes_only_at_the_boundary(V):
+    """As S grows the tier goes from warp to block once, at the first S
+    whose grid (V rounded up to a power of two, at least 8) passes
+    WARP_MAX_WORDS."""
+    tiers = [pdense.plan_scan(S, V).tier
+             for S in range(1, pdense.MAX_SLOTS + 1)]
+    first_block = next(S for S in range(1, pdense.MAX_SLOTS + 1)
+                       if pdense.warp_values(V) * pdense.grid_words(S, V)[0]
+                       > pdense.WARP_MAX_WORDS)
+    assert tiers == ["warp"] * (first_block - 1) + \
+        ["block"] * (pdense.MAX_SLOTS + 1 - first_block)
+    # config #1's shape and the largest grid sit on either side
+    assert pdense.plan_scan(10, 8).tier == "warp"
+    assert pdense.plan_scan(14, 64).tier == "block"
 
 
 def test_check_encoded_dense_batch_equals_reference():
