@@ -60,6 +60,24 @@ failure:
               which take all three tiers (dense, frontier, WGL), equal
               to the oracle, with the plain frontier and its packed twin
               timed alone on the frontier's histories
+  9. store    the rest of `analyze-store` on cuda over one mixed store:
+              32 list-append runs at phase 4's width (every 8th with
+              G1c), 16 lifted CAS-register runs (phase 8's shape), and
+              under `other` a queue run, a torn history.jsonl, an empty
+              run dir and a run stored as the Clojure reference stores
+              it (test.fressian, history.edn). An uninterrupted append
+              sweep, then one cut mid-way through the synth verdicts
+              (VerdictJournal.record raises KeyboardInterrupt) and
+              resumed by `python -m jepsen_tpu_torch.cli ... --resume`
+              in a subprocess: equal exit codes, byte-identical per-run
+              files (results, markers, test.json) and links, the
+              journal less the cut line, and fewer closure_square
+              launches (but some) on resume. The same for register,
+              cut within the register verdicts, resumed in process:
+              fewer keys through knossos_dense_scan. Then `--checker
+              stored --name other` touches other's runs only. Each
+              compared pair of sweeps runs on one path in turn (the
+              empty run's verdict holds its path).
 
 Each path is driven with its kernels' launch counts set to 0 just before
 it and read just after; a path that launched one of them no time fails.
@@ -76,6 +94,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -125,6 +144,30 @@ FRONTIER = 512
 LONG_T, LONG_K, LONG_GAP = 50_000, 64, 16_304
 LONG_EXPECT = {"valid": [], "pair": ["G1c"],
                "future": ["G-single", "G1c", "G2-item"]}
+#: Phase 9: the mixed store's list-append and register runs, the short
+#: list-append history of its fressian run, and where each sweep is
+#: cut (the k-th journal line): mid-way through synth's verdicts for
+#: append (other/run-00003's dense verdict comes first), mid-way through
+#: register's for register (other's four runs come first).
+MIX_SYNTH, MIX_REG, MIX_EDN_T = 32, 16, 200
+MIX_CUT = {"append": 1 + MIX_SYNTH // 2, "register": 4 + MIX_REG // 2}
+#: The resumed append sweep: the CLI's own __main__, run as a subprocess
+#: with closure_square's count and event pairs reported on stderr at exit.
+RESUME_CMD = """\
+import atexit, json, runpy, sys, torch
+from jepsen_tpu_torch.checker.elle import closure_square as cs
+cs.closure_square.events = ev = []
+def report():
+    torch.cuda.synchronize()
+    print("chip_smoke-launches " + json.dumps(
+        {"launches": cs.closure_square.launches,
+         "device_ms": sum(a.elapsed_time(b) for a, b in ev)}),
+        file=sys.stderr)
+atexit.register(report)
+sys.argv[0] = "jepsen_tpu_torch.cli"
+runpy.run_module("jepsen_tpu_torch.cli", run_name="__main__",
+                 alter_sys=True)
+"""
 
 
 class SmokeFailure(RuntimeError):
@@ -828,6 +871,260 @@ def phase_register(name: str) -> dict:
     return paths
 
 
+def write_mixed_store(base: Path) -> None:
+    """Phase 9's store: synth (list-append), register (lifted CAS
+    register) and other (the stored checker's runs)."""
+    from jepsen_tpu_torch import fressian, history
+    from jepsen_tpu_torch.checker.elle import synth
+    from jepsen_tpu_torch.checker.knossos import synth as ksynth
+    from jepsen_tpu_torch.edn import Keyword as K
+
+    synth.write_synth_run_store(base, B=MIX_SYNTH, T=STORE_T, K=STORE_K,
+                                bad_every=BAD_EVERY)
+    ksynth.write_register_run_store(base, runs=MIX_REG, ops=REG_OPS,
+                                    keys=REG_KEYS, bad_every=REG_BAD_EVERY)
+    other = base / "other"
+    for i in range(4):
+        (other / f"run-{i:05d}").mkdir(parents=True)
+    (other / "run-00000" / "history.jsonl").write_text("".join(
+        json.dumps({"type": t, "process": 0, "f": "enqueue", "value": 1,
+                    "index": i}) + "\n"
+        for i, t in enumerate(("invoke", "ok"))))
+    (other / "run-00001" / "history.jsonl").write_text(
+        '{"type": "invoke", "process": 0, "f": "rea')
+    # run-00002 stays empty: no history at all
+    d = other / "run-00003"
+    (d / "test.fressian").write_bytes(fressian.dumps(
+        {K("name"): "other", K("concurrency"): 5, K("nodes"): ["n1", "n2"],
+         K("nemesis-tags"): {K("partition"), K("kill")}}))
+    (d / "history.edn").write_text(history.history_to_edn(
+        synth.synth_append_history(T=MIX_EDN_T, K=8, seed=3)))
+
+
+def store_outputs(store: Path) -> dict:
+    """Every run's results, markers and test.json (bytes), the links
+    (their targets) and the journal's lines."""
+    out = {}
+    for p in sorted(store.rglob("*")):
+        rel = str(p.relative_to(store))
+        if p.is_symlink():
+            out[rel] = ("link", os.readlink(p))
+        elif p.is_file() and (p.name in ("results.json", "results.edn",
+                                         "test.json")
+                              or p.name.startswith(".sweep-")):
+            out[rel] = p.read_bytes()
+    out["verdicts.jsonl"] = (store / "verdicts.jsonl").read_text() \
+        .splitlines()
+    return out
+
+
+def in_turn(pristine: Path, work: Path, fn):
+    """fn(work) on a fresh copy of `pristine` at `work`; the store is
+    then removed, so the next sweep runs on the same path. Returns
+    (fn's result, the store's outputs)."""
+    shutil.copytree(pristine, work, symlinks=True)
+    out = fn(work)
+    outputs = store_outputs(work)
+    shutil.rmtree(work)
+    return out, outputs
+
+
+def cut_sweep(store: Path, checker: str, k: int, **kw) -> float:
+    """A sweep whose k-th journal line raises KeyboardInterrupt, as a
+    killed sweep stops; returns its wall seconds."""
+    from jepsen_tpu_torch.store import VerdictJournal
+
+    orig, calls = VerdictJournal.record, []
+
+    def record(self, *a, **kws):
+        calls.append(1)
+        if len(calls) == k:
+            raise KeyboardInterrupt(f"sweep cut at verdict {k}")
+        return orig(self, *a, **kws)
+
+    VerdictJournal.record = record
+    t0 = time.perf_counter()
+    try:
+        sweep(store, checker, **kw)
+    except KeyboardInterrupt:
+        return time.perf_counter() - t0
+    finally:
+        VerdictJournal.record = orig
+    raise SmokeFailure(f"the {checker} sweep was not cut at verdict {k}")
+
+
+def same_but_cut_line(full: dict, resumed: dict, k: int, what: str) -> None:
+    """Per-run outputs byte-identical; the resumed journal is the full
+    one less its k-th line (the cut run: marked, never journaled)."""
+    full, resumed = dict(full), dict(resumed)
+    jf, jr = full.pop("verdicts.jsonl"), resumed.pop("verdicts.jsonl")
+    check(sorted(full) == sorted(resumed),
+          f"{what}: the cut and resumed sweep left other files: "
+          f"{sorted(set(full) ^ set(resumed))[:5]}")
+    for key in full:
+        check(full[key] == resumed[key],
+              f"{what}: {key} differs between the full and the resumed "
+              "sweep")
+    check(jr == jf[:k - 1] + jf[k:],
+          f"{what}: the journal is not the full one less line {k}")
+
+
+def phase_store() -> dict:
+    """Phase 9 on the card; returns per path (launches, device
+    milliseconds) of closure_square and of knossos_dense_scan."""
+    from jepsen_tpu_torch.checker.knossos import dense
+
+    t0 = time.perf_counter()
+    pristine, work = WORK / "mixed-pristine", WORK / "mixed"
+    write_mixed_store(pristine)
+    n_runs = MIX_SYNTH + MIX_REG + 4
+    say(f"wrote the mixed store ({MIX_SYNTH} list-append runs x "
+        f"{2 * STORE_T} ops, {MIX_REG} register runs x {REG_OPS} ops, 4 "
+        f"other runs) in {time.perf_counter() - t0:.1f}s")
+    square, scan = {}, {}
+
+    # append: full, then cut + resumed (the CLI in a subprocess)
+    ((rc, _, wall, _), n, ms), full = in_turn(
+        pristine, work,
+        lambda w: counted(lambda: sweep(w, "append", device=DEVICE)))
+    check(rc == 2, f"the full append sweep exited {rc}, expected 2")
+    check(len(full["verdicts.jsonl"]) == n_runs,
+          f"{len(full['verdicts.jsonl'])} journal lines for {n_runs} runs")
+    for h in range(MIX_SYNTH):
+        res = json.loads(full[f"synth/run-{h:05d}/results.json"])
+        bad = h % BAD_EVERY == BAD_EVERY - 1
+        check(res["valid?"] is (not bad)
+              and res["anomaly-types"] == (["G1c"] if bad else []),
+              f"synth/run-{h:05d}: {res['valid?']} {res['anomaly-types']}")
+    check(json.loads(full["other/run-00003/results.json"])["valid?"]
+          is True, "the fressian run's history should be valid")
+    for run in ("run-00001", "run-00002"):
+        res = json.loads(full[f"other/{run}/results.json"])
+        check(res["quarantined"] == "stored",
+              f"other/{run} should be quarantined: {res}")
+    check(json.loads(full["register/run-00000/test.json"])["name"]
+          == "register", "the stored checker wrote no test.json")
+    square["store-append-full"] = (n, ms)
+    say(f"append, full: {wall:.3f}s wall, {n} closure_square launches "
+        f"({ms} ms device), rc {rc}")
+
+    k = MIX_CUT["append"]
+
+    def cut_then_resume(w: Path):
+        (wall_cut, n_cut, ms_cut) = counted(
+            lambda: cut_sweep(w, "append", k, device=DEVICE))
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", RESUME_CMD, "analyze-store", "--store",
+             str(w), "--checker", "append", "--device", DEVICE,
+             "--resume"], cwd=ROOT, capture_output=True, text=True,
+            timeout=600)
+        wall_res = time.perf_counter() - t
+        rep = [ln for ln in proc.stderr.splitlines()
+               if ln.startswith("chip_smoke-launches ")]
+        check(len(rep) == 1, f"the resumed sweep reported no launches: "
+                             f"{proc.stderr[-3000:]}")
+        counts = json.loads(rep[0].split(" ", 1)[1])
+        # the CLI's own timer around analyze_store, without the
+        # subprocess's start
+        swept = [float(ln.split()[1].rstrip("s"))
+                 for ln in proc.stderr.splitlines()
+                 if ln.startswith("analyze-store: ")]
+        return (wall_cut, n_cut, ms_cut, proc.returncode, wall_res,
+                swept[-1] if swept else None, counts["launches"],
+                counts["device_ms"])
+
+    (wall_cut, n_cut, ms_cut, rc_res, wall_res, cli_res, n_res, ms_res), \
+        resumed = in_turn(pristine, work, cut_then_resume)
+    check(rc_res == rc, f"the resumed append sweep exited {rc_res}, the "
+                        f"full one {rc}")
+    same_but_cut_line(full, resumed, k, "append")
+    check(0 < n_res < n, f"the resumed append sweep launched closure_square "
+                         f"{n_res} times, the full one {n}")
+    check(n_cut > 0, "the cut append sweep never launched closure_square")
+    square["store-append-cut"] = (n_cut, ms_cut)
+    square["store-append-resumed"] = (n_res, ms_res)
+    say(f"append, cut at verdict {k}: {wall_cut:.3f}s wall, {n_cut} "
+        f"launches ({ms_cut} ms); resumed (python -m jepsen_tpu_torch.cli "
+        f"... --resume): {wall_res:.3f}s wall including the subprocess's "
+        f"start ({cli_res}s in analyze_store by the CLI's own timer), "
+        f"{n_res} launches ({ms_res} ms), rc {rc_res}; per-run "
+        "files and links byte-identical to the full sweep, the journal "
+        "the full one less the cut line")
+
+    # register: full, then cut + resumed in process
+    def register(w: Path, cut: int | None = None):
+        rlog: dict = {}
+        if cut is None:
+            (rc, _, wall, _), n, ms = counted_dense(
+                lambda: sweep(w, "register", device=DEVICE,
+                              register_log=rlog))
+            return rc, wall, n, ms, rlog
+        wall, n, ms = counted_dense(
+            lambda: cut_sweep(w, "register", cut, device=DEVICE))
+        (rc, _, wall_r, _), n_r, ms_r = counted_dense(
+            lambda: sweep(w, "register", device=DEVICE, resume=True,
+                          register_log=rlog))
+        return (wall, n, ms), (rc, wall_r, n_r, ms_r, rlog)
+
+    (rc_r, wall, n, ms, rlog), full = in_turn(pristine, work, register)
+    check(rc_r == 2, f"the full register sweep exited {rc_r}, expected 2")
+    for r in range(MIX_REG):
+        res = json.loads(full[f"register/run-{r:05d}/results.json"])
+        bad = r % REG_BAD_EVERY == REG_BAD_EVERY - 1
+        check(res["valid?"] is (not bad)
+              and res["failures"] == (["0"] if bad else []),
+              f"register/run-{r:05d}: {res['valid?']} {res['failures']}")
+    check(json.loads(full["synth/run-00000/.sweep-register"])
+          == {"valid?": True}, "synth's runs should take the stored "
+                               "checker under register")
+    check(n > 0 and rlog["keys"] == MIX_REG * REG_KEYS,
+          f"the full register sweep: {n} launches, {rlog['keys']} keys")
+    scan["store-register-full"] = (n, ms)
+    k = MIX_CUT["register"]
+    ((wall_cut, n_cut, ms_cut), (rc_res, wall_res, n_res, ms_res, rlog_r)), \
+        resumed = in_turn(pristine, work, lambda w: register(w, k))
+    check(rc_res == rc_r, f"the resumed register sweep exited {rc_res}")
+    same_but_cut_line(full, resumed, k, "register")
+    check(n_cut > 0 and n_res > 0,
+          f"knossos_dense_scan launches: cut {n_cut}, resumed {n_res}")
+    check(rlog_r["keys"] < rlog["keys"],
+          f"the resumed register sweep checked {rlog_r['keys']} keys, the "
+          f"full one {rlog['keys']}")
+    scan["store-register-cut"] = (n_cut, ms_cut)
+    scan["store-register-resumed"] = (n_res, ms_res)
+    say(f"register, full: {wall:.3f}s wall, {rlog['keys']} keys, {n} "
+        f"knossos_dense_scan launches ({ms} ms); cut at verdict {k}: "
+        f"{wall_cut:.3f}s wall, {n_cut} launches ({ms_cut} ms); resumed: "
+        f"{wall_res:.3f}s wall, {rlog_r['keys']} keys, {n_res} launches "
+        f"({ms_res} ms), rc {rc_res}; byte-identical, the journal the full "
+        "one less the cut line")
+
+    # --checker stored --name other: other's runs only
+    def outside_other(w: Path) -> dict:
+        """mtimes of what lies in the run dirs of synth and register."""
+        return {p: p.stat().st_mtime_ns for p in w.glob("*/*/*")
+                if p.relative_to(w).parts[0] != "other"}
+
+    def stored_other(w: Path):
+        before = outside_other(w)
+        rc, _, wall, _ = sweep(w, "stored", device=DEVICE, name="other")
+        return rc, wall, before, outside_other(w)
+
+    (rc_s, wall_s, before, after), outs = in_turn(pristine, work,
+                                                  stored_other)
+    dirs = [json.loads(ln)["dir"] for ln in outs["verdicts.jsonl"]]
+    check(rc_s == 2 and dirs == [f"other/run-{i:05d}" for i in range(4)],
+          f"--checker stored --name other: rc {rc_s}, verdicts for {dirs}")
+    check(before == after,
+          "--checker stored --name other touched a run outside other")
+    check(json.loads(outs["other/run-00003/test.json"])["nemesis-tags"]
+          == ["kill", "partition"], "the fressian run's test.json")
+    say(f"stored --name other: {wall_s:.3f}s wall, rc {rc_s}, verdicts "
+        f"for {len(dirs)} runs, no run outside other touched")
+    return {"closure_square": square, "knossos_dense_scan": scan}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -864,6 +1161,9 @@ def main() -> int:
         paths["long"] = phase_long()
         dense_record = phase_knossos(name)
         dense_paths = phase_register(name)
+        store_paths = phase_store()
+        paths.update(store_paths["closure_square"])
+        dense_paths.update(store_paths["knossos_dense_scan"])
         for rec, ps in ((record, paths), (dense_record, dense_paths)):
             rec["launches"] = sum(n for n, _ in ps.values())
             rec["paths"] = {k: {"launches": n, "device_ms": ms}

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from typing import Any, Iterable, Iterator
 
-from .edn import loads_all
+from .edn import dumps, loads_all
 
 Op = dict  # documentation alias
 
@@ -48,6 +48,26 @@ def index(history: list[Op]) -> list[Op]:
             o = {**o, "index": i}
         out.append(o)
     return out
+
+
+# Fields whose string content is free text, not keyword-ish data.
+_TEXT_FIELDS = ("error",)
+
+
+def op_to_edn(o: Op) -> str:
+    """Render one op as an EDN map line compatible with the reference's
+    history.edn: keyword keys, and keyword-safe strings (op types, :f names,
+    txn micro-op kinds like :append, nemesis targets like :majority) emitted
+    as keywords — except free-text fields such as :error."""
+    parts = []
+    for k, v in o.items():
+        keywordize = k not in _TEXT_FIELDS
+        parts.append(f":{k} {dumps(v, keywordize=keywordize)}")
+    return "{" + ", ".join(parts) + "}"
+
+
+def history_to_edn(history: Iterable[Op]) -> str:
+    return "\n".join(op_to_edn(o) for o in history) + "\n"
 
 
 def op_from_edn_map(m: dict) -> Op:

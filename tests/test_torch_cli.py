@@ -67,11 +67,29 @@ def test_usage_exit_code_matches_reference(argv, reference_env, capsys):
     ["analyze-store", "--checker", "stored"],
     ["analyze-store", "--name", "x"],
 ])
-def test_options_not_ported_are_usage_errors(argv, tmp_path, capsys):
-    """The reference takes both; the port does not yet, and refuses them
-    as usage errors (254), not as unknown validity (2)."""
-    assert cli.main(argv + ["--store", str(tmp_path)]) == 254
-    assert "usage:" in capsys.readouterr().err
+def test_options_not_ported_are_usage_errors(argv, tmp_path, reference_env,
+                                             capsys):
+    """Both options, once refused by the port as usage errors, now do
+    what the reference's do, on one path in turn: `--checker stored`
+    re-runs every run's own checker, `--name x` sweeps x's runs only."""
+    from test_torch_stored import assert_same, in_turn
+    store = tmp_path / "pristine"
+    synth.write_synth_run_store(store, B=2, T=30, K=4, bad_every=2,
+                                name="x")
+    synth.write_synth_run_store(store, B=1, T=30, K=4, bad_every=0,
+                                name="y")
+    got = in_turn(tmp_path, store, [(argv[1:], None)], capsys)
+    assert_same(got)
+    rcs, snap, out = got["port"]
+    marker = ".sweep-stored" if "stored" in argv else ".sweep-append"
+    runs = sorted(k.split("/.")[0] for k in snap if k.endswith(marker))
+    if "stored" in argv:
+        assert rcs == [0]
+        assert runs == ["x/run-00000", "x/run-00001", "y/run-00000"]
+    else:
+        assert rcs == [1]
+        assert runs == ["x/run-00000", "x/run-00001"]
+    assert len(out) == len(runs)
 
 
 def failing_long_check(monkeypatch, module, exc) -> list:

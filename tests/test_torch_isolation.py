@@ -58,6 +58,10 @@ print(" ".join(mods))
             for m in ("dense", "encode", "kernels", "packed", "synth")} \
         | {"jepsen_tpu_torch.checker.models",
            "jepsen_tpu_torch.independent"} <= mods
+    # the stored-checker path's modules (copies of the reference's
+    # jax-free core.analyze and fressian codec, never imports of them)
+    assert {"jepsen_tpu_torch.core", "jepsen_tpu_torch.fressian",
+            "jepsen_tpu_torch.store"} <= mods
 
 
 @pytest.mark.parametrize("path", port_sources(),

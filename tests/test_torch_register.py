@@ -5,7 +5,8 @@ package's `python -m jepsen_tpu.cli analyze-store --checker register
 tier (dense grid, bounded frontier, the CPU WGL oracle, valid and
 invalid), and one with a dict-valued run that sinks the batch and sends
 every key through the per-key isolation — plus the store writer, the
-runs the port names NOT_PORTED, and the host build of the WGL library.
+runs both send to their stored checker, and the host build of the WGL
+library.
 
 Tolerance: byte-identical results.json / results.edn per run, identical
 verdicts.jsonl lines, equal exit codes."""
@@ -26,6 +27,8 @@ from jepsen_tpu_torch.checker import knossos as pkn
 from jepsen_tpu_torch.checker.knossos import dense
 from jepsen_tpu_torch.checker.knossos import synth
 from jepsen_tpu_torch.store import Store
+from test_torch_cli import reference_env  # noqa: F401
+from test_torch_stored import assert_same, in_turn
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -195,11 +198,15 @@ def test_register_store_is_the_bench_store(tmp_path):
             (f / "history.jsonl").read_bytes()
 
 
-def test_unported_runs_are_named_not_verdicted(tmp_path, capsys):
-    """The runs the reference sends to its stored checker: not
+def test_unported_runs_are_named_not_verdicted(tmp_path, capsys,
+                                               reference_env, monkeypatch):
+    """The runs the reference sends to its stored checker — not
     register-shaped, lifted-looking but declined by relift (no ok read),
-    unloadable."""
-    store = tmp_path / "s"
+    unloadable — get its verdicts, in run order among the checked runs.
+    The unloadable run's error holds its path, so both CLIs sweep one
+    path in turn."""
+    monkeypatch.setenv("JEPSEN_TPU_BACKEND", "tpu")
+    store = tmp_path / "pristine"
     synth.write_register_run_store(store, runs=1, ops=20, keys=2,
                                    bad_every=0)
     write_run(store / "other" / "run-00000",
@@ -208,18 +215,19 @@ def test_unported_runs_are_named_not_verdicted(tmp_path, capsys):
               lifted(0, [op("invoke", 0, "write", 1),
                          op("ok", 0, "write", 1)]))
     (store / "other" / "run-00002").mkdir()
-    rc = cli.analyze_store(Store(store), checker="register", device="cpu")
-    err = capsys.readouterr().err
-    assert rc == 2
-    for run in ("run-00000", "run-00001", "run-00002"):
-        assert f"{cli.NOT_PORTED}: {store / 'other' / run}" in err
-        assert not (store / "other" / run / "results.json").exists()
-    assert "not register-shaped" in err and "relift declined" in err
-    assert json.loads((store / "register" / "run-00000" / "results.json")
-                      .read_text())["valid?"] is True
-    lines = (store / "verdicts.jsonl").read_text().splitlines()
-    assert [json.loads(ln)["dir"] for ln in lines] == \
-        ["register/run-00000"]
+    got = in_turn(tmp_path, store, [(["--checker", "register"], None)],
+                  capsys)
+    assert_same(got)
+    rcs, snap, _ = got["port"]
+    assert rcs == [2]
+    lines = [json.loads(ln) for ln in snap["verdicts.jsonl"]]
+    assert [(ln["dir"], ln["valid?"]) for ln in lines] == [
+        ("other/run-00000", True), ("other/run-00001", True),
+        ("other/run-00002", "unknown"), ("register/run-00000", True)]
+    assert lines[2]["quarantined"] == "stored"
+    assert "no history in" in lines[2]["error"]
+    assert json.loads(snap["register/run-00000/results.json"])[
+        "key-count"] == 2
 
 
 def test_register_log_and_plain_scan(tmp_path):

@@ -23,6 +23,8 @@ from jepsen_tpu_torch.checker.elle import synth
 from jepsen_tpu_torch.checker.elle.closure_square import closure_square_ref
 from jepsen_tpu_torch.store import Store
 from test_fuzz_differential import rand_wr_history
+from test_torch_cli import ref_main, reference_env  # noqa: F401
+from test_torch_stored import snapshot
 
 REPO = Path(__file__).resolve().parent.parent
 N_RUNS, T, KEYS, BAD_EVERY = 6, 300, 16, 3   # runs 2 and 5 carry G1c
@@ -106,29 +108,42 @@ def test_cli_without_cuda_exits_nonzero(tmp_path, monkeypatch):
 
 
 def test_unported_runs_are_named_not_verdicted(tmp_path, monkeypatch,
-                                               capsys):
-    """Only the stored-checker cases go unverdicted: runs past the dense
-    limit are condensed and get verdicts; a txn-less run is named."""
-    store = tmp_path / "s"
+                                               capsys, reference_env):
+    """Runs past the dense limit are condensed, and a txn-less run goes
+    to its stored checker: every run gets the reference CLI's verdict
+    (DENSE_TXN_LIMIT lowered in both packages)."""
+    store, ref = tmp_path / "s", tmp_path / "ref"
     synth.write_synth_run_store(store, B=2, T=200, K=4, bad_every=0)
     (store / "synth" / "run-00002").mkdir()
     (store / "synth" / "run-00002" / "history.jsonl").write_text(
         '{"type":"invoke","process":0,"f":"read","value":null,"index":0}\n')
+    shutil.copytree(store, ref, symlinks=True)
     monkeypatch.setattr("jepsen_tpu_torch.parallel.DENSE_TXN_LIMIT", 100)
+    monkeypatch.setattr("jepsen_tpu.parallel.DENSE_TXN_LIMIT", 100)
     log: list = []
     rc = cli.analyze_store(Store(store), device="cpu", condense_log=log)
-    err = capsys.readouterr().err
-    assert rc == 2
-    assert err.count(cli.NOT_PORTED) == 1 and "run-00002" in err
-    assert "no txn ops" in err
-    assert sorted(p.parent.name for p in store.rglob("results.json")) == \
-        ["run-00000", "run-00001"]
+    rc_ref = ref_main(["analyze-store", "--store", str(ref)])
+    capsys.readouterr()
+    assert rc == rc_ref == 0
+    assert snapshot(store) == snapshot(ref)
     assert [r["n"] for r in log] == [200, 200]
+    assert json.loads((store / "synth" / "run-00002" / "results.json")
+                      .read_text()) == {"valid?": True}
+    assert json.loads((store / "synth" / "run-00002" / "test.json")
+                      .read_text()) == {"start-time": "run-00002",
+                                        "name": "synth"}
+    assert [json.loads(ln)["dir"] for ln in
+            (store / "verdicts.jsonl").read_text().splitlines()] == \
+        ["synth/run-00000", "synth/run-00001", "synth/run-00002"]
 
 
 @pytest.mark.parametrize("checker", ["append", "wr"])
-def test_unencodable_runs_are_named(tmp_path, capsys, checker):
-    store = tmp_path / "s"
+def test_unencodable_runs_are_named(tmp_path, capsys, checker,
+                                    reference_env):
+    """A run that does not parse goes to the stored checker, whose load
+    fails too: it is quarantined, as the reference does it, and the
+    sweep exits 2."""
+    store, ref = tmp_path / "s", tmp_path / "ref"
     if checker == "wr":
         synth.write_wr_run_store(store, B=1, T=50, K=4, bad_every=0,
                                  name="synth")
@@ -137,13 +152,19 @@ def test_unencodable_runs_are_named(tmp_path, capsys, checker):
     bad = store / "synth" / "run-00001"
     bad.mkdir()
     (bad / "history.jsonl").write_text("{not json\n")
+    shutil.copytree(store, ref, symlinks=True)
     rc = cli.analyze_store(Store(store), checker=checker, device="cpu")
-    err = capsys.readouterr().err
-    assert rc == 2
-    assert err.count(cli.NOT_PORTED) == 1
-    assert f"not encodable as {checker}" in err and "run-00001" in err
-    assert not (bad / "results.json").exists()
-    assert (store / "synth" / "run-00000" / "results.json").exists()
+    rc_ref = ref_main(["analyze-store", "--store", str(ref), "--checker",
+                       checker])
+    capsys.readouterr()
+    assert rc == rc_ref == 2
+    assert snapshot(store) == snapshot(ref)
+    res = json.loads((bad / "results.json").read_text())
+    assert res["valid?"] == "unknown" and res["quarantined"] == "stored"
+    assert json.loads((bad / f".sweep-{checker}").read_text()) == \
+        {"valid?": "unknown"}
+    assert json.loads((store / "synth" / "run-00000" / "results.json")
+                      .read_text())["valid?"] is True
 
 
 # The new paths against the reference CLI. "long": dense list-append runs
@@ -189,7 +210,7 @@ def test_new_paths_exit_codes_match(swept_new):
     _, _, ref, port = swept_new
     assert ref.returncode == port.returncode == 1, (ref.stderr[-2000:],
                                                     port.stderr[-2000:])
-    assert cli.NOT_PORTED not in port.stderr
+    assert "quarantining" not in port.stderr
 
 
 @pytest.mark.parametrize("fname", ["results.json", "results.edn",
