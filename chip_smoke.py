@@ -10,15 +10,20 @@ failure:
   1. device   the card's name and power limit (nvidia-smi)
   2. build    every csrc/*.cu kernel from this checkout's sources
   3. kernels  each hand kernel held to its plain PyTorch version on the
-              card (exact equality of every output), then timed at the
-              main path's shape beside the plain version and the nearest
-              library calls (bf16 bmm, and int8 torch._int_mm)
+              card (exact equality of every output; closure_square also
+              with its device word `active` at 1 and at 0, the skipped
+              round returning its input), then timed at the main path's
+              shape beside the plain version and the nearest library
+              calls (bf16 bmm, and int8 torch._int_mm), closure_square's
+              skipped round too
   4. main     `analyze-store --checker append` on cuda over a synthetic
               two-level store of 64 runs x 10,000 ops (T=5000 txns,
               K=64 keys, every 8th run carrying a G1c cycle): exactly the
               corrupt runs must come out G1c/invalid, the launch counts
-              must show the closures went through the kernel (and
-              CUDA event pairs around each launch time it), and a
+              must show the closures went through the kernel (every
+              round of every closure enqueued, the active ones equal to
+              the buckets' closure rounds; CUDA event pairs around each
+              launch time it), and a
               re-run with the plain squaring on a copy of the store must
               write byte-identical results; then the installed CLI,
               `python -m jepsen_tpu_torch.cli ... --device cuda`, on a
@@ -78,6 +83,23 @@ failure:
               stored --name other` touches other's runs only. Each
               compared pair of sweeps runs on one path in turn (the
               empty run's verdict holds its path).
+ 10. supervisor  the supervised dispatcher over 32 list-append histories
+              at phase 4's width: (a) check_bucketed_async (two buckets
+              in flight, the pack-h2d thread) against the synchronous
+              path (JEPSEN_TPU_PACK_THREAD=0, one in flight): equal
+              verdicts, walls and the device's idle share, and
+              is_ready() false right after the dispatch of one bucket
+              of every history returns; (b) a real
+              torch.cuda.OutOfMemoryError under a memory cap between one
+              history's footprint and one bucket's: buckets split, equal
+              verdicts; (c) `python -m jepsen_tpu_torch.cli` under
+              JEPSEN_TPU_FAULT_INJECT=encode:0.4,oom:first over phase
+              9's store: exit 2, the nemesis's runs quarantined (stage
+              encode), every other run byte-identical to phase 9's clean
+              sweep; (d) JEPSEN_TPU_DISPATCH_TIMEOUT_S far below that
+              bucket's device time: the bucket quarantined (stage
+              watchdog), and the next sweep without it clean; (e)
+              JEPSEN_TPU_STRICT=1 with oom:first exits non-zero.
 
 Each path is driven with its kernels' launch counts set to 0 just before
 it and read just after; a path that launched one of them no time fails.
@@ -116,8 +138,9 @@ PEAKS = (("H100 PCIe", 1513e12, 2.0e12), ("H100", 1979e12, 3.35e12))
 WORD_PEAKS = (("H100 PCIe", 51e12), ("H100", 67e12))
 
 #: The main path's closure shape: 5000-txn histories pad to T=5120, and
-#: the 1<<27-cell bucket budget fits 5 of them.
-MAIN_B, MAIN_T = 5, 5120
+#: the 1<<27-cell budget, halved for two buckets in flight, fits 2 of
+#: them. The kernel is also timed at B=5, the bucket of earlier slices.
+MAIN_B, MAIN_T, WIDE_B = 2, 5120, 5
 DEVICE = "cuda"
 STORE_RUNS, STORE_T, STORE_K, BAD_EVERY = 64, 5000, 64, 8
 #: Phase 5: rw-register runs; the plain re-run takes the first WR_PLAIN.
@@ -151,6 +174,13 @@ LONG_EXPECT = {"valid": [], "pair": ["G1c"],
 #: register's for register (other's four runs come first).
 MIX_SYNTH, MIX_REG, MIX_EDN_T = 32, 16, 200
 MIX_CUT = {"append": 1 + MIX_SYNTH // 2, "register": 4 + MIX_REG // 2}
+#: Phase 10: list-append histories at phase 4's width (every 8th with
+#: G1c), the watchdog's timeout (seconds; the bucket it guards, every
+#: history at once, takes hundreds of milliseconds on the card) and the
+#: self-nemesis spec of the CLI sweep.
+SUP_RUNS = 32
+WATCHDOG_S = 1e-4
+FAULTS = "encode:0.4,oom:first"
 #: The resumed append sweep: the CLI's own __main__, run as a subprocess
 #: with closure_square's count and event pairs reported on stderr at exit.
 RESUME_CMD = """\
@@ -223,11 +253,11 @@ def cuda_ms(fn, reps: int, burst: int = 5) -> list[float]:
 
 def random_bool(B: int, T: int, density: float, seed: int,
                 reflexive: bool = True) -> torch.Tensor:
-    g = torch.Generator(device="cuda")
+    g = torch.Generator(device=DEVICE)
     g.manual_seed(seed)
-    m = torch.rand((B, T, T), generator=g, device="cuda") < density
+    m = torch.rand((B, T, T), generator=g, device=DEVICE) < density
     if reflexive:
-        m |= torch.eye(T, dtype=torch.bool, device="cuda")
+        m |= torch.eye(T, dtype=torch.bool, device=DEVICE)
     return m
 
 
@@ -237,30 +267,29 @@ def transposed(m: torch.Tensor) -> torch.Tensor:
 
 def kernel_cases() -> list:
     """(label, m) pairs: random batches at T not a multiple of the
-    256-wide column tile, at the wr and long paths' shapes and at the
-    main path's own bucket shapes (B=4 and B=5 at T=5120), then special
-    inputs."""
+    256-wide column tile, at the long path's shapes and at the main and
+    wr paths' bucket shapes (B=1 and B=2 at T=5120; B=5 too), then
+    special inputs."""
     cases = []
     seed = 0
     shapes = [(B, T) for B in (1, 3) for T in (128, 384, 640)]
-    # the wr and long paths' shapes: the last wr bucket (32 runs = 6 x 5
-    # + 2), condensed SCCs at B=1 (a ragged 128-multiple, and the long
-    # run's T_pad=4096)
-    shapes += [(2, MAIN_T), (1, 3968), (1, 4096)]
-    for B, T in shapes + [(MAIN_B - 1, MAIN_T), (MAIN_B, MAIN_T)]:
+    # condensed SCCs at B=1 (a ragged 128-multiple, and the long run's
+    # T_pad=4096)
+    shapes += [(1, 3968), (1, 4096)]
+    for B, T in shapes + [(1, MAIN_T), (MAIN_B, MAIN_T), (WIDE_B, MAIN_T)]:
         for density in (0.001, 0.01, 0.05):
             seed += 1
             cases.append((f"B={B} T={T} p={density}",
                           random_bool(B, T, density, seed)))
     cases.append(("zeros", torch.zeros((2, 384, 384), dtype=torch.bool,
-                                       device="cuda")))
+                                       device=DEVICE)))
     cases.append(("ones", torch.ones((2, 384, 384), dtype=torch.bool,
-                                     device="cuda")))
-    wide = torch.zeros((1, 384, 384), dtype=torch.bool, device="cuda")
+                                     device=DEVICE)))
+    wide = torch.zeros((1, 384, 384), dtype=torch.bool, device=DEVICE)
     wide[0, 5, :] = True      # 384 products per cell: past int8's range
     wide[0, :, 7] = True
     cases.append(("wide row", wide))
-    eye = torch.eye(640, dtype=torch.bool, device="cuda")
+    eye = torch.eye(640, dtype=torch.bool, device=DEVICE)
     cases.append(("identity", eye.expand(3, 640, 640).contiguous()))
     cases.append(("non-reflexive", random_bool(3, 640, 0.004, 98,
                                                reflexive=False)))
@@ -272,29 +301,59 @@ def kernel_cases() -> list:
 
 def phase_kernels(name: str) -> dict:
     """closure_square against closure_square_ref on the card (out, outT
-    and changed, exactly), then its timing at the main path's shape."""
+    and changed, exactly; with no device word, and with `active` at 1
+    and at 0), then its timing at the main path's shape, a skipped
+    round's too."""
     from jepsen_tpu_torch.checker.elle import closure_square as cs
+
+    def word(w: int) -> torch.Tensor:
+        return torch.tensor([w, 0], dtype=torch.int32, device=DEVICE)
 
     cases = kernel_cases()
     max_err = 0.0
     for label, m in cases:
         mt = transposed(m)
-        got = cs.closure_square(m, mt)
-        want = cs.closure_square_ref(m, mt)
-        torch.cuda.synchronize()
-        for part, g, w in zip(("out", "outT", "changed"), got, want):
-            err = float((g != w).any())
-            max_err = max(max_err, err)
-            check(err == 0.0, f"closure_square's {part} differs from its "
-                              f"plain version on {label}")
-        if label == "identity":
-            check(not bool(got[2].any()), "identity squared came out "
-                                          "changed")
-    say(f"closure_square == closure_square_ref on {len(cases)} cases "
-        "(out, outT and changed; exact)")
+        for w in (None, 1, 0):
+            a_k = None if w is None else word(w)
+            a_r = None if w is None else word(w)
+            got = cs.closure_square(m, mt, a_k)
+            want = cs.closure_square_ref(m, mt, a_r)
+            torch.cuda.synchronize()
+            for part, g, x in zip(("out", "outT", "changed"), got, want):
+                err = float((g != x).any())
+                max_err = max(max_err, err)
+                check(err == 0.0, f"closure_square's {part} differs from "
+                                  f"its plain version on {label} (active "
+                                  f"{w})")
+            if w is not None:
+                check(torch.equal(a_k, a_r), f"the next round's word "
+                      f"differs on {label} (active {w}): {a_k.tolist()} "
+                      f"vs {a_r.tolist()}")
+            if w == 0:
+                check(torch.equal(got[0], m) and torch.equal(got[1], mt)
+                      and not bool(got[2].any())
+                      and a_k.tolist() == [0, 0],
+                      f"a skipped round changed something on {label}")
+            if w == 1:
+                check(a_k.tolist() == [1, int(bool(want[2].any()))],
+                      f"the next round's word on {label}: {a_k.tolist()}")
+            if label == "identity" and w is None:
+                check(not bool(got[2].any()), "identity squared came out "
+                                              "changed")
+    say(f"closure_square == closure_square_ref on {len(cases)} cases x "
+        "(no word, active 1, active 0) (out, outT, changed and the next "
+        "round's word; exact); active 0 returns its input")
+
+    wide = random_bool(WIDE_B, MAIN_T, 0.01, 98)
+    wide_t = transposed(wide)
+    wide_kernel = lambda: cs.closure_square(wide, wide_t)      # noqa: E731
+    cuda_ms(wide_kernel, 3)                                    # warm-up
+    ms_wide = statistics.median(cuda_ms(wide_kernel, 10))
+    del wide, wide_t
 
     m = random_bool(MAIN_B, MAIN_T, 0.01, 99)
     mt = transposed(m)
+    off = word(0)
     mb = m.to(torch.bfloat16)
     mi = m.view(torch.int8)
     kernel = lambda: cs.closure_square(m, mt)                  # noqa: E731
@@ -309,7 +368,8 @@ def phase_kernels(name: str) -> dict:
     check(torch.equal(kernel()[0], want),
           "closure_square differs from bf16 bmm at the main shape")
     fns = {"kernel": kernel, "plain": plain, "library": library,
-           "int8_library": int8_library}
+           "int8_library": int8_library,
+           "skipped": lambda: cs.closure_square(m, mt, off)}
     try:
         got8 = int8_library()
     except RuntimeError as e:          # a yardstick only: never fatal
@@ -332,11 +392,15 @@ def phase_kernels(name: str) -> dict:
     # m and mT read once, out and outT written once, B changed bytes
     nbytes = 4 * MAIN_B * MAIN_T ** 2 + MAIN_B
     t_ops, t_bytes = ops / ops_peak * 1e3, nbytes / bw_peak * 1e3
+    # a skipped round moves the four matrices once, no operations
+    t_skip = nbytes / bw_peak * 1e3
     say(f"closure_square B={MAIN_B} T={MAIN_T} median ms: kernel "
         f"{ms['kernel']}, plain (fp32 bmm) {ms['plain']}, library (bf16 "
         f"bmm > 0) {ms['library']}, int8 library (torch._int_mm > 0 per "
         f"history) {ms.get('int8_library')}; bound {max(t_ops, t_bytes)} "
-        f"(operations {t_ops}, bytes {t_bytes})")
+        f"(operations {t_ops}, bytes {t_bytes}); a skipped round (active "
+        f"0: the copy) {ms['skipped']}, bound {t_skip} (bytes); the "
+        f"kernel at B={WIDE_B} {ms_wide}")
     return {"name": "closure_square", "route": "cuda",
             "source": "jepsen_tpu_torch/csrc/closure_square.cu",
             "replaces": "jepsen_tpu/checker/elle/pallas_square.py:63",
@@ -345,7 +409,9 @@ def phase_kernels(name: str) -> dict:
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": ms["library"],
-            "int8_library_ms": ms.get("int8_library")}
+            "int8_library_ms": ms.get("int8_library"),
+            "skipped_ms": ms["skipped"], "skipped_bound_ms": t_skip,
+            f"ms_b{WIDE_B}": ms_wide}
 
 
 def sweep(store: Path, checker: str = "append",
@@ -363,6 +429,19 @@ def sweep(store: Path, checker: str = "append",
                                bucket_log=log, **kw)
     torch.cuda.synchronize()
     return rc, log, time.perf_counter() - t0, buf.getvalue()
+
+
+def launch_split(log: list, launches: int) -> tuple[int, int]:
+    """(active, skipped) closure_square launches of a path from its
+    bucket log: every round of every closure is enqueued (the log's
+    `launches`, which must equal the count), and the active ones are the
+    closures' rounds."""
+    enqueued = sum(b["launches"] for b in log)
+    active = sum(sum(b["closure_rounds"]) for b in log)
+    check(launches == enqueued and 0 < active <= launches,
+          f"{launches} kernel launches for {enqueued} enqueued rounds, "
+          f"{active} of them active")
+    return active, launches - active
 
 
 def counted(fn, kernel=None):
@@ -442,8 +521,7 @@ def phase_main() -> tuple[int, float]:
             check(res["valid?"] is True and res["anomaly-types"] == [],
                   f"{run} should be valid: {res}")
     rounds = [b["closure_rounds"] for b in log]
-    check(launches == sum(map(sum, rounds)) and launches > 0,
-          f"{launches} kernel launches for {rounds} closure rounds")
+    active, skipped = launch_split(log, launches)
     say(f"main path ({DEVICE}, hand kernel): {wall:.3f}s wall, "
         f"{STORE_RUNS / wall:.3f} histories/s, "
         f"{sum(b['seconds'] for b in log):.3f}s of it in bucket checks "
@@ -451,8 +529,9 @@ def phase_main() -> tuple[int, float]:
         f"{len(log)} buckets of "
         f"{[b['histories'] for b in log]} at T_pad "
         f"{sorted({b['t_pad'] for b in log})}, closure rounds per bucket "
-        f"{rounds}, {launches} closure_square launches taking "
-        f"{square_s:.6f}s of device time (CUDA event pairs)")
+        f"{rounds}, {launches} closure_square launches ({active} active, "
+        f"{skipped} skipped) taking {square_s:.6f}s of device time (CUDA "
+        "event pairs)")
 
     (rc_p, log_p, wall_p, _), relaunched, _ = counted(
         lambda: sweep(plain_store, device=DEVICE,
@@ -517,16 +596,16 @@ def phase_wr() -> tuple[int, float]:
             check(res["valid?"] is True and res["anomaly-types"] == [],
                   f"{run} should be valid: {res}")
     rounds = [b["closure_rounds"] for b in log]
-    check(launches == sum(map(sum, rounds)) and launches > 0,
-          f"{launches} kernel launches for {rounds} closure rounds")
+    active, skipped = launch_split(log, launches)
     say(f"wr path ({DEVICE}, hand kernel): {wall:.3f}s wall, "
         f"{WR_RUNS / wall:.3f} histories/s, "
         f"{sum(b['seconds'] for b in log):.3f}s of it in bucket checks "
         f"(pack, copy, scatter, kernels, flags), {len(log)} buckets of "
         f"{[b['histories'] for b in log]} at T_pad "
         f"{[b['t_pad'] for b in log]}, closure rounds per bucket "
-        f"{rounds}, {launches} closure_square launches taking "
-        f"{square_ms / 1e3:.6f}s of device time (CUDA event pairs)")
+        f"{rounds}, {launches} closure_square launches ({active} active, "
+        f"{skipped} skipped) taking {square_ms / 1e3:.6f}s of device time "
+        "(CUDA event pairs)")
 
     (rc_p, log_p, wall_p, _), relaunched, _ = counted(
         lambda: sweep(plain_store, checker="wr", device=DEVICE,
@@ -589,9 +668,7 @@ def phase_long() -> tuple[int, float]:
         if rec["host_scc_sizes"]:
             say(f"long {kind}: SCCs of {rec['host_scc_sizes']} txns went "
                 f"to the host classifier (> {condense.DEVICE_SCC_LIMIT})")
-    rounds = [b["closure_rounds"] for b in log]
-    check(launches == sum(map(sum, rounds)) and launches > 0,
-          f"{launches} kernel launches for {rounds} closure rounds")
+    active, skipped = launch_split(log, launches)
     say(f"long path ({DEVICE}, hand kernel): {wall:.3f}s wall, "
         f"{len(runs) / wall:.3f} histories/s; condensation (edge build + "
         f"SCCs) {sum(r['condense_seconds'] for r in clog):.6f}s, "
@@ -602,7 +679,8 @@ def phase_long() -> tuple[int, float]:
         + ", ".join(f"{k} {r['scc_sizes']} (T_pad {r['t_pads']}, "
                     f"{r['closure_rounds']} rounds)"
                     for k, r in by_kind.items())
-        + f"; {launches} closure_square launches")
+        + f"; {launches} closure_square launches ({active} active, "
+        f"{skipped} skipped)")
 
     (rc_p, _, wall_p, _), relaunched, _ = counted(
         lambda: sweep(plain_store, device=DEVICE,
@@ -971,7 +1049,9 @@ def same_but_cut_line(full: dict, resumed: dict, k: int, what: str) -> None:
 
 def phase_store() -> dict:
     """Phase 9 on the card; returns per path (launches, device
-    milliseconds) of closure_square and of knossos_dense_scan."""
+    milliseconds) of closure_square and of knossos_dense_scan, and the
+    outputs of the uninterrupted append sweep (phase 10 compares with
+    them)."""
     from jepsen_tpu_torch.checker.knossos import dense
 
     t0 = time.perf_counter()
@@ -1005,6 +1085,7 @@ def phase_store() -> dict:
     check(json.loads(full["register/run-00000/test.json"])["name"]
           == "register", "the stored checker wrote no test.json")
     square["store-append-full"] = (n, ms)
+    append_full = full
     say(f"append, full: {wall:.3f}s wall, {n} closure_square launches "
         f"({ms} ms device), rc {rc}")
 
@@ -1122,7 +1203,229 @@ def phase_store() -> dict:
           == ["kill", "partition"], "the fressian run's test.json")
     say(f"stored --name other: {wall_s:.3f}s wall, rc {rc_s}, verdicts "
         f"for {len(dirs)} runs, no run outside other touched")
-    return {"closure_square": square, "knossos_dense_scan": scan}
+    return {"closure_square": square, "knossos_dense_scan": scan,
+            "append_full": append_full}
+
+
+@contextlib.contextmanager
+def gate_env(**env):
+    """The named JEPSEN_TPU_* gates set in this process's environment for
+    the block (the port reads its gates at call time)."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update({k: str(v) for k, v in env.items()})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def cli_run(store: Path, **env) -> subprocess.CompletedProcess:
+    """`python -m jepsen_tpu_torch.cli analyze-store --checker append` on
+    the card over `store`, with the named gates in its environment."""
+    return subprocess.run(
+        [sys.executable, "-m", "jepsen_tpu_torch.cli", "analyze-store",
+         "--store", str(store), "--checker", "append", "--device", DEVICE],
+        cwd=ROOT, env={**os.environ, **{k: str(v) for k, v in env.items()}},
+        capture_output=True, text=True, timeout=600)
+
+
+def phase_supervisor(pristine: Path, clean: dict) -> dict:
+    """Phase 10 on the card (`pristine` and `clean`: phase 9's store and
+    its uninterrupted append sweep's outputs); returns per path
+    (launches, device milliseconds) of closure_square."""
+    from jepsen_tpu_torch import parallel, supervisor
+    from jepsen_tpu_torch.checker.elle import synth
+    from jepsen_tpu_torch.checker.elle.encode import encode_history
+
+    dev = torch.device(DEVICE)
+    paths = {}
+    t0 = time.perf_counter()
+    bad = [h % BAD_EVERY == BAD_EVERY - 1 for h in range(SUP_RUNS)]
+    encs = [encode_history(synth.synth_append_history(
+        T=STORE_T, K=STORE_K, seed=h, g1c=b)) for h, b in enumerate(bad)]
+    say(f"encoded {SUP_RUNS} list-append histories x {2 * STORE_T} ops "
+        f"in {time.perf_counter() - t0:.1f}s")
+
+    def expected(res: list, which: list) -> None:
+        for h, r in zip(which, res):
+            check(("G1c" in r) if bad[h] else r == {},
+                  f"history {h} ({'G1c' if bad[h] else 'valid'}): {r}")
+
+    # (a) the pipeline against the synchronous path, in turns
+    def sweep_async(pipelined: bool):
+        log: list = []
+        with gate_env(JEPSEN_TPU_PACK_THREAD=int(pipelined)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            pv = parallel.check_bucketed_async(
+                encs, dev, max_inflight=2 if pipelined else 1,
+                bucket_log=log)
+            enqueued = time.perf_counter() - t
+            ready = pv.is_ready()
+            res = pv.result()
+            torch.cuda.synchronize()
+            return res, time.perf_counter() - t, enqueued, ready, log
+
+    runs = []
+    for pipelined in (True, False, False, True):
+        (res, wall, enq, ready, log), n, ms = counted(
+            lambda: sweep_async(pipelined))
+        expected(res, range(SUP_RUNS))
+        active, skipped = launch_split(log, n)
+        runs.append((pipelined, res, wall, enq, ready, n, ms, log))
+        key = "supervisor-" + ("pipelined" if pipelined else "sync")
+        paths.setdefault(key, (n, ms))
+        say(f"(a) {'pipelined (2 in flight, pack-h2d thread)' if pipelined else 'synchronous (1 in flight, JEPSEN_TPU_PACK_THREAD=0)'}: "
+            f"{wall:.6f}s wall, dispatch returned after {enq:.6f}s with "
+            f"is_ready() {ready}; {len(log)} buckets of "
+            f"{[b['histories'] for b in log]}; {n} closure_square "
+            f"launches ({active} active, {skipped} skipped) taking "
+            f"{ms:.3f} ms of device time; idle share "
+            f"{1 - ms / 1e3 / wall:.4f} (1 - event-pair time / wall)")
+    clean_res = runs[0][1]
+    check(all(r[1] == clean_res for r in runs),
+          "the pipelined and synchronous sweeps disagree")
+    # The proof that a dispatch does not wait for the device: every
+    # history in one T=5120 bucket (its device time, hundreds of
+    # milliseconds, far above its enqueue's host time; in the sweeps
+    # above the card keeps up with the host, so their last bucket may be
+    # done by the time they return). The budget is split over the two
+    # buckets in flight.
+    one_bucket = 2 * SUP_RUNS * MAIN_T ** 2
+
+    def sweep_one_bucket():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pv = parallel.check_bucketed_async(encs, dev,
+                                           budget_cells=one_bucket)
+        enq = time.perf_counter() - t
+        ready = pv.is_ready()
+        res = pv.result()
+        return res, enq, ready, time.perf_counter() - t
+
+    (res, enq, ready, wall), n_one, ms_one = counted(sweep_one_bucket)
+    check(not ready, f"is_ready() was true right after "
+                     f"check_bucketed_async returned ({enq:.6f}s)")
+    check(res == clean_res, "the one-bucket sweep's verdicts differ")
+    say(f"(a) one bucket of all {SUP_RUNS} histories at T={MAIN_T}: "
+        f"check_bucketed_async returned after {enq:.6f}s with is_ready() "
+        f"{ready}; result() after {wall:.6f}s; {n_one} closure_square "
+        f"launches taking {ms_one:.3f} ms of device time")
+    cyc = [e for e, b in zip(encs, bad) if b]
+
+    # (b) a real OOM: a memory cap between one history's footprint and
+    # one bucket's
+
+    def footprint(group) -> int:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        parallel.check_bucketed(group, dev)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    one, two = footprint(cyc[:1]), footprint(cyc[:2])
+    check(two > one, f"a bucket of two takes {two} B, one history {one} B")
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    total = torch.cuda.get_device_properties(0).total_memory
+    cap = reserved + one + 3 * (two - one) // 4
+    planned = len(parallel.bucket_by_length(encs,
+                                            budget_cells=(1 << 27) // 2))
+    log = []
+    torch.cuda.set_per_process_memory_fraction(cap / total, 0)
+    try:
+        res, n, ms = counted(lambda: parallel.check_bucketed(
+            encs, dev, bucket_log=log))
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, 0)
+        torch.cuda.empty_cache()
+    splits = len(log) - planned
+    check(res == clean_res, "verdicts under the memory cap differ: "
+          f"{[r for r in res if isinstance(r, supervisor.Quarantined)]}")
+    check(splits >= 1, f"no bucket split under the cap ({len(log)} "
+                       f"buckets, {planned} planned)")
+    paths["supervisor-oom"] = (n, ms)
+    say(f"(b) real OOM: one history {one} B, a bucket of two {two} B "
+        f"(peak allocated); cap {cap} B ({reserved} B reserved before); "
+        f"{splits} of {planned} buckets split into halves, "
+        f"{len(log)} checked, verdicts identical; {n} launches")
+
+    # (c) the CLI under the self-nemesis over phase 9's store
+    work = WORK / "mixed"
+    proc, outs = in_turn(pristine, work,
+                         lambda w: cli_run(w, JEPSEN_TPU_FAULT_INJECT=FAULTS))
+    check(proc.returncode == 2, f"the faulted CLI sweep exited "
+                                f"{proc.returncode}: {proc.stderr[-3000:]}")
+    inj = supervisor._Injector(FAULTS)
+    runs_of = sorted({"/".join(k.split("/")[:2]) for k in clean
+                      if k.endswith("/.sweep-append")})
+    chosen = [r for r in runs_of if inj.selects("encode", r.split("/")[1])]
+    check(0 < len(chosen) < len(runs_of), f"the nemesis chose {chosen}")
+    for run in runs_of:
+        if run in chosen:
+            res = json.loads(outs[f"{run}/results.json"])
+            check(res.get("quarantined") == "encode"
+                  and res["valid?"] == "unknown",
+                  f"{run} should be quarantined at encode: {res}")
+            continue
+        for f in ("results.json", "results.edn", ".sweep-append"):
+            key = f"{run}/{f}"
+            check(outs.get(key) == clean.get(key),
+                  f"{key} differs from the clean sweep's")
+
+    def unchosen(lines):
+        return [ln for ln in lines if json.loads(ln)["dir"] not in chosen]
+
+    check(unchosen(outs["verdicts.jsonl"])
+          == unchosen(clean["verdicts.jsonl"])
+          and len(outs["verdicts.jsonl"]) == len(runs_of),
+          "the faulted sweep's journal differs from the clean one's")
+    say(f"(c) python -m jepsen_tpu_torch.cli under "
+        f"JEPSEN_TPU_FAULT_INJECT={FAULTS}: rc 2, {len(chosen)} of "
+        f"{len(runs_of)} runs quarantined at encode, the other "
+        f"{len(runs_of) - len(chosen)} byte-identical to the clean sweep "
+        "(results, markers, journal lines)")
+
+    # (d) the watchdog far below one bucket's device time: the bucket of
+    # every history from (a), whose closure_square launches alone took
+    # ms_one milliseconds on the card, so the watchdog cannot lose the
+    # race to a host that enqueues slower than the card squares
+    with gate_env(JEPSEN_TPU_DISPATCH_TIMEOUT_S=WATCHDOG_S):
+        t = time.perf_counter()
+        got = parallel.check_bucketed(encs, dev, budget_cells=one_bucket)
+        t_wd = time.perf_counter() - t
+    check(all(isinstance(g, supervisor.Quarantined)
+              and g.stage == "watchdog" for g in got),
+          f"the watchdog did not quarantine the bucket: {got}")
+    torch.cuda.synchronize()
+    again = parallel.check_bucketed(encs, dev, budget_cells=one_bucket)
+    check(again == clean_res, f"the sweep after the watchdog fired: {again}")
+    say(f"(d) JEPSEN_TPU_DISPATCH_TIMEOUT_S={WATCHDOG_S} against a bucket "
+        f"of {SUP_RUNS} whose closure_square launches take {ms_one:.3f} ms: "
+        f"all {len(got)} quarantined (stage watchdog) after {t_wd:.6f}s; "
+        "the next sweep without the gate gave the clean verdicts")
+
+    # (e) strict mode with an injected OOM
+    small = WORK / "strict"
+    synth.write_synth_run_store(small, B=4, T=300, K=16, bad_every=4)
+    proc = cli_run(small, JEPSEN_TPU_STRICT=1,
+                   JEPSEN_TPU_FAULT_INJECT="oom:first")
+    check(proc.returncode not in (0, 1, 2)
+          and "RESOURCE_EXHAUSTED" in proc.stderr,
+          f"strict + oom:first exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    check(not list(small.rglob("results.json")),
+          "the strict sweep wrote verdicts")
+    say(f"(e) JEPSEN_TPU_STRICT=1 with oom:first: rc {proc.returncode}, "
+        "no verdict written")
+    return paths
 
 
 def main() -> int:
@@ -1163,6 +1466,8 @@ def main() -> int:
         dense_paths = phase_register(name)
         store_paths = phase_store()
         paths.update(store_paths["closure_square"])
+        paths.update(phase_supervisor(WORK / "mixed-pristine",
+                                      store_paths["append_full"]))
         dense_paths.update(store_paths["knossos_dense_scan"])
         for rec, ps in ((record, paths), (dense_record, dense_paths)):
             rec["launches"] = sum(n for n, _ in ps.values())

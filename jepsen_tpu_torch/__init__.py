@@ -14,8 +14,12 @@ the dense limit by SCC condensation) and rw-register:
     cli            python -m jepsen_tpu_torch.cli analyze-store
     store          run-dir walk, verdict journal, results.edn rendering
     ingest         serial history -> encoding (append or wr)
-    parallel       length bucketing, packing, host->device copy, and
-                   check_long_history for runs past DENSE_TXN_LIMIT
+    parallel       length bucketing, the supervised async dispatcher
+                   (check_bucketed_async: packing, host->device copy,
+                   OOM backdown, the watchdog), and check_long_history
+                   for runs past DENSE_TXN_LIMIT
+    supervisor     quarantine, strict mode and the self-nemesis
+    gates          the JEPSEN_TPU_* gates the port reads
     checker/elle   encoders, edge build, closure, anomaly flags, verdicts
       kernels      dense closures over packed histories or edge lists
       condense     SCC condensation of long histories (numpy + scipy)

@@ -45,12 +45,12 @@ _i64p = ctypes.POINTER(ctypes.c_int64)
 #: ctypes prototypes of each library's C interface.
 PROTOTYPES = {
     "closure_square": {
-        # (m, mT, out, outT, changed, B, T, device, stream)
+        # (m, mT, out, outT, changed, active, B, T, device, stream)
         "closure_square_launch": (
             ctypes.c_int,
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_void_p]),
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
         "closure_square_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
     "knossos_dense": {
@@ -81,6 +81,10 @@ _loaded: dict[str, ctypes.CDLL] = {}
 
 class KernelBuildError(RuntimeError):
     """The compiler is missing or refused a source."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A hand kernel's launch returned a CUDA error."""
 
 
 def find_nvcc() -> str | None:

@@ -15,8 +15,18 @@ The kernel reads the second operand K-major, from the rows of `mT`
 (each history's transpose), and writes `outT` beside `out`, so a
 closure loop transposes once and carries the pair from round to round.
 
-`closure_square.launches` counts kernel launches (never plain-version
-calls), so a run can show that its closures went through the kernel.
+`active`, when given, moves the closure loop's condition onto the
+device (the reference's `lax.while_loop` condition): an int32 pair
+whose first word says whether this round runs. When it is nonzero the
+round squares, and the second word is set to 1 if any history changed
+(the next round's word); when it is zero the round copies `m` and `mT`
+to `out` and `outT`, leaves `changed` zero and the second word alone.
+So a loop can enqueue every round without reading the device.
+
+`closure_square.launches` counts kernel launches, inactive rounds
+included (never plain-version calls), so a run can show that its
+closures went through the kernel; the active ones are the closures'
+round counts.
 `closure_square.events`, when set to a list, gets a (start, end) CUDA
 event pair appended around each launch, for timing a whole sweep.
 """
@@ -29,19 +39,28 @@ import torch
 TILE = 128
 
 
-def closure_square_ref(m: torch.Tensor, mT: torch.Tensor):
+def closure_square_ref(m: torch.Tensor, mT: torch.Tensor,
+                       active: torch.Tensor | None = None):
     """The plain version: `out = bmm(float(m), float(mT)ᵀ) > 0` (with mT
     the transpose of m, the square of m), `outT = outᵀ`, and
     `changed[b] = any(out[b] != m[b])`. Exact, because every sum of 0/1
     products is an integer below 2^24 for T <= 32768. (int8 bmm would
-    return int8 and wrap: all-ones at T=256 sums to 0.)"""
+    return int8 and wrap: all-ones at T=256 sums to 0.) With `active`,
+    as `closure_square` takes it, all on the device: an inactive round
+    returns `m` and `mT` unchanged with no history changed."""
     out = torch.bmm(m.to(torch.float32),
                     mT.to(torch.float32).transpose(1, 2)) > 0
-    return (out, out.transpose(1, 2).contiguous(),
-            (out != m).flatten(1).any(1))
+    changed = (out != m).flatten(1).any(1)
+    if active is not None:
+        on = active[0] != 0
+        out = torch.where(on, out, m)
+        changed &= on
+        active[1:2].bitwise_or_(changed.any().to(active.dtype))
+    return out, out.transpose(1, 2).contiguous(), changed
 
 
-def _check(m: torch.Tensor, mT: torch.Tensor) -> None:
+def _check(m: torch.Tensor, mT: torch.Tensor,
+           active: torch.Tensor | None) -> None:
     for name, x in (("m", m), ("mT", mT)):
         if x.dtype != torch.bool:
             raise TypeError(
@@ -56,17 +75,26 @@ def _check(m: torch.Tensor, mT: torch.Tensor) -> None:
                          f"match m {tuple(m.shape)} on {m.device}")
     if m.shape[1] % TILE:
         raise ValueError(f"T={m.shape[1]} is not a multiple of {TILE}")
+    if active is not None and (
+            active.dtype != torch.int32 or active.shape != (2,)
+            or not active.is_contiguous() or active.device != m.device):
+        raise ValueError(f"active must be a contiguous int32 pair on "
+                         f"{m.device}, got {active.dtype} "
+                         f"{tuple(active.shape)} on {active.device}")
 
 
-def closure_square(m: torch.Tensor, mT: torch.Tensor):
+def closure_square(m: torch.Tensor, mT: torch.Tensor,
+                   active: torch.Tensor | None = None):
     """One closure round of `m` ([B,T,T] bool, T a multiple of 128),
     given `mT`, its per-history transpose: returns `(out, outT, changed)`
     — the round, its transpose and a [B] bool "out differs from m" — from
     the CUDA kernel for CUDA tensors, from the plain version for CPU
-    tensors. All three are new tensors."""
-    _check(m, mT)
+    tensors. All three are new tensors. `active` (an int32 pair on m's
+    device, see the module doc) makes the round conditional on the
+    device."""
+    _check(m, mT, active)
     if m.device.type == "cpu":
-        return closure_square_ref(m, mT)
+        return closure_square_ref(m, mT, active)
     if m.device.type != "cuda":
         raise ValueError(f"closure_square runs on cuda or cpu, not {m.device}")
     B, T, _ = m.shape
@@ -85,10 +113,11 @@ def closure_square(m: torch.Tensor, mT: torch.Tensor):
         start.record(stream)
     rc = lib.closure_square_launch(
         m.data_ptr(), mT.data_ptr(), out.data_ptr(), outT.data_ptr(),
-        changed.data_ptr(), B, T, m.device.index, stream.cuda_stream)
+        changed.data_ptr(), None if active is None else active.data_ptr(),
+        B, T, m.device.index, stream.cuda_stream)
     if rc != 0:
         msg = lib.closure_square_error_string(rc).decode()
-        raise RuntimeError(
+        raise _build.KernelLaunchError(
             f"closure_square launch failed (B={B}, T={T}): {msg}")
     closure_square.launches += 1
     if events is not None:

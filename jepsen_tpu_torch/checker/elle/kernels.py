@@ -14,16 +14,21 @@ intersections:
   G-single  some rw edge (u,v) with v→u in closure(ww|wr)
   G2-item   some rw edge (u,v) with v→u only in closure(ww|wr|rw)
 
-The math is the reference's, batched over B where the reference vmaps,
-with host control flow where it uses `lax.while_loop`/`lax.cond`: the
-closure loop syncs once per round on "did anything change", and the
-fused classifier branches on "is any history cyclic". Every function
-takes tensors on one device and runs there.
+The math is the reference's, batched over B where the reference vmaps.
+Its control flow stays on the device as the reference's
+`lax.while_loop`/`lax.cond` does: a closure enqueues all
+`closure_steps(T)` rounds, each conditional on a device word the
+previous round sets when anything changed (`closure_square`'s
+`active`), and the fused classifier's "is any history cyclic" is the
+first word of the classification closures, their flags masked by it.
+So a check enqueues its work and returns at once: the host reads
+nothing back until the caller resolves the flags and the round counts
+(`read_rounds`). Every function takes tensors on one device and runs
+there.
 """
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Callable
 
@@ -37,11 +42,21 @@ from .encode import EncodedHistory, effective_complete_index
 G0, G1C, G_SINGLE, G2_ITEM, CYCLE = 0, 1, 2, 3, 4
 FLAG_NAMES = {G0: "G0", G1C: "G1c", G_SINGLE: "G-single", G2_ITEM: "G2-item"}
 
-#: A squaring function: (m, mT) [B,T,T] bool, mT each history's
-#: transpose -> (out, outT, changed): the round, its transpose and a [B]
-#: bool "out differs from m" (see closure_square.closure_square).
-Square = Callable[[torch.Tensor, torch.Tensor],
+#: A squaring function: (m, mT, active) — [B,T,T] bool, mT each
+#: history's transpose, active the round's int32 word pair — -> (out,
+#: outT, changed): the round, its transpose and a [B] bool "out differs
+#: from m" (see closure_square.closure_square).
+Square = Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
                   tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+
+
+def fused_classify_enabled() -> bool:
+    """The JEPSEN_TPU_FUSED_CLASSIFY gate (default on): classify
+    dispatches run the fused detect/classify path, the classification
+    closures conditional on the device on "some history is cyclic".
+    `0` restores the detect-then-classify re-dispatch (two-pass)."""
+    from ... import gates
+    return gates.get("JEPSEN_TPU_FUSED_CLASSIFY")
 
 
 def pad_to(x: int, multiple: int) -> int:
@@ -165,13 +180,15 @@ def _edges_batched(appends: torch.Tensor, reads: torch.Tensor, n_keys: int,
     # Writer lookup table W[b, key, pos] -> txn row (or -1). The pos axis
     # is 1-based; slot 0 unused; slot P+1 is the trash slot dead triples
     # aim at, re-nulled afterwards. Out-of-range indices are dropped on
-    # write and clamped on read, as the reference's scatter/gather do.
+    # write (aimed at the trash slot too, so the scatter needs no
+    # boolean mask and no host sync) and clamped on read, as the
+    # reference's scatter/gather do.
     W = torch.full((B, n_keys, P + 2), -1, dtype=torch.int64, device=dev)
     k_idx = torch.where(a_live, a_key, n_keys - 1)
     p_idx = torch.where(a_live, a_pos, P + 1)
     inb = (k_idx >= 0) & (k_idx < n_keys) & (p_idx >= 0) & (p_idx <= P + 1)
-    W[rows.expand_as(a_txn)[inb], k_idx[inb], p_idx[inb]] = torch.where(
-        a_live, a_txn, -1)[inb]
+    W[rows.expand_as(a_txn), torch.where(inb, k_idx, 0),
+      torch.where(inb, p_idx, P + 1)] = torch.where(a_live & inb, a_txn, -1)
     W[:, :, P + 1] = -1
 
     def gather(k, p):
@@ -211,36 +228,54 @@ def _edges_batched(appends: torch.Tensor, reads: torch.Tensor, n_keys: int,
     return ww, wr, rw
 
 
-def _square(m: torch.Tensor, mT: torch.Tensor, square: Square | None):
-    """ONE boolean matrix squaring with its transpose and changed flags:
-    the hand kernel on cuda (its plain version on cpu) unless the caller
-    names another squaring."""
-    return (cs.closure_square if square is None else square)(m, mT)
+def _square(m: torch.Tensor, mT: torch.Tensor, active: torch.Tensor,
+            square: Square | None):
+    """ONE conditional boolean matrix squaring with its transpose and
+    changed flags: the hand kernel on cuda (its plain version on cpu)
+    unless the caller names another squaring."""
+    return (cs.closure_square if square is None else square)(m, mT, active)
 
 
 def _closure_batched(m: torch.Tensor, steps: int,
                      square: Square | None = None,
-                     rounds: list | None = None) -> torch.Tensor:
+                     rounds: list | None = None,
+                     active: torch.Tensor | None = None) -> torch.Tensor:
     """Transitive closure of [B,T,T] boolean adjacencies: `m | eye`
     squared to the batch-level fixpoint, at most `steps` rounds. Path
     lengths double each round, so convergence takes ~log2(diameter)
-    rounds. The squaring returns the round's transpose (the next round's
-    second operand; made once here, before the first round) and its
-    per-history changed flags, so the loop reads back one bool per round
-    and compares no matrices. `rounds`, when given, gets the number of
-    squarings appended."""
+    rounds. All `steps` rounds are enqueued; round i runs only when word
+    i of a device int32 vector is nonzero, and sets word i+1 when it
+    changed some history, so the rounds after the fixpoint are skipped
+    on the device (copies) with no host read — the reference's
+    `lax.while_loop`. Word 0 is 1, or `active` (a device bool or int
+    scalar: the closure runs only when it is nonzero). The squaring
+    returns the round's transpose, the next round's second operand, made
+    once here before the first round. `rounds`, when given, gets the
+    closure's round count appended as a device int32 scalar (the
+    leading nonzero words; `read_rounds` reads it)."""
     T = m.shape[-1]
     m = m | torch.eye(T, dtype=torch.bool, device=m.device)
     mT = m.transpose(1, 2).contiguous()
-    i = 0
-    changed = True
-    while changed and i < steps:
-        m, mT, flags = _square(m, mT, square)
-        changed = bool(flags.any())
-        i += 1
+    act = torch.zeros(steps + 1, dtype=torch.int32, device=m.device)
+    if active is None:
+        act[0] = 1
+    else:
+        act[:1].copy_(active.reshape(1))
+    for i in range(steps):
+        m, mT, _ = _square(m, mT, act[i:i + 2], square)
     if rounds is not None:
-        rounds.append(i)
+        rounds.append((act[:steps] != 0).sum(dtype=torch.int32))
     return m
+
+
+def read_rounds(rounds: list) -> list[int]:
+    """The round counts `_closure_batched` appended, read from the device
+    at once: one int per closure that ran, a closure skipped whole by its
+    first word (the fused path's classification of an acyclic batch)
+    left out — the counts a host-driven loop would have made."""
+    if not rounds:
+        return []
+    return [r for r in torch.stack(rounds).tolist() if r]
 
 
 def _any(x: torch.Tensor) -> torch.Tensor:
@@ -298,8 +333,8 @@ def classify_matrices_impl(ww, wr, rw, invoke_index, complete_index, process,
         rt = complete_index[:, :, None] < invoke_index[:, None, :]
         ww = ww | (rt & live2 & nI)
 
-    def closure(m):
-        return _closure_batched(m, steps, square, rounds)
+    def closure(m, active=None):
+        return _closure_batched(m, steps, square, rounds, active)
 
     wwr = ww | wr
     full = wwr | rw
@@ -308,20 +343,23 @@ def classify_matrices_impl(ww, wr, rw, invoke_index, complete_index, process,
         cycle = _any(full & c_full.transpose(1, 2) & nI)
         return cycle.to(torch.int32) << CYCLE
     if fused:
-        # Fused detect/classify: run the detect closure first and run
-        # the classification closures only when some history in the
-        # batch is cyclic (a host-side branch where the reference uses
-        # lax.cond), reusing the full closure. Exact: every per-class
-        # witness implies a cycle in the full graph, so an acyclic batch
-        # classifies to zero flags.
+        # Fused detect/classify: run the detect closure first, and the
+        # classification closures only when some history in the batch
+        # is cyclic — a device-side condition, as the reference's
+        # lax.cond: "any cycle" is their first active word, and the
+        # flags are masked by it, reusing the full closure. Exact:
+        # every per-class witness implies a cycle in the full graph, so
+        # an acyclic batch classifies to zero flags.
         c_full = closure(full)
         cycle = _any(full & c_full.transpose(1, 2) & nI)
-        if not bool(cycle.any()):
-            return cycle.to(torch.int32) << CYCLE
-        c_ww = closure(ww)
-        c_wwr = closure(c_ww | wr)
-        return _flags_from_closures(ww, wr, rw, c_ww, c_wwr, c_full, cycle,
-                                    nI)
+        any_cycle = cycle.any()
+        c_ww = closure(ww, any_cycle)
+        c_wwr = closure(c_ww | wr, any_cycle)
+        return torch.where(
+            any_cycle,
+            _flags_from_closures(ww, wr, rw, c_ww, c_wwr, c_full, cycle,
+                                 nI),
+            cycle.to(torch.int32) << CYCLE)
     # Two-pass chain of warm starts: closure(A|B) == closure(closure(A)|B),
     # so each wider closure is seeded with the previous one.
     c_ww = closure(ww)
@@ -353,10 +391,11 @@ def check_batch_device(batch: dict, *, classify: bool = True,
                        fused: bool = True, square: Square | None = None,
                        rounds: list | None = None) -> torch.Tensor:
     """Single-device entry over a device-resident packed batch (from
-    `batch_to_device`): [B] int32 flag words, on the batch's device.
-    `square` replaces the squaring (e.g. with `closure_square_ref` to run
-    the plain version on cuda); `rounds` collects each closure's
-    squaring count."""
+    `batch_to_device`): [B] int32 flag words, on the batch's device,
+    enqueued with no read of the device. `square` replaces the squaring
+    (e.g. with `closure_square_ref` to run the plain version on cuda);
+    `rounds` collects each closure's device round counter
+    (`read_rounds` reads them)."""
     shape: BatchShape = batch["shape"]
     return check_batched_impl(
         batch["appends"], batch["reads"], batch["invoke_index"],
@@ -458,24 +497,28 @@ def edge_batch_to_device(packed: dict, device: torch.device) -> dict:
 
 def check_edge_batch(per_history: list[dict], device=None, *,
                      realtime: bool = False, process_order: bool = False,
-                     classify: bool = True, fused: bool = True,
-                     square: Square | None = None,
-                     rounds: list | None = None) -> list[dict]:
+                     classify: bool = True, fused: bool | None = None,
+                     square: Square | None = None) -> list[dict]:
     """Device cycle check over host-built edge lists: per-history
     {anomaly-name: True} dicts (the rw-register path, and the per-SCC
     classify stage of the condensed long-history path), on `device`
-    (default cuda; see devices.resolve_device). `square` and `rounds`
-    as in `check_batch_device`."""
+    (default cuda; see devices.resolve_device). `fused` defaults to the
+    JEPSEN_TPU_FUSED_CLASSIFY gate. The wait for the flags is bounded
+    by the dispatch watchdog (`parallel._block_flags`: WatchdogTimeout
+    after two timeouts). `square` as in `check_batch_device`."""
     if not per_history:
         return []
     from ...devices import resolve_device
-    batch = edge_batch_to_device(pack_edge_matrices(per_history),
-                                 resolve_device(device))
+    from ...parallel import _block_flags, _done_event
+    dev = resolve_device(device)
+    batch = edge_batch_to_device(pack_edge_matrices(per_history), dev)
     flags = classify_matrices_device(
         batch, classify=classify, realtime=realtime,
-        process_order=process_order, fused=fused, square=square,
-        rounds=rounds).tolist()
-    return [flags_to_names(w) for w in flags]
+        process_order=process_order,
+        fused=fused_classify_enabled() if fused is None else fused,
+        square=square)
+    _block_flags(_done_event(dev))
+    return [flags_to_names(w) for w in flags.tolist()]
 
 
 def check_edge_batch_bucketed(per_history: list[dict], device=None, *,
@@ -483,33 +526,27 @@ def check_edge_batch_bucketed(per_history: list[dict], device=None, *,
                               process_order: bool = False,
                               classify: bool = True,
                               budget_cells: int = 1 << 27,
-                              fused: bool = True,
+                              fused: bool | None = None,
                               square: Square | None = None,
                               bucket_log: list | None = None
                               ) -> list[dict]:
     """check_edge_batch over length buckets (parallel.bucket_by_length:
     B·T_pad² cells per bucket under `budget_cells`, for each of the
-    three edge matrices), results in input order. `bucket_log` gets
-    one dict per bucket, as parallel.check_bucketed writes them."""
-    from ...parallel import bucket_by_length
-    out: list[dict | None] = [None] * len(per_history)
-    for bucket in bucket_by_length(per_history, budget_cells=budget_cells):
-        t0 = time.perf_counter()
-        group = [per_history[j] for j in bucket]
-        rounds: list[int] = []
-        res = check_edge_batch(group, device, realtime=realtime,
-                               process_order=process_order,
-                               classify=classify, fused=fused,
-                               square=square, rounds=rounds)
-        for j, r in zip(bucket, res):
-            out[j] = r
-        if bucket_log is not None:
-            bucket_log.append({
-                "histories": len(bucket),
-                "t_pad": pad_to(max(h["n"] for h in group), 128),
-                "closure_rounds": rounds,
-                "seconds": time.perf_counter() - t0})
-    return out  # type: ignore[return-value]
+    three edge matrices), results in input order, on `device` (default
+    cuda). The buckets go through `parallel.check_bucketed_async`, one
+    on the device at a time, unsupervised: a bucket's OOM, watchdog
+    timeout or packing failure raises to the caller, which owns that
+    policy (the wr sweep's `cli._wr_chunk_with_backdown`, the long run's
+    quarantine). `bucket_log` as in `parallel.check_bucketed`."""
+    if not per_history:
+        return []
+    from ...devices import resolve_device
+    from ...parallel import check_bucketed_async
+    return check_bucketed_async(
+        per_history, resolve_device(device), classify=classify,
+        realtime=realtime, process_order=process_order,
+        budget_cells=budget_cells, fused=fused, max_inflight=1,
+        square=square, bucket_log=bucket_log, supervise=False).result()
 
 
 def flags_to_names(word: int) -> dict:

@@ -371,8 +371,9 @@ def knossos_dense_scan(regs: torch.Tensor, comp: torch.Tensor,
         stream.cuda_stream)
     if rc != 0:
         msg = lib.knossos_dense_error_string(rc).decode()
-        raise RuntimeError(f"knossos_dense_scan launch failed (B={B}, C={C},"
-                           f" S={n_slots}, V={n_values}, {plan}): {msg}")
+        raise _build.KernelLaunchError(
+            f"knossos_dense_scan launch failed (B={B}, C={C}, S={n_slots}, "
+            f"V={n_values}, {plan}): {msg}")
     knossos_dense_scan.launches += 1
     if events is not None:
         end = torch.cuda.Event(enable_timing=True)

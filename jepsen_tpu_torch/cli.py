@@ -15,7 +15,8 @@ verdict lands as the reference writes it — `results.edn`,
   one at a time, through SCC condensation (`parallel.check_long_history`).
 - `wr` (rw-register): host-built dependency edges, length-bucketed
   through the same device classification
-  (`kernels.check_edge_batch_bucketed`).
+  (`kernels.check_edge_batch_bucketed`, which dispatches through
+  `parallel.check_bucketed_async` one bucket at a time).
 - `register` (per-key CAS-register linearizability): every run's values
   are re-lifted to `[k v]` and split per key in one pass, and every key
   of every run goes down in one `Linearizable.check_batch` (dense grid
@@ -40,9 +41,21 @@ exit code.
 Exit codes, as the reference's: 0 every run valid, 1 some run invalid,
 2 validity unknown, 254 usage error (or no stored runs), 255 crash or
 no CUDA device. Every checker resolves the device first, `stored`
-included. A long list-append run whose condensed check raises is
-quarantined alone (`valid? unknown`, the cause kept in its results)
-and the sweep goes on; a build or device failure still ends it.
+included.
+
+What goes wrong is quarantined as the reference's supervisor does
+(`supervisor`): the run gets `valid? unknown` with its cause and
+stage, and the sweep goes on. An encode fault injected by the
+self-nemesis (`JEPSEN_TPU_FAULT_INJECT`) quarantines its run at once
+(stage `encode`), without the stored-checker detour; the append sweep's
+dispatcher (`parallel.check_bucketed_async`) backs down from an OOM and
+quarantines a bucket that outlasts the watchdog
+(`JEPSEN_TPU_DISPATCH_TIMEOUT_S`) or fails to pack; a wr chunk backs
+down to single histories (`_wr_chunk_with_backdown`); a long
+list-append run whose condensed check raises is quarantined alone.
+A kernel build or launch failure, a missing device or a CUDA error
+still ends the sweep, and `JEPSEN_TPU_STRICT=1` re-raises every
+failure instead of quarantining it.
 """
 
 from __future__ import annotations
@@ -151,11 +164,14 @@ def _quarantine_run(d, err, stage: str, checker: str, journal=None,
                     persist: bool = True) -> int:
     """Record a run the sweep abandoned as a `valid? unknown` verdict —
     never a false verdict, never a dead sweep — persisting the cause for
-    triage and journaling it. The reference's tracer span, counter and
-    flight-recorder event are left out (the port has no tracer yet), and
-    so is its strict gate (JEPSEN_TPU_STRICT=1 re-raising): the port has
-    no supervisor gates yet."""
+    triage and journaling it. JEPSEN_TPU_STRICT=1 re-raises instead
+    (fail-fast)."""
     from . import supervisor
+    if supervisor.strict_enabled():
+        if isinstance(err, BaseException):
+            raise err
+        raise RuntimeError(str(err))
+    # counter: quarantined, with a "quarantine" span and event
     log.warning("quarantining %s (%s): %s", d, stage, err)
     return _write_results(d, supervisor.quarantine_verdict(err, stage,
                                                            checker),
@@ -243,7 +259,8 @@ def _register_sweep(run_dirs: list, dev, emit, stored,
     try:
         results = c.check_batch({}, subs, {}, tier_log=tiers) \
             if subs else []
-    except (_build.KernelBuildError, DeviceUnavailable):
+    except (_build.KernelBuildError, _build.KernelLaunchError,
+            DeviceUnavailable):
         raise
     except Exception:
         # one malformed run must not sink the sweep: re-dispatch each
@@ -254,7 +271,8 @@ def _register_sweep(run_dirs: list, dev, emit, stored,
         for s in subs:
             try:
                 results.append(c.check_batch({}, [s], {})[0])
-            except (_build.KernelBuildError, DeviceUnavailable):
+            except (_build.KernelBuildError, _build.KernelLaunchError,
+                    DeviceUnavailable):
                 raise
             except Exception as e:
                 results.append({"valid?": "unknown",
@@ -298,10 +316,10 @@ def analyze_store(store: Store, checker: str = "append", device=None,
     condensed long history (see condense.check_condensed) and
     `register_log` the register sweep's load/split/check seconds, key
     count and device tiers. Returns the worst exit code."""
-    from . import _build, core, ingest, parallel
+    from . import core, ingest, parallel, supervisor
     from .checker import elle
     from .checker.elle import kernels, wr
-    from .devices import DeviceUnavailable, resolve_device
+    from .devices import resolve_device
 
     if checker not in CHECKERS:
         raise ValueError(f"unknown checker {checker!r}")
@@ -351,6 +369,10 @@ def analyze_store(store: Store, checker: str = "append", device=None,
                                             journal=journal))
 
     def render(enc, cycles) -> dict:
+        if isinstance(cycles, supervisor.Quarantined):
+            # the dispatcher abandoned this history (OOM backdown
+            # exhausted, watchdog, pack failure)
+            return cycles.verdict(checker)
         if checker == "wr":
             return wr.render_wr_verdict(enc, cycles, wr.WR_PROHIBITED)
         return elle.render_verdict(enc, cycles, elle.APPEND_PROHIBITED)
@@ -369,7 +391,13 @@ def analyze_store(store: Store, checker: str = "append", device=None,
                                                    checker=checker):
                 good = []
                 for d, enc in chunk:
-                    if isinstance(enc, Exception):
+                    if isinstance(enc, supervisor.InjectedFault):
+                        # a self-nemesis fault simulates a poisoned
+                        # history, whose terminal state IS quarantine:
+                        # no stored-checker detour
+                        worst = max(worst, _quarantine_run(
+                            d, enc, "encode", checker, journal=journal))
+                    elif isinstance(enc, Exception):
                         log.info("run %s not encodable as %s (%r); using "
                                  "stored checker", d, checker, enc)
                         fallback.append(d)
@@ -386,9 +414,9 @@ def analyze_store(store: Store, checker: str = "append", device=None,
                 if not good:
                     continue
                 if checker == "wr":
-                    cycles_per = kernels.check_edge_batch_bucketed(
-                        [wr.to_edge_dict(e) for _, e in good], dev,
-                        square=square, bucket_log=bucket_log)
+                    cycles_per = _wr_chunk_with_backdown(
+                        good, kernels, wr, device=dev, square=square,
+                        bucket_log=bucket_log)
                 else:
                     cycles_per = parallel.check_bucketed(
                         [e for _, e in good], dev, square=square,
@@ -401,9 +429,9 @@ def analyze_store(store: Store, checker: str = "append", device=None,
                         enc, dev, dense_limit=parallel.DENSE_TXN_LIMIT,
                         square=square, bucket_log=bucket_log,
                         condense_log=condense_log)
-                except (_build.KernelBuildError, DeviceUnavailable):
-                    raise
                 except Exception as e:
+                    if supervisor.must_end_sweep(e):
+                        raise
                     # one monster history must fail alone, not take the
                     # whole sweep's remaining verdicts with it
                     worst = max(worst, _quarantine_run(
@@ -418,6 +446,56 @@ def analyze_store(store: Store, checker: str = "append", device=None,
     finally:
         journal.close()
     return worst
+
+
+def _wr_chunk_with_backdown(good, elle_kernels, elle_wr, **kw) -> list:
+    """One wr chunk's device check with the supervisor's OOM and
+    watchdog degradation: the bucketed batch first
+    (`elle_kernels.check_edge_batch_bucketed(edges, **kw)`); on an OOM
+    or a watchdog timeout the chunk re-checks one history at a time (the
+    wr dispatcher has no incremental split, so singletons ARE the
+    backdown floor), and a history that still fails alone quarantines.
+    Two CONSECUTIVE singleton watchdog timeouts mean the device is
+    wedged, not the data: the chunk's remainder quarantines without
+    re-probing. Other errors (and strict mode) re-raise."""
+    from . import supervisor
+
+    def recoverable(e) -> bool:
+        return not supervisor.strict_enabled() and (
+            supervisor.is_oom_error(e)
+            or isinstance(e, supervisor.WatchdogTimeout))
+
+    edges = [elle_wr.to_edge_dict(e) for _d, e in good]
+    try:
+        return elle_kernels.check_edge_batch_bucketed(edges, **kw)
+    except Exception as e:
+        if not recoverable(e):
+            raise
+        # counter: oom_retries, when e is an OOM
+    out: list = []
+    wedged = 0
+    for ed in edges:
+        if wedged >= 2:
+            # counter: quarantined, with a "quarantine" span and event
+            out.append(supervisor.Quarantined(
+                "watchdog", "device wedged: consecutive singleton "
+                "watchdog timeouts"))
+            continue
+        try:
+            out.append(elle_kernels.check_edge_batch_bucketed([ed],
+                                                              **kw)[0])
+            wedged = 0
+        except Exception as e:
+            if not recoverable(e):
+                raise
+            if isinstance(e, supervisor.WatchdogTimeout):
+                stage = "watchdog"
+                wedged += 1
+            else:
+                stage = "oom"
+            # counter: quarantined, with a "quarantine" span and event
+            out.append(supervisor.Quarantined(stage, repr(e)))
+    return out
 
 
 def main(argv: list[str] | None = None) -> int:

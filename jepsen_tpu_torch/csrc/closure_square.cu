@@ -38,6 +38,16 @@
 //    their barrier (bar.red.or), and one thread sets changed[b]. This is
 //    the reference's any(m2 != m), no reflexivity assumed.
 //
+//  * The closure loop's condition on the device. An optional int32
+//    pair `active` replaces the host's per-round "did anything change"
+//    read (the reference's lax.while_loop condition): every thread reads
+//    active[0] first; when it is 0 the round is skipped, and the launch
+//    only copies m to out and mT to outT (16-byte words, grid-stride),
+//    so a skipped round costs one pass over the four matrices; when it
+//    is nonzero the round squares as above and a changed history also
+//    sets active[1], the next round's word. A loop thus enqueues every
+//    round of a closure and reads nothing back until it resolves.
+//
 // Input bytes must be 0 or 1; output bytes are 0 or 1; changed[b] is
 // set to 1 where out[b] != m[b] and left as the caller zeroed it
 // elsewhere. T must be a multiple of 128, layouts [B,T,T] contiguous.
@@ -193,7 +203,28 @@ closure_square_kernel(const __grid_constant__ CUtensorMap tm_m,
                       const __grid_constant__ CUtensorMap tm_mT,
                       const __grid_constant__ CUtensorMap tm_out,
                       const __grid_constant__ CUtensorMap tm_outT,
-                      uint8_t* __restrict__ changed, int B, int T) {
+                      const uint4* __restrict__ m_words,
+                      const uint4* __restrict__ mT_words,
+                      uint4* __restrict__ out_words,
+                      uint4* __restrict__ outT_words,
+                      uint8_t* __restrict__ changed, int* active, int B,
+                      int T) {
+  if (active != nullptr && *reinterpret_cast<volatile int*>(active) == 0) {
+    // a skipped round: out = m, outT = mT, nothing else written. The
+    // word is uniform across the grid, so every thread takes this branch
+    // or none does, before any barrier is touched.
+    const size_t n = static_cast<size_t>(B) * T * T / 16;
+    const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+    for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+         i < n; i += stride) {
+      const uint4 a = m_words[i];
+      const uint4 c = mT_words[i];
+      out_words[i] = a;
+      outT_words[i] = c;
+    }
+    return;
+  }
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -340,7 +371,12 @@ closure_square_kernel(const __grid_constant__ CUtensorMap tm_m,
           : "r"(diff)
           : "memory");
       if (ct == 0) {
-        if (any) *reinterpret_cast<volatile uint8_t*>(changed + b) = 1;
+        if (any) {
+          *reinterpret_cast<volatile uint8_t*>(changed + b) = 1;
+          if (active != nullptr) {
+            *reinterpret_cast<volatile int*>(active + 1) = 1;
+          }
+        }
         for (int h = 0; h < halves; ++h) {
           tma_store(&tm_out, s_base + OFF_OUT + h * (BM * 128), j0 + h * 128,
                     i0, b);
@@ -408,10 +444,13 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* base, int B,
 // mT (= m transposed per history) are device pointers to B contiguous
 // T x T byte matrices; out and outT receive the round and its transpose;
 // changed (B bytes, zeroed by the caller) gets 1 where out[b] != m[b].
-// Returns a cudaError_t (0 on success); it never synchronises.
+// active (null, or two device int32 words) makes the round conditional:
+// skipped when active[0] == 0 (out = m, outT = mT), and a changed
+// history sets active[1]. Returns a cudaError_t (0 on success); it never
+// synchronises.
 extern "C" int closure_square_launch(const void* m, const void* mT, void* out,
-                                     void* outT, void* changed, int B, int T,
-                                     int device, void* stream) {
+                                     void* outT, void* changed, void* active,
+                                     int B, int T, int device, void* stream) {
   if (B <= 0 || T <= 0 || T % BM != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -441,7 +480,10 @@ extern "C" int closure_square_launch(const void* m, const void* mT, void* out,
   const int grid = static_cast<int>(n_tiles < sms ? n_tiles : sms);
   closure_square_kernel<<<grid, THREADS, SMEM_BYTES,
                           static_cast<cudaStream_t>(stream)>>>(
-      tm_m, tm_mT, tm_out, tm_outT, static_cast<uint8_t*>(changed), B, T);
+      tm_m, tm_mT, tm_out, tm_outT, static_cast<const uint4*>(m),
+      static_cast<const uint4*>(mT), static_cast<uint4*>(out),
+      static_cast<uint4*>(outT), static_cast<uint8_t*>(changed),
+      static_cast<int*>(active), B, T);
   return static_cast<int>(cudaGetLastError());
 }
 

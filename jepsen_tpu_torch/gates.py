@@ -1,0 +1,105 @@
+"""The registry of the `JEPSEN_TPU_*` environment gates the port reads.
+
+The port's own copy of `jepsen_tpu/gates.py` (`Gate`, `_g`, `get`,
+`get_raw`, `is_set`), declaring only the gates the port reads. The
+names are the reference's, so one environment drives both packages.
+Every read of a `JEPSEN_TPU_*` variable in the port goes through
+`get` (or `get_raw`/`is_set`), at call time, so tests can monkeypatch
+the environment freely.
+
+Parse rules, per gate kind and default:
+
+  * bool, default on  — unset or anything but ``"0"`` is True;
+  * bool, default off — only a set, non-empty, non-``"0"`` value is
+    True;
+  * float — parsed, falling back to the declared default on a
+    malformed value instead of crashing the run;
+  * str — the stripped raw value, empty treated as unset.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+
+log = logging.getLogger(__name__)
+
+PREFIX = "JEPSEN_TPU_"
+
+#: Parse kinds a gate may declare.
+KINDS = ("bool", "float", "str")
+
+
+class Gate:
+    """One declared gate: name, kind, default, one doc line."""
+
+    __slots__ = ("name", "kind", "default", "doc")
+
+    def __init__(self, name: str, kind: str, default, doc: str):
+        if kind not in KINDS or not name.startswith(PREFIX):
+            raise ValueError(f"bad gate declaration {name!r} ({kind})")
+        self.name = name
+        self.kind = kind
+        self.default = default
+        self.doc = doc
+
+    def parse(self, raw: str | None):
+        """Typed value for a raw env string (None = unset)."""
+        if raw is None or (raw == "" and self.kind != "bool"):
+            return self.default
+        if self.kind == "bool":
+            if self.default:
+                return raw != "0"
+            return raw not in ("", "0")
+        if self.kind == "float":
+            try:
+                return float(raw)
+            except ValueError:
+                log.debug("malformed %s=%r; using default %r",
+                          self.name, raw, self.default)
+                return self.default
+        raw = raw.strip()
+        return self.default if raw == "" else raw
+
+
+GATES: dict[str, Gate] = {}
+
+
+def _g(name: str, kind: str, default, doc: str) -> None:
+    if name in GATES:
+        raise ValueError(f"duplicate gate {name}")
+    GATES[name] = Gate(name, kind, default, doc)
+
+
+_g("JEPSEN_TPU_FUSED_CLASSIFY", "bool", True,
+   "`0`: detect-then-classify two-pass instead of the fused kernel")
+_g("JEPSEN_TPU_PACK_THREAD", "bool", True,
+   "`0`: bucket packing + the host-to-device copy stay inline on the "
+   "dispatching thread instead of the dedicated pack-h2d thread")
+_g("JEPSEN_TPU_STRICT", "bool", False,
+   "set: restore fail-fast — no quarantine, no OOM backdown; the "
+   "first failure raises (CI bisection, debugging one corrupt store)")
+_g("JEPSEN_TPU_DISPATCH_TIMEOUT_S", "float", None,
+   "per-dispatch device watchdog: bound each bucket's wait to this "
+   "many seconds, retry once, then quarantine the bucket")
+_g("JEPSEN_TPU_FAULT_INJECT", "str", "",
+   "self-nemesis spec, e.g. `encode:0.05,oom:first` — deterministic "
+   "encode faults / simulated OOMs")
+
+
+def get(name: str):
+    """The typed value of gate `name` from the current environment
+    (KeyError on an unregistered name)."""
+    return GATES[name].parse(os.environ.get(name))
+
+
+def get_raw(name: str) -> str | None:
+    """The raw env string of a registered gate (None = unset)."""
+    GATES[name]  # KeyError on unregistered names
+    return os.environ.get(name)
+
+
+def is_set(name: str) -> bool:
+    """Is the gate explicitly set (non-empty) in the environment?"""
+    GATES[name]
+    return bool(os.environ.get(name))

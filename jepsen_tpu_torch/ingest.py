@@ -29,7 +29,12 @@ def encode_run_dir(run_dir: str | os.PathLike, checker: str = "append"
                    ) -> EncodedHistory | WrEncoded:
     """Load + encode one run dir for `checker` ("append" or "wr"), lean:
     witnesses reduced to the lean shape (as the reference's batch sweep
-    persists them) and the per-row completion ops dropped."""
+    persists them) and the per-row completion ops dropped. The
+    self-nemesis (JEPSEN_TPU_FAULT_INJECT) strikes first, ahead of
+    everything else, so a selected run dir fails identically every
+    time."""
+    from . import supervisor
+    supervisor.maybe_inject_encode_fault(run_dir)
     if checker not in ENCODERS:
         raise ValueError(f"unknown checker {checker!r}")
     encode, lean = ENCODERS[checker]

@@ -136,22 +136,28 @@ def test_edges_match_reference_edges_one(name):
 
 
 def test_closure_rounds_and_plain_square_parameter():
+    """Every round of every closure is enqueued through `square`, each
+    with its device word pair; the round counters come back once, from
+    the device (`read_rounds`)."""
     batch = convert.from_reference_batch(_batch("g1c"), CPU)
     calls = []
 
-    def counting_square(m, mT):
+    def counting_square(m, mT, active):
         calls.append(m.shape)
         assert torch.equal(mT, m.transpose(1, 2))
-        return K.cs.closure_square_ref(m, mT)
+        assert active.dtype == torch.int32 and active.shape == (2,)
+        return K.cs.closure_square_ref(m, mT, active)
 
     rounds: list = []
     got = K.check_batch_device(batch, square=counting_square,
                                rounds=rounds)
-    assert len(calls) == sum(rounds) > 0
+    steps = K.closure_steps(batch["shape"].n_txns)
     # fused + a cyclic history: detect closure, then ww and ww|wr closures
     assert len(rounds) == 3
-    assert all(1 <= r <= K.closure_steps(batch["shape"].n_txns)
-               for r in rounds)
+    assert len(calls) == 3 * steps
+    counts = K.read_rounds(rounds)
+    assert len(counts) == 3 and all(1 <= r <= steps for r in counts)
+    assert sum(counts) <= len(calls)
     assert torch.equal(got, K.check_batch_device(batch))
 
 
@@ -198,5 +204,5 @@ def test_closure_rounds_match_reference(diameters, seed):
                                          RK._identity)
     rounds: list = []
     got = K._closure_batched(torch.from_numpy(m), steps, rounds=rounds)
-    assert rounds == [int(want_i)]
+    assert K.read_rounds(rounds) == [int(want_i)]
     assert (got.numpy() == np.asarray(want_c)).all()
