@@ -100,9 +100,33 @@ failure:
               bucket's device time: the bucket quarantined (stage
               watchdog), and the next sweep without it clean; (e)
               JEPSEN_TPU_STRICT=1 with oom:first exits non-zero.
+ 11. telemetry  (a) knossos_dense_scan's stats build (peak occupancy)
+              against scan_dense_ref with stats, valid, rounds and peak
+              exactly, in the warp tier at config #1's grid (S=10, V=8)
+              and in the block tier (S=12, V=8 and S=14, V=64: past 512
+              words); both builds timed in turns at config #1's shape;
+              the Elle closure at the append bucket's shape timed with
+              and without its per-round counters, and _graph_stats;
+              (b) small stores of each path (append, wr, long runs
+              condensed at a lowered dense limit, register) swept with
+              JEPSEN_TPU_KERNEL_STATS=1 by the kernels and by their plain
+              versions: analytics.jsonl byte-identical; (c) the stores of
+              phases 4, 5, 6 and 8 swept again with the stats gate and
+              --report: verdict files byte-identical to their stats-off
+              sweeps', the same kernel launches, trace.json,
+              metrics.json, events.jsonl, report.json and
+              analytics.jsonl present and parsed, the counters equal to
+              the bucket logs'; the append sweep's attribution (stage
+              shares, the device's idle share) printed; (d) the append
+              sweep's wall with JEPSEN_TPU_TRACE=0, with the default
+              tracer and with the stats gate, in turns; (e) one
+              JEPSEN_TPU_JAX_PROFILE=1 sweep of a small append store:
+              its torch.profiler Chrome trace holds CUDA kernel events
+              named closure_square.
 
 Each path is driven with its kernels' launch counts set to 0 just before
 it and read just after; a path that launched one of them no time fails.
+Phase 11's stats sweeps count as paths of their own (`stats-<path>`).
 
 The last lines are a `{"kernels": [...]}` record per kernel (with its
 launches and summed device milliseconds per path), the nvidia-smi line,
@@ -181,6 +205,15 @@ MIX_CUT = {"append": 1 + MIX_SYNTH // 2, "register": 4 + MIX_REG // 2}
 SUP_RUNS = 32
 WATCHDOG_S = 1e-4
 FAULTS = "encode:0.4,oom:first"
+#: Phase 11: the peak check's cases (S, V, B, ops) — the warp tier at
+#: config #1's grid, the block tier past 512 words — and the runs of
+#: each small store swept by the kernels and by the plain versions (the
+#: last one of each is an anomalous run), and the long small store's
+#: shape and dense limit.
+PEAK_CASES = [(10, 8, 8, 200), (12, 8, 8, 100), (14, 64, 2, 80)]
+SMALL_RUNS = 8
+SMALL_LONG_T, SMALL_LONG_K, SMALL_LONG_GAP, SMALL_LONG_LIMIT = \
+    3000, 16, 1003, 1000
 #: The resumed append sweep: the CLI's own __main__, run as a subprocess
 #: with closure_square's count and event pairs reported on stderr at exit.
 RESUME_CMD = """\
@@ -1428,6 +1461,272 @@ def phase_supervisor(pristine: Path, clean: dict) -> dict:
     return paths
 
 
+def run_files(store: Path) -> dict:
+    """Every run's results.json/.edn (bytes), by store-relative path."""
+    return {str(p.relative_to(store)): p.read_bytes()
+            for p in sorted(store.glob("*/*/results.*"))}
+
+
+def telemetry_files(store: Path) -> dict:
+    """The sweep telemetry a stats sweep with --report leaves, parsed
+    (fails if one is missing or does not parse)."""
+    from jepsen_tpu_torch.obs import events
+    from jepsen_tpu_torch.store import load_analytics
+
+    out = {}
+    for f in ("trace.json", "metrics.json", "report.json"):
+        p = store / f
+        check(p.is_file(), f"{p} was not written")
+        out[f] = json.loads(p.read_text())
+    check(bool(out["trace.json"]["traceEvents"]), f"{store}: empty trace")
+    out["events"] = events.load_events(store)
+    kinds = [e["event"] for e in out["events"]]
+    check("sweep_start" in kinds and "sweep_end" in kinds
+          and "analytics_flush" in kinds, f"{store}: events {kinds}")
+    out["analytics"] = load_analytics(store)
+    check(bool(out["analytics"]), f"{store}: no analytics records")
+    return out
+
+
+def phase_peak() -> dict:
+    """Phase 11 (a): knossos_dense_scan's peak against the plain
+    version's, then both builds timed at config #1's shape."""
+    from jepsen_tpu_torch.checker.knossos import dense, synth
+
+    for i, (S, V, B, n_ops) in enumerate(PEAK_CASES):
+        regs, comp = dense_batch(S, V, B, n_ops, seed=100 + i)
+        plan = dense.plan_scan(S, V)
+        got = dense.knossos_dense_scan(regs, comp, V, S, with_stats=True)
+        want = dense.scan_dense_ref(regs, comp, V, S, with_stats=True)
+        off = dense.knossos_dense_scan(regs, comp, V, S)
+        torch.cuda.synchronize()
+        for part, g, w in zip(("valid", "rounds", "peak"), got, want):
+            check(torch.equal(g, w),
+                  f"knossos_dense_scan's {part} (stats build) differs from "
+                  f"scan_dense_ref at S={S} V={V} ({plan.tier} tier): "
+                  f"{g.tolist()} vs {w.tolist()}")
+        check(all(torch.equal(a, b) for a, b in zip(off, got[:2])),
+              f"the stats-off build's outputs differ at S={S} V={V}")
+        say(f"  peak S={S} V={V} B={B} ops={n_ops}: {plan.tier} tier, "
+            f"peaks {got[2].tolist()}, equal to the plain version's")
+    hs = synth.synth_register_batch(B=KN_B, n_ops=KN_OPS, n_procs=KN_CONC,
+                                    info_prob=0.0, seed=1)
+    b = dense.pack_dense_batch([dense.encode_dense_history(h) for h in hs])
+    sh = b["shape"]
+    regs = torch.from_numpy(b["regs"]).to(DEVICE)
+    comp = torch.from_numpy(b["comp"]).to(DEVICE)
+    S, V = sh.n_slots, sh.n_values
+    fns = {"off": lambda: dense.knossos_dense_scan(regs, comp, V, S),
+           "stats": lambda: dense.knossos_dense_scan(regs, comp, V, S,
+                                                     with_stats=True)}
+    for fn in fns.values():
+        cuda_ms(fn, 2)                                          # warm-up
+    samples = {k: [] for k in fns}
+    for k in ("off", "stats", "stats", "off") * 3:             # in turns
+        samples[k] += cuda_ms(fns[k], 1, burst=3)
+    ms = {k: statistics.median(v) for k, v in samples.items()}
+    peak = fns["stats"]()[2]
+    say(f"knossos_dense_scan at config #1's shape B={KN_B} "
+        f"C_pad={sh.n_steps} S={S} V={V}: stats-off build {ms['off']} ms, "
+        f"stats build {ms['stats']} ms a launch (medians of 6 samples of "
+        f"bursts of 3, in turns); peak occupancy max {int(peak.max())}, "
+        f"mean {float(peak.float().mean())}")
+    return {"stats_off_ms": ms["off"], "stats_ms": ms["stats"]}
+
+
+def phase_closure_stats() -> dict:
+    """Phase 11 (a): the Elle closure's stats at the append path's bucket
+    shape (B=2, T=5120): one closure of all its rounds with and without
+    the per-round counters, in turns, and `_graph_stats` on its result
+    (plain PyTorch around closure_square; CUDA event pairs)."""
+    from jepsen_tpu_torch.checker.elle import kernels as K
+
+    m = random_bool(MAIN_B, MAIN_T, 2.0 / MAIN_T, seed=21)
+    steps = K.closure_steps(MAIN_T)
+    nI = ~torch.eye(MAIN_T, dtype=torch.bool, device=DEVICE)
+    fns = {"off": lambda: K._closure_batched(m, steps),
+           "stats": lambda: K._closure_batched(m, steps, stats=[])}
+    tel: list = []
+    c = K._closure_batched(m, steps, stats=tel)
+    check(torch.equal(c, fns["off"]()), "the stats closure's matrix differs")
+    zero = torch.zeros(MAIN_B, 3, dtype=torch.int32, device=DEVICE)
+    z1 = torch.zeros(MAIN_B, dtype=torch.int32, device=DEVICE)
+    fns["graph"] = lambda: K._graph_stats(zero, z1, z1, c, tel[0], tel[1],
+                                          nI)
+    for fn in fns.values():
+        cuda_ms(fn, 1, burst=2)                                 # warm-up
+    samples = {k: [] for k in fns}
+    for k in ("off", "stats", "graph", "graph", "stats", "off") * 2:
+        samples[k] += cuda_ms(fns[k], 1, burst=2)
+    ms = {k: statistics.median(v) for k, v in samples.items()}
+    say(f"(a) Elle closure at B={MAIN_B}, T={MAIN_T} ({steps} rounds "
+        f"enqueued, {int(tel[0].max())} active): {ms['off']} ms without "
+        f"the stats, {ms['stats']} ms with the per-round counters; "
+        f"_graph_stats on its closure {ms['graph']} ms (medians of 4 "
+        "samples of bursts of 2, in turns)")
+    return {"closure_ms": ms["off"], "closure_stats_ms": ms["stats"],
+            "graph_stats_ms": ms["graph"]}
+
+
+def small_store(kind: str, base: Path) -> Path:
+    """A small store of `kind` for the kernel/plain analytics check:
+    SMALL_RUNS runs copied from its phase's store, or for `long` a
+    fresh small store of long runs."""
+    from jepsen_tpu_torch.checker.elle import synth
+
+    if kind == "long":
+        synth.write_long_append_store(base, T=SMALL_LONG_T, K=SMALL_LONG_K,
+                                      future_gap=SMALL_LONG_GAP)
+        return base
+    src, name = {"append": (WORK / "store", "synth"),
+                 "wr": (WORK / "wr", "wr"),
+                 "register": (WORK / "reg", "register")}[kind]
+    runs = sorted(p.name for p in (src / name).iterdir())[:SMALL_RUNS]
+    for run in runs:
+        d = base / name / run
+        d.mkdir(parents=True)
+        for f in ("history.jsonl", "history.edn", "test.json"):
+            if (src / name / run / f).is_file():
+                shutil.copy(src / name / run / f, d / f)
+    return base
+
+
+def phase_telemetry(launches: dict, dense_record: dict) -> dict:
+    """Phase 11 (b)–(e); `launches` holds each path's stats-off kernel
+    launches from phases 4, 5, 6 and 8. Returns the numbers PERF.md
+    reads."""
+    from jepsen_tpu_torch import parallel
+    from jepsen_tpu_torch.checker.elle import closure_square as cs
+    from jepsen_tpu_torch.checker.knossos import dense
+    from jepsen_tpu_torch.obs import attribution
+
+    out: dict = {}
+    checker_of = {"append": "append", "wr": "wr", "long": "append",
+                  "register": "register"}
+    plain = {"append": {"square": cs.closure_square_ref},
+             "wr": {"square": cs.closure_square_ref},
+             "long": {"square": cs.closure_square_ref},
+             "register": {"dense_scan": dense.scan_dense_ref}}
+
+    # (b) the analytics of small stores, kernels against plain versions
+    limit = parallel.DENSE_TXN_LIMIT
+    for kind in ("append", "wr", "long", "register"):
+        ledgers = []
+        for label, kw in (("kernel", {}), ("plain", plain[kind])):
+            store = small_store(kind, WORK / f"tele-{kind}-{label}")
+            if kind == "long":
+                parallel.DENSE_TXN_LIMIT = SMALL_LONG_LIMIT
+            try:
+                with gate_env(JEPSEN_TPU_KERNEL_STATS=1):
+                    rc, _, _, _ = sweep(store, checker_of[kind],
+                                        device=DEVICE, **kw)
+            finally:
+                parallel.DENSE_TXN_LIMIT = limit
+            check(rc == 1, f"the small {kind} stats sweep ({label}) exited "
+                           f"{rc}, expected 1")
+            ledgers.append((store / "analytics.jsonl").read_bytes())
+        lines = ledgers[0].decode().splitlines()
+        check(ledgers[0] == ledgers[1] and lines,
+              f"the small {kind} store's analytics.jsonl differs between "
+              "the kernels and the plain versions")
+        say(f"(b) {kind}: analytics.jsonl of {len(lines)} records "
+            "byte-identical, kernels vs plain versions")
+
+    # (c) the stats sweeps of phases 4, 5, 6 and 8's stores, with --report
+    stores = {"append": (WORK / "store", STORE_RUNS),
+              "wr": (WORK / "wr", WR_RUNS), "long": (WORK / "long", 3),
+              "register": (WORK / "reg", REG_RUNS)}
+    for kind, (store, n_runs) in stores.items():
+        before = run_files(store)
+        counter = counted_dense if kind == "register" else counted
+        with gate_env(JEPSEN_TPU_KERNEL_STATS=1):
+            (rc, log, wall, _), n, ms = counter(lambda: sweep(
+                store, checker_of[kind], device=DEVICE, report=True))
+        check(rc == 1, f"the {kind} stats sweep exited {rc}")
+        check(run_files(store) == before,
+              f"the {kind} stats sweep changed a verdict file")
+        check(n == launches[kind], f"the {kind} stats sweep launched its "
+              f"kernel {n} times, the stats-off sweep {launches[kind]}")
+        tele = telemetry_files(store)
+        c = tele["metrics.json"]["counters"]
+        check(c.get("runs_verdicted") == n_runs
+              and tele["metrics.json"]["gauges"].get("runs_total") == n_runs
+              and len(tele["analytics"]) == n_runs
+              and c.get("kernel.stats_records") == n_runs,
+              f"{kind}: counters {c} for {n_runs} runs")
+        if kind == "append":
+            check(c["buckets_dispatched"] == c["buckets_resolved"]
+                  == len(log) and c["h2d_bytes"] > 0,
+                  f"append: buckets {c} against {len(log)} in the log")
+            check(sum(r["closure_rounds"] for r in tele["analytics"]) > 0,
+                  "append: no closure rounds in the ledger")
+        rep = tele["report.json"]
+        out[kind] = {"wall": wall, "launches": n, "device_ms": ms,
+                     "counters": c, "report": rep}
+        if kind != "append":
+            say(f"(c) {kind} stats sweep: {wall:.3f}s wall, rc {rc}, "
+                f"{n} launches ({ms} ms) as without stats; verdicts "
+                f"byte-identical; {len(tele['analytics'])} analytics "
+                f"records; counters {c}")
+            continue
+        st = rep["stalls"]
+        idle = st["device_idle_secs"] / rep["wall_secs"]             if rep["wall_secs"] else None
+        out["append"]["idle_share"] = idle
+        say(f"(c) append stats sweep: {wall:.3f}s wall, rc {rc}, {n} "
+            f"launches ({ms} ms) as without stats; verdicts "
+            f"byte-identical; counters {c}")
+        say(f"(c) append attribution (report.json): "
+            f"{attribution.summary_line(rep)}; shares "
+            + ", ".join(f"{k} {v}" for k, v in rep["shares"].items())
+            + f"; device busy {st['device_busy_secs']}s over "
+            f"{st['dispatches']} windows, idle {st['device_idle_secs']}s "
+            f"(idle share {idle}); gaps: ingest-starved "
+            f"{st['ingest_starved_secs']}s, pack-bound "
+            f"{st['pack_bound_secs']}s, other {st['other_secs']}s; phase "
+            f"totals {tele['metrics.json']['phase_totals_secs']}")
+
+    # (d) the append sweep's wall three ways, in turns
+    walls: dict = {"trace_off": [], "default": [], "stats": []}
+    envs = {"trace_off": {"JEPSEN_TPU_TRACE": 0}, "default": {},
+            "stats": {"JEPSEN_TPU_KERNEL_STATS": 1}}
+    for key in ("trace_off", "default", "stats"):
+        with gate_env(**envs[key]):
+            rc, _, wall, _ = sweep(WORK / "store", "append", device=DEVICE)
+        check(rc == 1, f"the {key} append sweep exited {rc}")
+        walls[key].append(wall)
+    check(not (WORK / "store" / "torch-profile").exists(),
+          "a profile was written with the profiler gate off")
+    out["walls"] = walls
+    say("(d) append sweep wall (s), in turns: JEPSEN_TPU_TRACE=0 "
+        f"{walls['trace_off']}, default tracer {walls['default']}, "
+        f"JEPSEN_TPU_KERNEL_STATS=1 {walls['stats']}; card {nvidia_smi()}")
+
+    # (e) one torch.profiler capture over a short append sweep
+    prof = small_store("append", WORK / "tele-profile")
+    with gate_env(JEPSEN_TPU_JAX_PROFILE=1):
+        rc, _, wall, _ = sweep(prof, "append", device=DEVICE)
+    ptrace = prof / "torch-profile" / "trace.json"
+    check(rc == 1 and ptrace.is_file(),
+          f"the profiled sweep exited {rc}, trace {ptrace.is_file()}")
+    evs = json.loads(ptrace.read_text())["traceEvents"]
+    kernels = [e for e in evs if e.get("cat") == "kernel"]
+    squares = [e for e in kernels if "closure_square" in str(e.get("name"))]
+    check(bool(squares), f"the profile holds no closure_square kernel "
+                         f"event ({len(kernels)} kernel events, "
+                         f"categories {sorted({str(e.get('cat')) for e in evs})})")
+    out["profile"] = {"kernel_events": len(kernels),
+                      "closure_square_events": len(squares),
+                      "closure_square_us": sum(e.get("dur", 0)
+                                               for e in squares)}
+    say(f"(e) torch.profiler over a {SMALL_RUNS}-run append sweep "
+        f"({wall:.3f}s): {len(kernels)} CUDA kernel events, "
+        f"{len(squares)} of them closure_square "
+        f"({out['profile']['closure_square_us']} us)")
+    dense_record.update(phase_peak())
+    out["closure_stats"] = phase_closure_stats()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1469,6 +1768,14 @@ def main() -> int:
         paths.update(phase_supervisor(WORK / "mixed-pristine",
                                       store_paths["append_full"]))
         dense_paths.update(store_paths["knossos_dense_scan"])
+        tele = phase_telemetry(
+            {"append": paths["append"][0], "wr": paths["wr"][0],
+             "long": paths["long"][0],
+             "register": dense_paths["register"][0]}, dense_record)
+        for kind in ("append", "wr", "long", "register"):
+            (dense_paths if kind == "register" else paths)[
+                f"stats-{kind}"] = (tele[kind]["launches"],
+                                    tele[kind]["device_ms"])
         for rec, ps in ((record, paths), (dense_record, dense_paths)):
             rec["launches"] = sum(n for n, _ in ps.values())
             rec["paths"] = {k: {"launches": n, "device_ms": ms}

@@ -37,10 +37,13 @@ class Checker:
 def check_safe(checker: Checker, test: dict, history: list,
                opts: dict | None = None) -> dict:
     """Like check, but returns exceptions as {"valid?": "unknown"}
-    results. The reference's trace span around the check is left out
-    (the port has no tracer yet)."""
+    results. Every check runs inside a trace span named after the
+    checker class."""
+    from .. import trace
     try:
-        r = checker.check(test, history, opts or {})
+        with trace.span(f"check:{type(checker).__name__}",
+                        ops=len(history)):
+            r = checker.check(test, history, opts or {})
         return r if r is not None else {"valid?": True}
     except Exception:
         return {"valid?": "unknown", "error": traceback.format_exc()}
@@ -76,15 +79,17 @@ class Linearizable(Checker):
         self.frontier = frontier
         self.dense_scan = dense_scan
 
-    def _cpu(self, history: list) -> dict:
+    def _cpu(self, history: list, search_stats: dict | None = None) -> dict:
         from . import knossos
-        return knossos.analysis(self.model, history)
+        return knossos.analysis(self.model, history,
+                                search_stats=search_stats)
 
     def check(self, test, history, opts):
         return self.check_batch(test, [history], opts)[0]
 
     def check_batch(self, test, histories: list[list], opts,
-                    tier_log: list | None = None) -> list[dict]:
+                    tier_log: list | None = None,
+                    stats_out: list | None = None) -> list[dict]:
         """Check many histories at once, the device tiers batched over
         all of them.
 
@@ -96,14 +101,24 @@ class Linearizable(Checker):
         ":frontier-overflow" unknowns and anything not register-shaped
         run on the CPU WGL oracle. Verdicts only ever degrade toward
         the oracle, never diverge from it. `tier_log` gets one dict per
-        tier that ran (tier, histories, seconds)."""
+        tier that ran (tier, histories, seconds). `stats_out`, when given,
+        is extended with one search-telemetry dict per history (grid or
+        frontier occupancy from the device tiers, the WGL counters from
+        the oracle), or None where an engine reported nothing."""
         if not (type(self.model) is model.CASRegister
                 and self.model.value is None):
-            return [self._cpu(hs) for hs in histories]
-        return self._device_batch(histories, tier_log)
+            out = []
+            for hs in histories:
+                sd: dict | None = {} if stats_out is not None else None
+                out.append(self._cpu(hs, search_stats=sd))
+                if stats_out is not None:
+                    stats_out.append(sd or None)
+            return out
+        return self._device_batch(histories, tier_log, stats_out)
 
     def _device_batch(self, histories: list[list],
-                      tier_log: list | None = None) -> list[dict]:
+                      tier_log: list | None = None,
+                      stats_out: list | None = None) -> list[dict]:
         from ..devices import resolve_device
         from .knossos import dense, kernels
         from .knossos import encode as kenc
@@ -138,25 +153,42 @@ class Linearizable(Checker):
                 tier_log.append({"tier": tier, "histories": n,
                                  "seconds": time.perf_counter() - t0})
 
+        with_stats = stats_out is not None
+        stats: list = [None] * len(histories)
         t0 = time.perf_counter()
         if dense_encs:
-            for i, r in zip(dense_idx, dense.check_encoded_dense_batch(
-                    dense_encs, dev, scan=self.dense_scan)):
+            ds: list | None = [] if with_stats else None
+            for j, (i, r) in enumerate(zip(
+                    dense_idx, dense.check_encoded_dense_batch(
+                        dense_encs, dev, scan=self.dense_scan,
+                        stats_out=ds))):
                 results[i] = r
+                if ds is not None:
+                    stats[i] = ds[j]
         note("tpu-dense", len(dense_encs), t0)
         t0 = time.perf_counter()
         if front_encs:
-            for i, r in zip(front_idx, kernels.check_encoded_batch(
-                    front_encs, frontier=self.frontier, device=dev)):
+            fs: list | None = [] if with_stats else None
+            for j, (i, r) in enumerate(zip(
+                    front_idx, kernels.check_encoded_batch(
+                        front_encs, frontier=self.frontier, device=dev,
+                        stats_out=fs))):
                 if r.get("valid?") == "unknown":
                     cpu_idx.append(i)  # overflow: exact answer from CPU
                 else:
                     results[i] = r
+                    if fs is not None:
+                        stats[i] = fs[j]
         note("tpu-jit", len(front_encs), t0)
         t0 = time.perf_counter()
         for i in cpu_idx:
-            results[i] = self._cpu(histories[i])
+            sd: dict | None = {} if with_stats else None
+            results[i] = self._cpu(histories[i], search_stats=sd)
+            if with_stats:
+                stats[i] = sd or None
         note("wgl", len(cpu_idx), t0)
+        if with_stats:
+            stats_out.extend(stats)
         return results  # type: ignore[return-value]
 
 

@@ -250,12 +250,56 @@ def _classify_scc_host(enc: EncodedHistory, rows: np.ndarray,
     return {name: True for name in res}
 
 
+def condensed_stats(enc: EncodedHistory, members, src, dst, cls,
+                    realtime: bool) -> dict:
+    """The search-stats record of a condensed check — the long-history
+    sibling of `kernels.stats_row`, with the reference's fields in its
+    order. Edge and SCC facts are exact (distinct edges per class, the
+    nontrivial SCCs' count and shape, and the realtime-edge count by
+    one searchsorted over the completion ranks rather than the O(n²)
+    dense relation); the closure-round and margin fields are -1: no
+    dense closure ran on this path."""
+    from . import kernels as K
+    if len(src):
+        distinct = np.unique(
+            np.stack([src, dst, cls.astype(np.int64)], axis=1), axis=0)
+        counts = np.bincount(distinct[:, 2], minlength=4)
+    else:
+        counts = np.zeros(4, np.int64)
+    rt = 0
+    if realtime and enc.n:
+        eff = effective_complete_index(enc.status, enc.complete_index)
+        inv = np.asarray(enc.invoke_index, np.int64)
+        # |{(j, i): complete(j) < invoke(i)}| — a txn's own completion
+        # never precedes its invocation, so self-pairs drop out free
+        rt = int(np.searchsorted(np.sort(eff), inv, side="left").sum())
+    sizes = np.asarray([len(m) for m in members], np.int64)
+    has = len(sizes) > 0
+    return {
+        "ww_edges": int(counts[G.WW]), "wr_edges": int(counts[G.WR]),
+        "rw_edges": int(counts[G.RW]), "rt_edges": rt,
+        "proc_edges": int(counts[G.PROC]),
+        "closure_rounds": -1,
+        "cycle_round": 0 if has else -1,
+        "scc_count": int(len(sizes)),
+        "scc_max": int(sizes.max()) if has else 0,
+        "scc_min": int(sizes.min()) if has else 0,
+        "cycle_txns": int(sizes.sum()) if has else 0,
+        "margin": -1,
+        "n_txns": int(enc.n), "t_pad": int(enc.n),
+        "closure_bound": K.closure_steps(max(enc.n, 1)),
+        "pad_waste_cells": 0,
+        "path": "condensed",
+    }
+
+
 def check_condensed(enc: EncodedHistory, device=None, *,
                     classify: bool = True, realtime: bool = False,
                     process_order: bool = False,
                     device_scc_limit: int = DEVICE_SCC_LIMIT,
                     square=None, bucket_log: list | None = None,
-                    condense_log: list | None = None) -> dict:
+                    condense_log: list | None = None,
+                    stats_out: list | None = None) -> dict:
     """Check ONE long history via SCC condensation on `device` (default
     cuda). Returns the same {anomaly: True} flag dict as the dense
     device path.
@@ -272,7 +316,9 @@ def check_condensed(enc: EncodedHistory, device=None, *,
     sizes of its nontrivial SCCs (`scc_sizes`, and `host_scc_sizes` for
     those classified on the host), the padded T of each device bucket
     (`t_pads`), their summed closure rounds, and the seconds of the
-    condensation (edge build + SCCs) and of the classification."""
+    condensation (edge build + SCCs) and of the classification.
+    `stats_out`, when given, gets the history's `condensed_stats`
+    record."""
     from ...devices import resolve_device
     from . import kernels as K
 
@@ -286,6 +332,9 @@ def check_condensed(enc: EncodedHistory, device=None, *,
            "classify_seconds": 0.0}
     if condense_log is not None:
         condense_log.append(rec)
+    if stats_out is not None:
+        stats_out.append(condensed_stats(enc, members, src, dst, cls,
+                                         realtime))
     if not members:
         return {}
     if not classify:

@@ -25,6 +25,15 @@ So a check enqueues its work and returns at once: the host reads
 nothing back until the caller resolves the flags and the round counts
 (`read_rounds`). Every function takes tensors on one device and runs
 there.
+
+With `with_stats` (the kernel-stats path, `JEPSEN_TPU_KERNEL_STATS`,
+decided by the caller: nothing here reads the gate) a check also
+returns a [B, N_STATS] int32 matrix of search telemetry (`STAT_FIELDS`):
+edge counts, the round each history's closure reached its fixpoint and
+the first round a cycle showed, and the SCC shape of the full closure.
+The closure then runs the same `closure_square` launches and updates
+the per-history counters beside them on the device; the flags are the
+same either way.
 """
 
 from __future__ import annotations
@@ -41,6 +50,42 @@ from .encode import EncodedHistory, effective_complete_index
 # Flag bit positions in the kernel's output word.
 G0, G1C, G_SINGLE, G2_ITEM, CYCLE = 0, 1, 2, 3, 4
 FLAG_NAMES = {G0: "G0", G1C: "G1c", G_SINGLE: "G-single", G2_ITEM: "G2-item"}
+
+#: Per-history search-stat row layout ([B, N_STATS] int32), the
+#: reference's:
+#:
+#:   ww/wr/rw_edges   distinct dependency edges per class, BEFORE the
+#:                    power-of-two writer-chain shortcuts (so counts
+#:                    match the CPU oracle's graph exactly);
+#:   rt/proc_edges    realtime / process-order edges built from the
+#:                    timing tensors;
+#:   closure_rounds   squaring rounds the (widest) closure ran to its
+#:                    fixpoint for THIS history;
+#:   cycle_round      first round at which a cycle became visible
+#:                    (0 = present in the raw edge set; -1 = acyclic);
+#:   scc_count/max/min  nontrivial SCCs of the full closure, their
+#:                    largest and smallest member counts (0 = none);
+#:   cycle_txns       txn rows on any cycle;
+#:   margin           cycle_round for a cyclic history, closure_rounds
+#:                    for a valid one: rounds of closure work before
+#:                    the decision.
+STAT_FIELDS = ("ww_edges", "wr_edges", "rw_edges", "rt_edges",
+               "proc_edges", "closure_rounds", "cycle_round",
+               "scc_count", "scc_max", "scc_min", "cycle_txns",
+               "margin")
+N_STATS = len(STAT_FIELDS)
+
+
+def stats_row(row, *, n_txns: int, t_pad: int) -> dict:
+    """One stats row (ints) -> the per-history dict the analytics ledger
+    records: the named fields plus the bucket's geometry (its pad, the
+    static closure bound, the history's pad waste in closure cells)."""
+    out = {f: int(v) for f, v in zip(STAT_FIELDS, row)}
+    out["n_txns"] = int(n_txns)
+    out["t_pad"] = int(t_pad)
+    out["closure_bound"] = closure_steps(t_pad)
+    out["pad_waste_cells"] = int(t_pad) ** 2 - int(n_txns) ** 2
+    return out
 
 #: A squaring function: (m, mT, active) — [B,T,T] bool, mT each
 #: history's transpose, active the round's int32 word pair — -> (out,
@@ -160,12 +205,15 @@ def _fill_edges(adj: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
 
 
 def _edges_batched(appends: torch.Tensor, reads: torch.Tensor, n_keys: int,
-                   max_pos: int, n_txns: int):
+                   max_pos: int, n_txns: int, with_counts: bool = False):
     """[B,T,T] boolean ww/wr/rw adjacencies from packed triples — the
     reference's `_edges_one`, batched over B instead of vmapped.
 
     appends: [B,A,3] (txn,key,pos), pos>=1 observed, -1 unobserved/dead.
     reads:   [B,R,3] (txn,key,pos-of-last), 0 empty read, -1 dead.
+
+    With `with_counts`, a fourth output: the [B,3] int32 distinct-edge
+    counts, ww counted BEFORE the shortcut edges, as the reference's.
     """
     B = appends.shape[0]
     T = n_txns
@@ -199,6 +247,7 @@ def _edges_batched(appends: torch.Tensor, reads: torch.Tensor, n_keys: int,
     ww = torch.zeros((B, T, T), dtype=torch.bool, device=dev)
     prev_w = gather(k_idx, torch.clamp(p_idx - 1, min=0))
     _fill_edges(ww, prev_w, a_txn, a_live & (a_pos >= 2))
+    ww_count = ww.flatten(1).sum(1) if with_counts else None
 
     # Power-of-two shortcut edges along each key's writer chain: W[k,p] ->
     # W[k,p+s] is implied by transitivity whenever every position p..p+s
@@ -225,6 +274,10 @@ def _edges_batched(appends: torch.Tensor, reads: torch.Tensor, n_keys: int,
     rp1 = torch.where(r_live, torch.clamp(r_pos + 1, max=P + 1), P + 1)
     rw = torch.zeros((B, T, T), dtype=torch.bool, device=dev)
     _fill_edges(rw, r_txn, gather(rk, rp1), r_live)
+    if with_counts:
+        counts = torch.stack([ww_count, wr.flatten(1).sum(1),
+                              rw.flatten(1).sum(1)], 1).to(torch.int32)
+        return ww, wr, rw, counts
     return ww, wr, rw
 
 
@@ -236,10 +289,18 @@ def _square(m: torch.Tensor, mT: torch.Tensor, active: torch.Tensor,
     return (cs.closure_square if square is None else square)(m, mT, active)
 
 
+def _has_cycle(m: torch.Tensor, mT: torch.Tensor,
+               nI: torch.Tensor) -> torch.Tensor:
+    """[B] bool: does the (reflexive) matrix hold an off-diagonal
+    mutually reachable pair?"""
+    return _any(m & mT & nI)
+
+
 def _closure_batched(m: torch.Tensor, steps: int,
                      square: Square | None = None,
                      rounds: list | None = None,
-                     active: torch.Tensor | None = None) -> torch.Tensor:
+                     active: torch.Tensor | None = None,
+                     stats: list | None = None) -> torch.Tensor:
     """Transitive closure of [B,T,T] boolean adjacencies: `m | eye`
     squared to the batch-level fixpoint, at most `steps` rounds. Path
     lengths double each round, so convergence takes ~log2(diameter)
@@ -252,7 +313,14 @@ def _closure_batched(m: torch.Tensor, steps: int,
     returns the round's transpose, the next round's second operand, made
     once here before the first round. `rounds`, when given, gets the
     closure's round count appended as a device int32 scalar (the
-    leading nonzero words; `read_rounds` reads it)."""
+    leading nonzero words; `read_rounds` reads it).
+
+    `stats`, when given (the reference's `_closure_batched_stats`), gets
+    two [B] int32 device tensors appended: the round each history's own
+    matrix last changed, and the first round at which it held a cycle
+    (0: already in `m`; -1: never). They are updated on the device
+    after each round from its changed flags and its transpose, with the
+    same launches and no host read."""
     T = m.shape[-1]
     m = m | torch.eye(T, dtype=torch.bool, device=m.device)
     mT = m.transpose(1, 2).contiguous()
@@ -261,10 +329,21 @@ def _closure_batched(m: torch.Tensor, steps: int,
         act[0] = 1
     else:
         act[:1].copy_(active.reshape(1))
+    if stats is not None:
+        nI = ~torch.eye(T, dtype=torch.bool, device=m.device)
+        hist_rounds = torch.zeros(m.shape[0], dtype=torch.int32,
+                                  device=m.device)
+        cyc = torch.where(_has_cycle(m, mT, nI), 0, -1).to(torch.int32)
     for i in range(steps):
-        m, mT, _ = _square(m, mT, act[i:i + 2], square)
+        m, mT, changed = _square(m, mT, act[i:i + 2], square)
+        if stats is not None:
+            hist_rounds = torch.where(changed, i + 1, hist_rounds)
+            cyc = torch.where((cyc < 0) & _has_cycle(m, mT, nI), i + 1,
+                              cyc)
     if rounds is not None:
         rounds.append((act[:steps] != 0).sum(dtype=torch.int32))
+    if stats is not None:
+        stats += [hist_rounds.to(torch.int32), cyc.to(torch.int32)]
     return m
 
 
@@ -281,6 +360,33 @@ def read_rounds(rounds: list) -> list[int]:
 def _any(x: torch.Tensor) -> torch.Tensor:
     """Per-history any over the trailing [T,T] (or [T]) axes: [B] bool."""
     return x.flatten(1).any(1)
+
+
+def _graph_stats(edge_counts, rt_cnt, proc_cnt, c_full, rounds,
+                 cyc_round, nI) -> torch.Tensor:
+    """The [B, N_STATS] int32 stat rows from the full closure: SCC shape
+    by mutual reachability (i and j share an SCC iff each reaches the
+    other; the closure is reflexive, so nI drops the diagonal), plus the
+    edge counts and round telemetry gathered on the way. An SCC's
+    representative is its least member, the first True of `mutual[i]`,
+    so rows that are their own first True count the SCCs."""
+    T = c_full.shape[-1]
+    mutual = c_full & c_full.transpose(1, 2)               # [B,T,T]
+    on_cycle = (mutual & nI).any(2)                        # [B,T]
+    scc_size = mutual.sum(2, dtype=torch.int32)
+    cycle_txns = on_cycle.sum(1, dtype=torch.int32)
+    zero = torch.zeros((), dtype=torch.int32, device=c_full.device)
+    scc_max = torch.where(on_cycle, scc_size, zero).amax(1)
+    scc_min = torch.where(on_cycle, scc_size, zero + T + 1).amin(1)
+    scc_min = torch.where(cycle_txns > 0, scc_min, zero)
+    first = mutual.to(torch.uint8).argmax(2)
+    rep = on_cycle & (first == torch.arange(T, device=c_full.device))
+    scc_count = rep.sum(1, dtype=torch.int32)
+    margin = torch.where(cyc_round >= 0, cyc_round, rounds)
+    return torch.stack(
+        [edge_counts[:, 0], edge_counts[:, 1], edge_counts[:, 2],
+         rt_cnt, proc_cnt, rounds, cyc_round, scc_count, scc_max,
+         scc_min, cycle_txns, margin], 1).to(torch.int32)
 
 
 def _flags_from_closures(ww, wr, rw, c_ww, c_wwr, c_full, cycle,
@@ -305,15 +411,32 @@ def classify_matrices_impl(ww, wr, rw, invoke_index, complete_index, process,
                            n_live, *, steps: int, classify: bool,
                            realtime: bool, process_order: bool,
                            fused: bool = True, square: Square | None = None,
-                           rounds: list | None = None) -> torch.Tensor:
+                           rounds: list | None = None,
+                           with_stats: bool = False,
+                           edge_counts: torch.Tensor | None = None):
     """Closure + anomaly classification over [B,T,T] boolean edge
     matrices -> [B] int32 flag words. Process-order and realtime edges
-    fold into the ww class, masked to each history's live rows."""
+    fold into the ww class, masked to each history's live rows.
+
+    With `with_stats`, returns `(flags, stats)` (see STAT_FIELDS): the
+    widest closure that runs (the full closure in detect and fused mode,
+    the last seeded one in the two-pass chain) supplies the round
+    telemetry, and `edge_counts` ([B,3], from `_edges_batched`) the
+    ww/wr/rw counts; None (host-built matrices, which hold no shortcut
+    edges) counts the incoming matrices."""
     T = ww.shape[-1]
     dev = ww.device
+    B = ww.shape[0]
     nI = ~torch.eye(T, dtype=torch.bool, device=dev)
     live = torch.arange(T, device=dev)[None, :] < n_live[:, None]   # [B,T]
     live2 = live[:, :, None] & live[:, None, :]                     # [B,T,T]
+    if with_stats:
+        if edge_counts is None:
+            edge_counts = torch.stack(
+                [ww.flatten(1).sum(1), wr.flatten(1).sum(1),
+                 rw.flatten(1).sum(1)], 1).to(torch.int32)
+        rt_cnt = torch.zeros(B, dtype=torch.int32, device=dev)
+        proc_cnt = torch.zeros(B, dtype=torch.int32, device=dev)
 
     if process_order:
         # Consecutive txns of one process in completion order: link row i
@@ -326,22 +449,39 @@ def classify_matrices_impl(ww, wr, rw, invoke_index, complete_index, process,
         big = torch.where(cand, complete_index[:, None, :],
                           torch.iinfo(complete_index.dtype).max)
         nxt = big.min(dim=2, keepdim=True).values
-        ww = ww | (cand & (big == nxt))
+        proc_add = cand & (big == nxt)
+        if with_stats:
+            proc_cnt = proc_add.flatten(1).sum(1).to(torch.int32)
+        ww = ww | proc_add
     if realtime:
         # j completed before i invoked => j precedes i in real time.
         # Indeterminate txns carry NEVER_COMPLETED and emit no rt edges.
         rt = complete_index[:, :, None] < invoke_index[:, None, :]
-        ww = ww | (rt & live2 & nI)
+        rt_add = rt & live2 & nI
+        if with_stats:
+            rt_cnt = rt_add.flatten(1).sum(1).to(torch.int32)
+        ww = ww | rt_add
 
     def closure(m, active=None):
         return _closure_batched(m, steps, square, rounds, active)
 
+    def widest(m):
+        """The widest closure, with its round telemetry under stats."""
+        tel: list | None = [] if with_stats else None
+        return _closure_batched(m, steps, square, rounds, stats=tel), tel
+
+    def result(flags, c_full, tel):
+        if not with_stats:
+            return flags
+        return flags, _graph_stats(edge_counts, rt_cnt, proc_cnt, c_full,
+                                   tel[0], tel[1], nI)
+
     wwr = ww | wr
     full = wwr | rw
     if not classify:
-        c_full = closure(full)
+        c_full, tel = widest(full)
         cycle = _any(full & c_full.transpose(1, 2) & nI)
-        return cycle.to(torch.int32) << CYCLE
+        return result(cycle.to(torch.int32) << CYCLE, c_full, tel)
     if fused:
         # Fused detect/classify: run the detect closure first, and the
         # classification closures only when some history in the batch
@@ -350,23 +490,24 @@ def classify_matrices_impl(ww, wr, rw, invoke_index, complete_index, process,
         # flags are masked by it, reusing the full closure. Exact:
         # every per-class witness implies a cycle in the full graph, so
         # an acyclic batch classifies to zero flags.
-        c_full = closure(full)
+        c_full, tel = widest(full)
         cycle = _any(full & c_full.transpose(1, 2) & nI)
         any_cycle = cycle.any()
         c_ww = closure(ww, any_cycle)
         c_wwr = closure(c_ww | wr, any_cycle)
-        return torch.where(
+        return result(torch.where(
             any_cycle,
             _flags_from_closures(ww, wr, rw, c_ww, c_wwr, c_full, cycle,
                                  nI),
-            cycle.to(torch.int32) << CYCLE)
+            cycle.to(torch.int32) << CYCLE), c_full, tel)
     # Two-pass chain of warm starts: closure(A|B) == closure(closure(A)|B),
     # so each wider closure is seeded with the previous one.
     c_ww = closure(ww)
     c_wwr = closure(c_ww | wr)
-    c_full = closure(c_wwr | rw)
+    c_full, tel = widest(c_wwr | rw)
     cycle = _any(full & c_full.transpose(1, 2) & nI)
-    return _flags_from_closures(ww, wr, rw, c_ww, c_wwr, c_full, cycle, nI)
+    return result(_flags_from_closures(ww, wr, rw, c_ww, c_wwr, c_full,
+                                       cycle, nI), c_full, tel)
 
 
 def check_batched_impl(appends, reads, invoke_index, complete_index, process,
@@ -374,27 +515,33 @@ def check_batched_impl(appends, reads, invoke_index, complete_index, process,
                        steps: int, classify: bool, realtime: bool,
                        process_order: bool, fused: bool = True,
                        square: Square | None = None,
-                       rounds: list | None = None) -> torch.Tensor:
+                       rounds: list | None = None,
+                       with_stats: bool = False):
     """THE cycle-check kernel: packed [B,...] tensors -> [B] int32 flag
-    words. `n_live` is the per-history real txn count ([B]); rows beyond
-    it are excluded from realtime/process edges."""
-    ww, wr, rw = _edges_batched(appends, reads, n_keys, max_pos, n_txns)
+    words (`(flags, stats)` with `with_stats`). `n_live` is the
+    per-history real txn count ([B]); rows beyond it are excluded from
+    realtime/process edges."""
+    ww, wr, rw, *counts = _edges_batched(appends, reads, n_keys, max_pos,
+                                         n_txns, with_counts=with_stats)
     return classify_matrices_impl(
         ww, wr, rw, invoke_index, complete_index, process, n_live,
         steps=steps, classify=classify, realtime=realtime,
         process_order=process_order, fused=fused, square=square,
-        rounds=rounds)
+        rounds=rounds, with_stats=with_stats,
+        edge_counts=counts[0] if counts else None)
 
 
 def check_batch_device(batch: dict, *, classify: bool = True,
                        realtime: bool = False, process_order: bool = False,
                        fused: bool = True, square: Square | None = None,
-                       rounds: list | None = None) -> torch.Tensor:
+                       rounds: list | None = None,
+                       with_stats: bool = False):
     """Single-device entry over a device-resident packed batch (from
     `batch_to_device`): [B] int32 flag words, on the batch's device,
-    enqueued with no read of the device. `square` replaces the squaring
-    (e.g. with `closure_square_ref` to run the plain version on cuda);
-    `rounds` collects each closure's device round counter
+    enqueued with no read of the device (`(flags, stats)`, the
+    [B, N_STATS] matrix, with `with_stats`). `square` replaces the
+    squaring (e.g. with `closure_square_ref` to run the plain version on
+    cuda); `rounds` collects each closure's device round counter
     (`read_rounds` reads them)."""
     shape: BatchShape = batch["shape"]
     return check_batched_impl(
@@ -403,7 +550,7 @@ def check_batch_device(batch: dict, *, classify: bool = True,
         n_keys=shape.n_keys, max_pos=shape.max_pos, n_txns=shape.n_txns,
         steps=closure_steps(shape.n_txns), classify=classify,
         realtime=realtime, process_order=process_order, fused=fused,
-        square=square, rounds=rounds)
+        square=square, rounds=rounds, with_stats=with_stats)
 
 
 def classify_matrices_device(batch: dict, *, classify: bool = True,
@@ -411,16 +558,18 @@ def classify_matrices_device(batch: dict, *, classify: bool = True,
                              process_order: bool = False,
                              fused: bool = True,
                              square: Square | None = None,
-                             rounds: list | None = None) -> torch.Tensor:
+                             rounds: list | None = None,
+                             with_stats: bool = False):
     """Single-device entry over a device-resident packed edge batch
     (from `edge_batch_to_device`): [B] int32 flag words, on the batch's
-    device. `square` and `rounds` as in `check_batch_device`."""
+    device. `square`, `rounds` and `with_stats` as in
+    `check_batch_device`."""
     return classify_matrices_impl(
         batch["ww"], batch["wr"], batch["rw"], batch["invoke_index"],
         batch["complete_index"], batch["process"], batch["n_txns"],
         steps=closure_steps(batch["T"]), classify=classify,
         realtime=realtime, process_order=process_order, fused=fused,
-        square=square, rounds=rounds)
+        square=square, rounds=rounds, with_stats=with_stats)
 
 
 #: The edge classes an edge batch takes (graph.WW, graph.WR, graph.RW),
@@ -498,26 +647,34 @@ def edge_batch_to_device(packed: dict, device: torch.device) -> dict:
 def check_edge_batch(per_history: list[dict], device=None, *,
                      realtime: bool = False, process_order: bool = False,
                      classify: bool = True, fused: bool | None = None,
-                     square: Square | None = None) -> list[dict]:
+                     square: Square | None = None,
+                     stats_out: list | None = None) -> list[dict]:
     """Device cycle check over host-built edge lists: per-history
     {anomaly-name: True} dicts (the rw-register path, and the per-SCC
     classify stage of the condensed long-history path), on `device`
     (default cuda; see devices.resolve_device). `fused` defaults to the
     JEPSEN_TPU_FUSED_CLASSIFY gate. The wait for the flags is bounded
     by the dispatch watchdog (`parallel._block_flags`: WatchdogTimeout
-    after two timeouts). `square` as in `check_batch_device`."""
+    after two timeouts). `square` as in `check_batch_device`.
+    `stats_out`, when given, is extended with one `stats_row` dict per
+    history (the check then also computes the stats matrix)."""
     if not per_history:
         return []
     from ...devices import resolve_device
     from ...parallel import _block_flags, _done_event
     dev = resolve_device(device)
-    batch = edge_batch_to_device(pack_edge_matrices(per_history), dev)
-    flags = classify_matrices_device(
+    packed = pack_edge_matrices(per_history)
+    batch = edge_batch_to_device(packed, dev)
+    out = classify_matrices_device(
         batch, classify=classify, realtime=realtime,
         process_order=process_order,
         fused=fused_classify_enabled() if fused is None else fused,
-        square=square)
+        square=square, with_stats=stats_out is not None)
+    flags, stats = out if stats_out is not None else (out, None)
     _block_flags(_done_event(dev))
+    if stats is not None:
+        stats_out.extend(stats_row(r, n_txns=h["n"], t_pad=packed["T"])
+                         for r, h in zip(stats.tolist(), per_history))
     return [flags_to_names(w) for w in flags.tolist()]
 
 
@@ -528,7 +685,8 @@ def check_edge_batch_bucketed(per_history: list[dict], device=None, *,
                               budget_cells: int = 1 << 27,
                               fused: bool | None = None,
                               square: Square | None = None,
-                              bucket_log: list | None = None
+                              bucket_log: list | None = None,
+                              stats_out: list | None = None
                               ) -> list[dict]:
     """check_edge_batch over length buckets (parallel.bucket_by_length:
     B·T_pad² cells per bucket under `budget_cells`, for each of the
@@ -537,16 +695,23 @@ def check_edge_batch_bucketed(per_history: list[dict], device=None, *,
     on the device at a time, unsupervised: a bucket's OOM, watchdog
     timeout or packing failure raises to the caller, which owns that
     policy (the wr sweep's `cli._wr_chunk_with_backdown`, the long run's
-    quarantine). `bucket_log` as in `parallel.check_bucketed`."""
+    quarantine). `bucket_log` as in `parallel.check_bucketed`;
+    `stats_out`, when given, is extended with one `stats_row` dict per
+    history, in input order, once every bucket has resolved."""
     if not per_history:
         return []
     from ...devices import resolve_device
     from ...parallel import check_bucketed_async
-    return check_bucketed_async(
+    pv = check_bucketed_async(
         per_history, resolve_device(device), classify=classify,
         realtime=realtime, process_order=process_order,
         budget_cells=budget_cells, fused=fused, max_inflight=1,
-        square=square, bucket_log=bucket_log, supervise=False).result()
+        square=square, bucket_log=bucket_log, supervise=False,
+        with_stats=stats_out is not None)
+    out = pv.result()
+    if stats_out is not None:
+        stats_out.extend(pv.stats())
+    return out
 
 
 def flags_to_names(word: int) -> dict:

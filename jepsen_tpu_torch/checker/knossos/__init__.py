@@ -126,7 +126,8 @@ def _lift(e: Entry) -> None:
 
 
 def wgl(model: models.Model, raw_history: list[dict],
-        max_configs: int = 10_000_000) -> dict:
+        max_configs: int = 10_000_000,
+        search_stats: dict | None = None) -> dict:
     """Wing-Gong-Lowe linearizability search with memoization.
 
     Walks the entry list looking for a call to linearize next; lifting a
@@ -140,20 +141,26 @@ def wgl(model: models.Model, raw_history: list[dict],
     A fresh CAS register or mutex goes to the C++ twin of this search
     (`_wgl_native`: same walk, same cache discipline, same verdicts,
     lean witnesses); every other model, and a history the native
-    encoder declines, takes the Python engine."""
+    encoder declines, takes the Python engine.
+
+    `search_stats` (a dict, filled in place: the kernel-stats path)
+    gains the engine's search counters: configs explored (the memo
+    cache's size), the deepest linearization and the op count, and on
+    the Python engine its backtracks. The verdict never changes."""
     if type(model) is models.CASRegister and model.value is None:
-        res = _wgl_native(raw_history, max_configs, "cas")
+        res = _wgl_native(raw_history, max_configs, "cas", search_stats)
         if res is not None:
             return res
     elif type(model) is models.Mutex and model.locked is False:
-        res = _wgl_native(raw_history, max_configs, "mutex")
+        res = _wgl_native(raw_history, max_configs, "mutex", search_stats)
         if res is not None:
             return res
-    return _wgl_python(model, raw_history, max_configs)
+    return _wgl_python(model, raw_history, max_configs, search_stats)
 
 
 def _wgl_native(raw_history: list[dict], max_configs: int,
-                model_kind: str = "cas") -> dict | None:
+                model_kind: str = "cas",
+                search_stats: dict | None = None) -> dict | None:
     """Run the native WGL (CAS register or mutex); None -> use the
     Python engine (an unencodable history or un-internable values). The
     library is the port's build of `csrc/wgl.cc`; a build that cannot
@@ -182,6 +189,11 @@ def _wgl_native(raw_history: list[dict], max_configs: int,
     L.jt_wgl_run(ev.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
                  ev.shape[0], max_configs, model_id, out)
     verdict, n, depth, fail_op, _cache = out
+    if search_stats is not None:
+        # the library reports the cache size and depth, not backtracks:
+        # no "backtracks" key rather than a made-up 0
+        search_stats.update(engine="wgl-native", configs=int(_cache),
+                            max_depth=int(depth), op_count=int(n))
     if n == 0:
         return {"valid?": True, "op-count": 0, "analyzer": "wgl"}
     if verdict == 1:
@@ -202,11 +214,23 @@ def _wgl_native(raw_history: list[dict], max_configs: int,
 
 
 def _wgl_python(model: models.Model, raw_history: list[dict],
-                max_configs: int = 10_000_000) -> dict:
-    """The pure-Python WGL engine (any model; the oracle)."""
+                max_configs: int = 10_000_000,
+                search_stats: dict | None = None) -> dict:
+    """The pure-Python WGL engine (any model; the oracle). `search_stats`
+    gains its configs (memo-cache size), backtracks (forced
+    un-linearizations) and deepest linearization."""
     hist = reduce_history(raw_history)
     head, n, returns_left = _build_entries(hist)
+    backtracks = 0
+
+    def note(configs: int, depth: int) -> None:
+        if search_stats is not None:
+            search_stats.update(engine="wgl", configs=configs,
+                                backtracks=backtracks, max_depth=depth,
+                                op_count=n)
+
     if n == 0:
+        note(0, 0)
         return {"valid?": True, "op-count": 0, "analyzer": "wgl"}
 
     state: Any = model
@@ -216,7 +240,8 @@ def _wgl_python(model: models.Model, raw_history: list[dict],
     best_depth = 0
 
     def backtrack() -> Entry | None:
-        nonlocal returns_left, linearized, state
+        nonlocal returns_left, linearized, state, backtracks
+        backtracks += 1
         frame = stack.pop()
         e2 = frame.entry
         _unlift(e2)
@@ -241,6 +266,7 @@ def _wgl_python(model: models.Model, raw_history: list[dict],
             key = (linearized | (1 << entry.op_id), s2)
             if not models.is_inconsistent(s2) and key not in cache:
                 if len(cache) >= max_configs:
+                    note(len(cache), best_depth)
                     return {"valid?": "unknown", "op-count": n,
                             "analyzer": "wgl",
                             "cause": ":config-cache-exhausted",
@@ -260,6 +286,7 @@ def _wgl_python(model: models.Model, raw_history: list[dict],
         else:
             # A completed op we failed to linearize before its return.
             if not stack:
+                note(len(cache), best_depth)
                 return {"valid?": False, "op-count": n, "analyzer": "wgl",
                         "op": entry.op,
                         "max-depth": best_depth,
@@ -267,6 +294,7 @@ def _wgl_python(model: models.Model, raw_history: list[dict],
                         "configs": [_config_map(state, linearized)]}
             entry = backtrack()
 
+    note(len(cache), best_depth)
     return {"valid?": True, "op-count": n, "analyzer": "wgl",
             "max-depth": best_depth,
             "final-paths": _final_paths(stack)}
@@ -283,11 +311,12 @@ def _final_paths(stack: list[_Frame]) -> list[dict]:
 
 
 def analysis(model: models.Model, raw_history: list[dict],
-             algorithm: str = "wgl", **kw: Any) -> dict:
+             algorithm: str = "wgl", search_stats: dict | None = None,
+             **kw: Any) -> dict:
     """Entry point matching knossos.{wgl,linear,competition}/analysis.
     On the CPU every algorithm name routes to the WGL engine (the
     `linear`-style configuration search is the device path, see
     `.dense` and `.kernels`)."""
     if algorithm not in ("wgl", "linear", "competition"):
         raise ValueError(f"unknown algorithm {algorithm!r}")
-    return wgl(model, raw_history, **kw)
+    return wgl(model, raw_history, search_stats=search_stats, **kw)

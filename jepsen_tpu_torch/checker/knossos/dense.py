@@ -21,6 +21,10 @@ Histories past the grid's budgets (more than 14 pending slots, more
 than 64 values) raise EncodingError and go to the bounded frontier
 (`.kernels`) or the CPU oracle.
 
+With `with_stats` (the kernel-stats path) both scans also return the
+grid's peak occupancy, the reference's `_scan_dense(with_stats=True)`:
+the most configurations the grid held after a step's rounds.
+
 `knossos_dense_scan.launches` counts kernel launches (never plain-version
 calls); `knossos_dense_scan.events`, when set to a list, gets a (start,
 end) CUDA event pair appended around each launch.
@@ -207,10 +211,13 @@ def _mask_tables(S: int, device: torch.device):
 
 
 def scan_dense_ref(regs: torch.Tensor, comp: torch.Tensor, n_values: int,
-                   n_slots: int) -> tuple[torch.Tensor, torch.Tensor]:
+                   n_slots: int, with_stats: bool = False) -> tuple:
     """The plain version of the scan: regs [B,C,S,4] int32, comp [B,C]
     int32 -> (valid [B] bool, rounds [B] int32, the expansion rounds
-    run). Batched over B; a loop over the C steps and S+2 rounds, each
+    run), and with `with_stats` a third output, peak [B] int32: 1 at the
+    start, then the grid's popcount after each step's rounds, before
+    the retire, if larger. Batched over B; a loop over the C steps and
+    S+2 rounds, each
     round gated per history by its own `changed & (round < S+2)` — what
     vmap of the reference's while_loop does — with no host sync in the
     loop on a card (on the CPU a step stops once no history is still
@@ -224,6 +231,7 @@ def scan_dense_ref(regs: torch.Tensor, comp: torch.Tensor, n_values: int,
     grid[:, 0, 0] = True
     v_ids = torch.arange(V, device=dev)[None, :, None]         # [1,V,1]
     rounds = torch.zeros(B, dtype=torch.int32, device=dev)
+    peak = torch.ones(B, dtype=torch.int32, device=dev)
     for c in range(C):
         f, a1, a2, known = regs[:, c].unbind(-1)                # [B,S]
         cs = comp[:, c]
@@ -255,12 +263,17 @@ def scan_dense_ref(regs: torch.Tensor, comp: torch.Tensor, n_values: int,
             rnd += active
             active &= changed & (rnd < S + 2)
         rounds += rnd
+        if with_stats:
+            peak = torch.maximum(peak, grid.flatten(1).sum(1,
+                                                         dtype=torch.int32))
         # the completion deadline: grid'[v, m] = grid[v, m | bit_cs] for
         # m lacking cs; no slot cs < S empties the grid
         k = cs.clamp(0, S - 1)
         retired = grid.gather(2, up[k][:, None, :].expand_as(grid)) \
             & ~has[k][:, None, :] & (cs < S)[:, None, None]
         grid = torch.where((cs >= 0)[:, None, None], retired, grid)
+    if with_stats:
+        return grid.flatten(1).any(1), rounds, peak
     return grid.flatten(1).any(1), rounds
 
 
@@ -334,17 +347,18 @@ def _check_scan_args(regs: torch.Tensor, comp: torch.Tensor, n_values: int,
 
 def knossos_dense_scan(regs: torch.Tensor, comp: torch.Tensor,
                        n_values: int, n_slots: int, plan: ScanPlan | None
-                       = None) -> tuple[torch.Tensor, torch.Tensor]:
+                       = None, with_stats: bool = False) -> tuple:
     """The dense scan of a batch (regs [B,C,S,4] int32, comp [B,C]
     int32, contiguous, S <= 14, V <= 64): returns (valid [B] bool,
-    rounds [B] int32) from the CUDA kernel for CUDA tensors, launched as
-    `plan` says (default `plan_scan(S, V)`), from the plain version for
-    CPU tensors. The two agree exactly on both outputs: the kernel's
-    rounds are Jacobi rounds, as the plain version's and the
+    rounds [B] int32), and with `with_stats` also peak [B] int32 (the
+    kernel's STATS build), from the CUDA kernel for CUDA tensors,
+    launched as `plan` says (default `plan_scan(S, V)`), from the plain
+    version for CPU tensors. The two agree exactly on every output: the
+    kernel's rounds are Jacobi rounds, as the plain version's and the
     reference's are."""
     _check_scan_args(regs, comp, n_values, n_slots)
     if regs.device.type == "cpu":
-        return scan_dense_ref(regs, comp, n_values, n_slots)
+        return scan_dense_ref(regs, comp, n_values, n_slots, with_stats)
     if regs.device.type != "cuda":
         raise ValueError(f"knossos_dense_scan runs on cuda or cpu, not "
                          f"{regs.device}")
@@ -353,8 +367,11 @@ def knossos_dense_scan(regs: torch.Tensor, comp: torch.Tensor,
     B, C = comp.shape
     valid = torch.empty(B, dtype=torch.bool, device=regs.device)
     rounds = torch.empty(B, dtype=torch.int32, device=regs.device)
+    peak = torch.empty(B, dtype=torch.int32, device=regs.device) \
+        if with_stats else None
+    out = (valid, rounds, peak) if with_stats else (valid, rounds)
     if B == 0:
-        return valid, rounds
+        return out
     from ... import _build
 
     plan = plan or plan_scan(n_slots, n_values)
@@ -366,20 +383,21 @@ def knossos_dense_scan(regs: torch.Tensor, comp: torch.Tensor,
         start.record(stream)
     rc = lib.knossos_dense_launch(
         regs.data_ptr(), comp.data_ptr(), valid.data_ptr(),
-        rounds.data_ptr(), B, C, n_slots, n_values,
+        rounds.data_ptr(), None if peak is None else peak.data_ptr(),
+        B, C, n_slots, n_values,
         0 if plan.tier == "warp" else 1, plan.threads, regs.device.index,
         stream.cuda_stream)
     if rc != 0:
         msg = lib.knossos_dense_error_string(rc).decode()
         raise _build.KernelLaunchError(
             f"knossos_dense_scan launch failed (B={B}, C={C}, S={n_slots}, "
-            f"V={n_values}, {plan}): {msg}")
+            f"V={n_values}, {plan}, stats={with_stats}): {msg}")
     knossos_dense_scan.launches += 1
     if events is not None:
         end = torch.cuda.Event(enable_timing=True)
         end.record(stream)
         events.append((start, end))
-    return valid, rounds
+    return out
 
 
 knossos_dense_scan.launches = 0
@@ -387,17 +405,24 @@ knossos_dense_scan.events = None
 
 
 def check_dense_device(regs: torch.Tensor, comp: torch.Tensor, *,
-                       n_values: int, n_slots: int, scan=None
-                       ) -> torch.Tensor:
-    """Batched entry: regs [B,C,S,4], comp [B,C] -> valid [B] bool,
-    through `scan` (default `knossos_dense_scan`: the hand kernel on a
-    CUDA tensor, `scan_dense_ref` only on a CPU tensor)."""
-    return (scan or knossos_dense_scan)(regs, comp, n_values, n_slots)[0]
+                       n_values: int, n_slots: int, scan=None,
+                       with_stats: bool = False):
+    """Batched entry: regs [B,C,S,4], comp [B,C] -> valid [B] bool (with
+    `with_stats`, (valid, peak, rounds), the reference's order), through
+    `scan` (default `knossos_dense_scan`: the hand kernel on a CUDA
+    tensor, `scan_dense_ref` only on a CPU tensor)."""
+    scan = scan or knossos_dense_scan
+    if not with_stats:
+        return scan(regs, comp, n_values, n_slots)[0]
+    valid, rounds, peak = scan(regs, comp, n_values, n_slots,
+                               with_stats=True)
+    return valid, peak, rounds
 
 
 def check_encoded_dense_batch(encs: list[DenseEncoded],
                               device: torch.device | str = "cuda",
-                              scan=None) -> list[dict]:
+                              scan=None,
+                              stats_out: list | None = None) -> list[dict]:
     """Check dense-encoded histories on `device`; exact verdicts
     `{"valid?", "analyzer": "tpu-dense", "op-count"}` (the reference's
     analyzer name, a byte of the stored verdict).
@@ -405,23 +430,37 @@ def check_encoded_dense_batch(encs: list[DenseEncoded],
     Histories are bucketed by pending-slot peak rounded up to even (one
     high-concurrency history must not double M = 2^S for the whole
     batch), one dispatch a bucket. `scan` replaces the scan (e.g.
-    `scan_dense_ref` in place of the kernel); `bucket_log` gets one
-    dict per bucket (histories, n_steps, n_slots, n_values, seconds)."""
+    `scan_dense_ref` in place of the kernel). `stats_out`, when given,
+    is extended with one dict per history, the reference's: engine,
+    frontier_peak (the grid's peak occupancy), grid_configs, rounds and
+    n_slots."""
     if not encs:
         return []
     buckets: dict[int, list[int]] = {}
     for i, e in enumerate(encs):
         buckets.setdefault(e.n_slots + (e.n_slots & 1), []).append(i)
     out: list[dict | None] = [None] * len(encs)
+    sout: list = [None] * len(encs)
     for _slots, idxs in sorted(buckets.items()):
         batch = pack_dense_batch([encs[i] for i in idxs])
         shape: DenseBatchShape = batch["shape"]
-        valid = check_dense_device(
+        res = check_dense_device(
             torch.from_numpy(batch["regs"]).to(device),
             torch.from_numpy(batch["comp"]).to(device),
             n_values=shape.n_values, n_slots=shape.n_slots,
-            scan=scan).cpu().numpy()
+            scan=scan, with_stats=stats_out is not None)
+        valid, peak, rounds = (x.tolist() for x in res) \
+            if stats_out is not None else (res.tolist(), None, None)
         for j, i in enumerate(idxs):
             out[i] = {"valid?": bool(valid[j]), "analyzer": "tpu-dense",
                       "op-count": encs[i].n_ops}
+            if stats_out is not None:
+                sout[i] = {"engine": "tpu-dense",
+                           "frontier_peak": int(peak[j]),
+                           "grid_configs": int(shape.n_values
+                                               * (1 << shape.n_slots)),
+                           "rounds": int(rounds[j]),
+                           "n_slots": int(shape.n_slots)}
+    if stats_out is not None:
+        stats_out.extend(sout)
     return out  # type: ignore[return-value]

@@ -23,7 +23,11 @@ test, which compares whole arrays, runs the same rounds.
 Overflow (more live configurations than F) degrades the verdict to
 "unknown" (`":frontier-overflow"`), never to a wrong answer; the
 checker re-runs those histories on the CPU oracle. `check_encoded_batch`
-routes a batch whose packed configurations fit an int32 to `.packed`.
+routes a batch whose packed configurations fit an int32 to `.packed`,
+except under stats: as in the reference, only this frontier carries the
+search telemetry (per history the peak frontier width before
+truncation, the expansion rounds and the candidate configurations
+generated).
 """
 
 from __future__ import annotations
@@ -85,17 +89,23 @@ def _sorted_unique(states, masks, valid, F: int):
 
 
 def _expand_fixpoint(states, masks, valid, slot_f, slot_a1, slot_a2,
-                     slot_known, enabled, F: int, S: int):
+                     slot_known, enabled, F: int, S: int,
+                     with_stats: bool = False):
     """Close each history's frontier under single-op linearization:
     rounds apply every occupied, unapplied slot to every configuration
     until the sorted frontier stops changing (or S+2 rounds), for the
     histories in `enabled` [B]. Returns (states, masks, valid,
-    overflow [B])."""
+    overflow [B]), and with `with_stats` also (peak, rounds, explored)
+    [B]: the most unique configurations a round found, the rounds run,
+    the candidates the rounds generated — each counted over the rounds
+    the history itself ran, as vmap of the reference's loop counts."""
     bits = 1 << torch.arange(S, dtype=torch.int64, device=states.device)
     occupied = (slot_f >= 0)[:, None, :]                       # [B,1,S]
     B = states.shape[0]
     overflow = torch.zeros(B, dtype=torch.bool, device=states.device)
     rnd = torch.zeros(B, dtype=torch.int32, device=states.device)
+    peak = torch.zeros_like(rnd)
+    explored = torch.zeros_like(rnd)
     active = enabled.clone()
     while bool(active.any()):
         unapplied = (masks[:, :, None] & bits) == 0            # [B,F,S]
@@ -114,10 +124,17 @@ def _expand_fixpoint(states, masks, valid, slot_f, slot_a1, slot_a2,
         masks = torch.where(a, m, masks)
         valid = torch.where(a, v, valid)
         overflow |= active & (n > F)
+        if with_stats:
+            peak = torch.where(active, torch.maximum(peak, n.to(peak.dtype)),
+                               peak)
+            explored += torch.where(active, can.flatten(1).sum(1), 0) \
+                .to(explored.dtype)
         rnd += active
         active &= changed & (rnd < S + 2)
     if _expand_fixpoint.rounds is not None:
         _expand_fixpoint.rounds.append(rnd)
+    if with_stats:
+        return states, masks, valid, overflow, peak, rnd, explored
     return states, masks, valid, overflow
 
 
@@ -132,9 +149,11 @@ def _set_slot(regs: list, at, values: list) -> list:
     return [torch.where(at, v[:, None], r) for r, v in zip(regs, values)]
 
 
-def _scan_history(events, F: int, S: int):
+def _scan_history(events, F: int, S: int, with_stats: bool = False):
     """Run the event walk for a batch. events: [B, E, 6] int32. Returns
-    (valid? [B], overflow [B])."""
+    (valid? [B], overflow [B]), and with `with_stats` also (peak
+    frontier width, expansion rounds, configurations generated) [B]
+    int32, the peak starting at 1."""
     B, E, _ = events.shape
     dev = events.device
     ev = events.long()
@@ -146,6 +165,9 @@ def _scan_history(events, F: int, S: int):
         torch.zeros((B, S), dtype=torch.int64, device=dev)
         for _ in range(3)]                      # slot f, a1, a2, known
     overflow = torch.zeros(B, dtype=torch.bool, device=dev)
+    stats = [torch.ones(B, dtype=torch.int32, device=dev),
+             torch.zeros(B, dtype=torch.int32, device=dev),
+             torch.zeros(B, dtype=torch.int32, device=dev)]
     slots = torch.arange(S, device=dev)
     kinds = events[:, :, 0].cpu()
     any_inv = (kinds == INVOKE_EV).any(0).tolist()
@@ -159,32 +181,39 @@ def _scan_history(events, F: int, S: int):
         if not any_comp[e]:
             continue      # no round runs and no filter fires this step
         is_comp = kind == COMPLETE_EV
-        states, masks, valid, ovf = _expand_fixpoint(
-            states, masks, valid, *regs, is_comp, F, S)
+        states, masks, valid, ovf, *st = _expand_fixpoint(
+            states, masks, valid, *regs, is_comp, F, S, with_stats)
         overflow |= ovf
+        if st:
+            stats = [torch.maximum(stats[0], st[0]), stats[1] + st[1],
+                     stats[2] + st[2]]
         # completion deadline: only configurations that linearized the
         # op survive; its slot bit retires and the slot frees
         c = is_comp[:, None]
         valid &= ~c | (((masks >> slot[:, None]) & 1) == 1)
         masks = torch.where(c, masks & ~(1 << slot[:, None]), masks)
         regs[0] = torch.where(at & c, -1, regs[0])
+    if with_stats:
+        return (valid.any(1), overflow, *stats)
     return valid.any(1), overflow
 
 
 def check_batch_device(events: torch.Tensor, *, frontier: int = 512,
-                       n_slots: int = 16):
+                       n_slots: int = 16, with_stats: bool = False):
     """Batched entry: events [B, E, 6] int32 -> (valid [B] bool,
-    overflow [B] bool)."""
+    overflow [B] bool), plus (peak, rounds, explored) [B] int32 under
+    `with_stats`."""
     if n_slots > MAX_SLOTS:
         raise ValueError(f"the frontier's sort keys take at most "
                          f"{MAX_SLOTS} slots, got {n_slots}")
-    return _scan_history(events, frontier, n_slots)
+    return _scan_history(events, frontier, n_slots, with_stats)
 
 
 def check_encoded_batch(encs: list[EncodedRegisterHistory],
                         frontier: int = 512,
                         device: torch.device | str = "cuda",
-                        packed: bool | None = None) -> list[dict]:
+                        packed: bool | None = None,
+                        stats_out: list | None = None) -> list[dict]:
     """Check encoded register histories on `device`. Returns
     knossos-shaped verdicts: {"valid?": True|False, "analyzer":
     "tpu-jit", "op-count"}, or {"valid?": "unknown", ...,
@@ -195,7 +224,10 @@ def check_encoded_batch(encs: list[EncodedRegisterHistory],
     (`.packed`) whenever every history's interned values fit `state <<
     n_slots` in an int32. An explicit packed=True downgrades to this
     frontier if the batch doesn't fit: an aliased packing could return
-    a confident wrong verdict."""
+    a confident wrong verdict. `stats_out`, when given, is extended with
+    one dict per history (engine, frontier_peak, frontier, rounds,
+    configs, overflow, n_slots — the reference's), and the batch takes
+    this frontier, the only one that carries the telemetry."""
     if not encs:
         return []
     batch = pack_register_batch(encs)
@@ -204,12 +236,16 @@ def check_encoded_batch(encs: list[EncodedRegisterHistory],
 
     from .packed import check_batch_device_packed, packable
     fits = all(packable(e.n_values, shape.n_slots) for e in encs)
-    if fits if packed is None else (packed and fits):
+    with_stats = stats_out is not None
+    st = None
+    if (fits if packed is None else (packed and fits)) and not with_stats:
         valid, overflow = check_batch_device_packed(
             events, frontier=frontier, n_slots=shape.n_slots)
     else:
-        valid, overflow = check_batch_device(
-            events, frontier=frontier, n_slots=shape.n_slots)
+        valid, overflow, *st = check_batch_device(
+            events, frontier=frontier, n_slots=shape.n_slots,
+            with_stats=with_stats)
+        st = [x.tolist() for x in st]
     valid = valid.cpu().tolist()
     overflow = overflow.cpu().tolist()
     out = []
@@ -221,4 +257,10 @@ def check_encoded_batch(encs: list[EncodedRegisterHistory],
             out.append({"valid?": bool(valid[i]), "analyzer": "tpu-jit",
                         "op-count": int(
                             (e.events[:, 0] == INVOKE_EV).sum())})
+        if with_stats:
+            stats_out.append({
+                "engine": "tpu-jit", "frontier_peak": int(st[0][i]),
+                "frontier": int(frontier), "rounds": int(st[1][i]),
+                "configs": int(st[2][i]), "overflow": bool(overflow[i]),
+                "n_slots": int(shape.n_slots)})
     return out

@@ -2,7 +2,7 @@
 
     python -m jepsen_tpu_torch.cli analyze-store --store DIR \\
         [--checker append|wr|register|stored] [--name NAME] [--resume] \\
-        [--device cuda|cpu]
+        [--report] [--device cuda|cpu]
 
 Counterpart of `jepsen_tpu/cli.py`'s `analyze-store`: every stored run
 (with `--name`, every run of that test name) is checked, and each
@@ -56,6 +56,18 @@ list-append run whose condensed check raises is quarantined alone.
 A kernel build or launch failure, a missing device or a CUDA error
 still ends the sweep, and `JEPSEN_TPU_STRICT=1` re-raises every
 failure instead of quarantining it.
+
+Every sweep runs under a fresh sweep tracer (`trace`) and leaves in the
+store what the reference's leaves: `trace.json` (the Chrome timeline:
+the "parse", "pack", "h2d", "feed", "dispatch" and "collect" phases,
+the device windows, quarantines) and `metrics.json` (counters, gauges,
+histograms) unless `JEPSEN_TPU_TRACE=0`, and always `events.jsonl`, the
+flight recorder of lifecycle events. `--report` (or
+`JEPSEN_TPU_REPORT=1`) adds the attribution report, `report.json` and
+`report.md`; `JEPSEN_TPU_KERNEL_STATS=1` adds `analytics.jsonl`, one
+search-telemetry record per history; `JEPSEN_TPU_JAX_PROFILE=1` wraps
+the sweep in a `torch.profiler` capture (`torch-profile/trace.json`).
+Writing them never sinks a sweep: a failure is a logged warning.
 """
 
 from __future__ import annotations
@@ -67,6 +79,7 @@ import os
 import sys
 import time
 
+from . import trace
 from .store import Store, VerdictJournal
 
 log = logging.getLogger(__name__)
@@ -148,6 +161,7 @@ def _write_results(d, res: dict, checker: str, journal=None,
         json.dumps({"valid?": res.get("valid?")}))
     if journal is not None:
         journal.record(d, checker, res)
+    trace.get_current().counter("runs_verdicted").inc()
     line = {"dir": str(d), "valid?": res.get("valid?")}
     if "anomaly-types" in res:
         line["anomalies"] = res.get("anomaly-types", [])
@@ -164,14 +178,20 @@ def _quarantine_run(d, err, stage: str, checker: str, journal=None,
                     persist: bool = True) -> int:
     """Record a run the sweep abandoned as a `valid? unknown` verdict —
     never a false verdict, never a dead sweep — persisting the cause for
-    triage and journaling it. JEPSEN_TPU_STRICT=1 re-raises instead
-    (fail-fast)."""
+    triage and journaling it, with a "quarantine" span, the
+    `quarantined` counter and a `quarantine` event. JEPSEN_TPU_STRICT=1
+    re-raises instead (fail-fast)."""
     from . import supervisor
+    from .obs import events
     if supervisor.strict_enabled():
         if isinstance(err, BaseException):
             raise err
         raise RuntimeError(str(err))
-    # counter: quarantined, with a "quarantine" span and event
+    tr = trace.get_current()
+    with tr.span("quarantine", stage=stage):
+        tr.counter("quarantined").inc()
+    events.emit("quarantine", stage=stage, run=str(d),
+                cause=str(err)[:300])
     log.warning("quarantining %s (%s): %s", d, stage, err)
     return _write_results(d, supervisor.quarantine_verdict(err, stage,
                                                            checker),
@@ -194,6 +214,7 @@ def _stored_fallback(d, stored_check, checker: str, journal=None) -> int:
             d, e, "stored", checker, journal=journal,
             persist=not (d / "results.json").exists())
     print(json.dumps({"dir": str(d), "valid?": res.get("valid?")}))
+    trace.get_current().counter("runs_verdicted").inc()
     (d / f".sweep-{checker}").write_text(
         json.dumps({"valid?": res.get("valid?")}))
     if journal is not None:
@@ -202,8 +223,8 @@ def _stored_fallback(d, stored_check, checker: str, journal=None) -> int:
 
 
 def _register_sweep(run_dirs: list, dev, emit, stored,
-                    dense_scan=None, register_log: dict | None = None
-                    ) -> None:
+                    dense_scan=None, register_log: dict | None = None,
+                    record=None) -> None:
     """Per-key CAS-register linearizability over every run: each key's
     subhistory from every run goes down in one tiered `check_batch`,
     then verdicts regroup per run and `emit` writes them, in run order.
@@ -212,7 +233,10 @@ def _register_sweep(run_dirs: list, dev, emit, stored,
     except a build or device failure, which is no run's fault and
     propagates. A run that cannot be loaded, is not register-shaped or
     looks lifted but was declined by relift goes to `stored(d)`, the
-    stored checker, in its place in run order."""
+    stored checker, in its place in run order. With `record` (the
+    kernel-stats path), each emitted run's search record,
+    `_register_run_stats` over its keys, goes to `record(d, stats,
+    failures)`; the isolation re-checks run without stats."""
     from . import _build, independent, ingest
     from .checker import linearizable, merge_valid, models
     from .devices import DeviceUnavailable
@@ -256,9 +280,10 @@ def _register_sweep(run_dirs: list, dev, emit, stored,
             owners.append((i, k))
     t2 = time.perf_counter()
     tiers: list = []
+    ksouts: list | None = [] if record is not None else None
     try:
-        results = c.check_batch({}, subs, {}, tier_log=tiers) \
-            if subs else []
+        results = c.check_batch({}, subs, {}, tier_log=tiers,
+                                stats_out=ksouts) if subs else []
     except (_build.KernelBuildError, _build.KernelLaunchError,
             DeviceUnavailable):
         raise
@@ -268,6 +293,7 @@ def _register_sweep(run_dirs: list, dev, emit, stored,
         log.warning("batched register sweep failed; isolating per key",
                     exc_info=True)
         results = []
+        ksouts = None
         for s in subs:
             try:
                 results.append(c.check_batch({}, [s], {})[0])
@@ -282,27 +308,76 @@ def _register_sweep(run_dirs: list, dev, emit, stored,
         register_log.update(load_s=t1 - t0, split_s=t2 - t1,
                             check_s=t3 - t2, keys=len(subs), tiers=tiers)
     per_run: dict[int, dict] = {}
-    for (i, k), res in zip(owners, results):
+    per_run_stats: dict[int, list] = {}
+    for j, ((i, k), res) in enumerate(zip(owners, results)):
         per_run.setdefault(i, {})[k] = res
+        if ksouts is not None:
+            per_run_stats.setdefault(i, []).append(
+                (k, len(subs[j]), ksouts[j]))
     for i, d in enumerate(run_dirs):
         if i in fallback:
             stored(d)
             continue
         keyed = per_run.get(i, {})
+        failures = sorted(str(k) for k, r in keyed.items()
+                          if r.get("valid?") is False)
         emit(d, {"valid?": merge_valid([r.get("valid?", True)
                                         for r in keyed.values()] or [True]),
                  "checker": "register",       # --resume marker
                  "key-count": len(keyed),
                  "results": {str(k): r for k, r in keyed.items()},
-                 "failures": sorted(str(k) for k, r in keyed.items()
-                                    if r.get("valid?") is False)})
+                 "failures": failures})
+        if ksouts is not None and i in per_run_stats:
+            record(d, _register_run_stats(per_run_stats[i]),
+                   failures or None)
+
+
+def _register_run_stats(keyed: list) -> dict | None:
+    """One run's register-sweep search record, from (key, subhistory
+    ops, engine stats) per key: the subhistory sizes plus the engines'
+    counters over its keys — summed where additive (configs,
+    backtracks, rounds), maxed where a peak (frontier width, depth)."""
+    sizes = [n for _k, n, _s in keyed]
+    stats = [s for _k, _n, s in keyed if isinstance(s, dict)]
+    if not sizes:
+        return None
+    out: dict = {
+        "keys": len(sizes),
+        "subhistory_ops": {"min": min(sizes), "max": max(sizes),
+                           "mean": round(sum(sizes) / len(sizes), 2)},
+        "engines": sorted({s.get("engine") for s in stats
+                           if s.get("engine")}),
+    }
+    for f in ("configs", "backtracks", "rounds"):
+        vals = [s[f] for s in stats if isinstance(s.get(f), int)]
+        if vals:
+            out[f] = sum(vals)
+    for f in ("frontier_peak", "max_depth"):
+        vals = [s[f] for s in stats if isinstance(s.get(f), int)]
+        if vals:
+            out[f] = max(vals)
+    return out
+
+
+def _parse_timed(it):
+    """Re-yield an iterator, recording each wait on it as a "parse"
+    phase span of the sweep tracer (load and encode, in the port)."""
+    it = iter(it)
+    while True:
+        t0 = time.perf_counter()
+        chunk = next(it, None)
+        trace.get_current().phase("parse", t0)
+        if chunk is None:
+            return
+        yield chunk
 
 
 def analyze_store(store: Store, checker: str = "append", device=None,
                   name: str | None = None, resume: bool = False,
                   square=None, bucket_log: list | None = None,
                   condense_log: list | None = None, dense_scan=None,
-                  register_log: dict | None = None) -> int:
+                  register_log: dict | None = None,
+                  report: bool | None = None) -> int:
     """Batch re-check every stored run (with `name`, that test name's
     runs) with `checker` ("append", "wr", "register" or "stored") on
     `device` (default cuda; raises devices.DeviceUnavailable without
@@ -315,17 +390,89 @@ def analyze_store(store: Store, checker: str = "append", device=None,
     bucket (see parallel.check_bucketed), `condense_log` one dict per
     condensed long history (see condense.check_condensed) and
     `register_log` the register sweep's load/split/check seconds, key
-    count and device tiers. Returns the worst exit code."""
-    from . import core, ingest, parallel, supervisor
-    from .checker import elle
-    from .checker.elle import kernels, wr
+    count and device tiers. Returns the worst exit code.
+
+    The sweep runs under a fresh sweep tracer and the flight recorder
+    (module doc): at its end `trace.json` and `metrics.json` are written
+    (the tracer on), `events.jsonl` always, `report.json` + `report.md`
+    with `report` (None defers to JEPSEN_TPU_REPORT; it needs the
+    tracer on), and `analytics.jsonl` with JEPSEN_TPU_KERNEL_STATS. The
+    device resolves first: without it nothing is written."""
+    from . import gates, obs
     from .devices import resolve_device
+    from .obs import search as search_obs
+    from .store import analytics_path
 
     if checker not in CHECKERS:
         raise ValueError(f"unknown checker {checker!r}")
     dev = resolve_device(device)
-    run_dirs = list(store.iter_run_dirs(name=name))
+    if report is None:
+        report = gates.get("JEPSEN_TPU_REPORT")
+    tr = trace.fresh_run(f"analyze-store:{checker}", scope="sweep")
+    search_obs.reset()
+    if report and not (tr.enabled and store.base.is_dir()):
+        print("attribution report needs tracing on "
+              "(JEPSEN_TPU_TRACE=0 set); skipping", file=sys.stderr)
     journal = VerdictJournal(store.base / "verdicts.jsonl", base=store.base)
+    obs.install_events(store.base)
+    obs.emit("sweep_start", checker=checker, resume=bool(resume),
+             store=str(store.base))
+    rc: int | None = None
+    try:
+        with trace.profile_session(store.base / "torch-profile"):
+            rc = _analyze_store_impl(
+                store, checker, dev, name, resume, journal, square=square,
+                bucket_log=bucket_log, condense_log=condense_log,
+                dense_scan=dense_scan, register_log=register_log)
+    finally:
+        journal.close()
+        obs.emit("sweep_end", exit_code=rc if rc is not None else "crashed")
+        if store.base.is_dir():
+            # the ledger lands before the recorder is uninstalled, so
+            # its analytics_flush mark reaches events.jsonl
+            try:
+                n_stats = search_obs.flush(analytics_path(store.base))
+                if n_stats:
+                    print(f"analytics: {n_stats} record(s) appended to "
+                          f"{analytics_path(store.base)}", file=sys.stderr)
+            except Exception:
+                log.warning("analytics flush failed", exc_info=True)
+        obs.reset_events()
+        if tr.enabled and store.base.is_dir():
+            try:
+                evs = trace.merge_traces(tr)
+                p = trace.atomic_write_text(
+                    store.base / "trace.json",
+                    json.dumps({"traceEvents": evs,
+                                "displayTimeUnit": "ms"}))
+                tr.export_metrics(store.base / "metrics.json")
+                print(f"trace written to {p}", file=sys.stderr)
+                if report:
+                    from .obs import attribution
+                    rj, _rmd = attribution.write_report(
+                        store.base, evs, tr.metrics_dict(),
+                        search_records=(search_obs.records()
+                                        if search_obs.enabled() else None))
+                    print(f"report written to {rj}", file=sys.stderr)
+            except Exception:
+                log.warning("sweep trace export failed", exc_info=True)
+    return rc
+
+
+def _analyze_store_impl(store: Store, checker: str, dev, name, resume: bool,
+                        journal: VerdictJournal, *, square=None,
+                        bucket_log: list | None = None,
+                        condense_log: list | None = None, dense_scan=None,
+                        register_log: dict | None = None) -> int:
+    """The sweep itself (`analyze_store` without its telemetry
+    wrapper), verdicts journaled to `journal`."""
+    from . import core, ingest, parallel, supervisor
+    from .checker import elle
+    from .checker.elle import kernels, wr
+    from .obs import events
+    from .obs import search as search_obs
+
+    run_dirs = list(store.iter_run_dirs(name=name))
     prior_worst = 0
     if resume:
         # skip runs a sweep of THIS checker already verdicted: its
@@ -343,6 +490,8 @@ def analyze_store(store: Store, checker: str = "append", device=None,
                 prior_worst = max(prior_worst, validity_exit_code(ent))
             else:
                 pending.append(d)
+        events.emit("sweep_resume", skipped=len(run_dirs) - len(pending),
+                    pending=len(pending))
         if not pending and run_dirs:
             print(f"all {len(run_dirs)} runs already verdicted "
                   f"({checker}); nothing to resume", file=sys.stderr)
@@ -351,7 +500,16 @@ def analyze_store(store: Store, checker: str = "append", device=None,
     if not run_dirs:
         print("no stored runs", file=sys.stderr)
         return 254
+    trace.get_current().gauge("runs_total").set(len(run_dirs))
     worst = prior_worst
+    # kernel search telemetry: the checks return per-history stats,
+    # recorded under the store-relative dir the journal uses
+    want_stats = search_obs.enabled()
+
+    def record_stats(d, stats, anomalies=None) -> None:
+        if stats is not None:
+            search_obs.record(journal.rel(d), checker, stats,
+                              anomalies=anomalies)
 
     def emit(d, res: dict) -> None:
         nonlocal worst
@@ -377,78 +535,83 @@ def analyze_store(store: Store, checker: str = "append", device=None,
             return wr.render_wr_verdict(enc, cycles, wr.WR_PROHIBITED)
         return elle.render_verdict(enc, cycles, elle.APPEND_PROHIBITED)
 
-    try:
-        if checker == "stored":
-            for d in run_dirs:
-                stored(d)
-        elif checker == "register":
-            _register_sweep(run_dirs, dev, emit, stored,
-                            dense_scan=dense_scan,
-                            register_log=register_log)
-        else:
-            huge, fallback = [], []
-            for chunk in ingest.iter_encode_chunks(run_dirs,
-                                                   checker=checker):
-                good = []
-                for d, enc in chunk:
-                    if isinstance(enc, supervisor.InjectedFault):
-                        # a self-nemesis fault simulates a poisoned
-                        # history, whose terminal state IS quarantine:
-                        # no stored-checker detour
-                        worst = max(worst, _quarantine_run(
-                            d, enc, "encode", checker, journal=journal))
-                    elif isinstance(enc, Exception):
-                        log.info("run %s not encodable as %s (%r); using "
-                                 "stored checker", d, checker, enc)
-                        fallback.append(d)
-                    elif enc.n == 0:    # no txn ops: not a txn workload
-                        fallback.append(d)
-                    elif checker == "append" and \
-                            enc.n > parallel.DENSE_TXN_LIMIT:
-                        # too long for the dense [T,T] closure: SCC
-                        # condensation, after the dense sweep (the
-                        # reference's order of verdicts)
-                        huge.append((d, enc))
-                    else:
-                        good.append((d, enc))
-                if not good:
-                    continue
-                if checker == "wr":
-                    cycles_per = _wr_chunk_with_backdown(
-                        good, kernels, wr, device=dev, square=square,
-                        bucket_log=bucket_log)
-                else:
-                    cycles_per = parallel.check_bucketed(
-                        [e for _, e in good], dev, square=square,
-                        bucket_log=bucket_log)
-                for (d, enc), cycles in zip(good, cycles_per):
-                    emit(d, render(enc, cycles))
-            for d, enc in huge:
-                try:
-                    cycles = parallel.check_long_history(
-                        enc, dev, dense_limit=parallel.DENSE_TXN_LIMIT,
-                        square=square, bucket_log=bucket_log,
-                        condense_log=condense_log)
-                except Exception as e:
-                    if supervisor.must_end_sweep(e):
-                        raise
-                    # one monster history must fail alone, not take the
-                    # whole sweep's remaining verdicts with it
+    if checker == "stored":
+        for d in run_dirs:
+            stored(d)
+    elif checker == "register":
+        _register_sweep(run_dirs, dev, emit, stored,
+                        dense_scan=dense_scan, register_log=register_log,
+                        record=record_stats if want_stats else None)
+    else:
+        huge, fallback = [], []
+        for chunk in _parse_timed(ingest.iter_encode_chunks(
+                run_dirs, checker=checker)):
+            good = []
+            for d, enc in chunk:
+                if isinstance(enc, supervisor.InjectedFault):
+                    # a self-nemesis fault simulates a poisoned
+                    # history, whose terminal state IS quarantine:
+                    # no stored-checker detour
                     worst = max(worst, _quarantine_run(
-                        d, e, "check", checker, journal=journal))
-                    continue
+                        d, enc, "encode", checker, journal=journal))
+                elif isinstance(enc, Exception):
+                    log.info("run %s not encodable as %s (%r); using "
+                             "stored checker", d, checker, enc)
+                    fallback.append(d)
+                elif enc.n == 0:    # no txn ops: not a txn workload
+                    fallback.append(d)
+                elif checker == "append" and \
+                        enc.n > parallel.DENSE_TXN_LIMIT:
+                    # too long for the dense [T,T] closure: SCC
+                    # condensation, after the dense sweep (the
+                    # reference's order of verdicts)
+                    huge.append((d, enc))
+                else:
+                    good.append((d, enc))
+            if not good:
+                continue
+            souts: list | None = [] if want_stats else None
+            if checker == "wr":
+                cycles_per = _wr_chunk_with_backdown(
+                    good, kernels, wr, stats_out=souts, device=dev,
+                    square=square, bucket_log=bucket_log)
+            else:
+                cycles_per = parallel.check_bucketed(
+                    [e for _, e in good], dev, square=square,
+                    bucket_log=bucket_log, stats_out=souts)
+            for i, ((d, enc), cycles) in enumerate(zip(good, cycles_per)):
                 emit(d, render(enc, cycles))
-            # runs the device path cannot take: their own stored
-            # checker, after the dense and the long runs (the
-            # reference's order)
-            for d in fallback:
-                stored(d)
-    finally:
-        journal.close()
+                if souts is not None and i < len(souts):
+                    record_stats(d, souts[i], cycles
+                                 if isinstance(cycles, dict) else None)
+        for d, enc in huge:
+            shuge: list | None = [] if want_stats else None
+            try:
+                cycles = parallel.check_long_history(
+                    enc, dev, dense_limit=parallel.DENSE_TXN_LIMIT,
+                    square=square, bucket_log=bucket_log,
+                    condense_log=condense_log, stats_out=shuge)
+            except Exception as e:
+                if supervisor.must_end_sweep(e):
+                    raise
+                # one monster history must fail alone, not take the
+                # whole sweep's remaining verdicts with it
+                worst = max(worst, _quarantine_run(
+                    d, e, "check", checker, journal=journal))
+                continue
+            emit(d, render(enc, cycles))
+            if shuge:
+                record_stats(d, shuge[0], cycles)
+        # runs the device path cannot take: their own stored
+        # checker, after the dense and the long runs (the
+        # reference's order)
+        for d in fallback:
+            stored(d)
     return worst
 
 
-def _wr_chunk_with_backdown(good, elle_kernels, elle_wr, **kw) -> list:
+def _wr_chunk_with_backdown(good, elle_kernels, elle_wr,
+                            stats_out: list | None = None, **kw) -> list:
     """One wr chunk's device check with the supervisor's OOM and
     watchdog degradation: the bucketed batch first
     (`elle_kernels.check_edge_batch_bucketed(edges, **kw)`); on an OOM
@@ -457,33 +620,66 @@ def _wr_chunk_with_backdown(good, elle_kernels, elle_wr, **kw) -> list:
     backdown floor), and a history that still fails alone quarantines.
     Two CONSECUTIVE singleton watchdog timeouts mean the device is
     wedged, not the data: the chunk's remainder quarantines without
-    re-probing. Other errors (and strict mode) re-raise."""
+    re-probing. Other errors (and strict mode) re-raise. An OOM counts
+    `oom_retries`; each quarantine a "quarantine" span, the
+    `quarantined` counter and a `quarantine` event.
+
+    `stats_out`, when given, is extended with one stats dict per history
+    in chunk order (None for a quarantined one), only on completion; the
+    stats keyword reaches the check only then."""
     from . import supervisor
+    from .obs import events
 
     def recoverable(e) -> bool:
         return not supervisor.strict_enabled() and (
             supervisor.is_oom_error(e)
             or isinstance(e, supervisor.WatchdogTimeout))
 
+    def check(eds: list, souts: list | None) -> list:
+        if souts is None:
+            return elle_kernels.check_edge_batch_bucketed(eds, **kw)
+        got: list = []
+        res = elle_kernels.check_edge_batch_bucketed(eds, stats_out=got,
+                                                     **kw)
+        souts.extend(got)
+        return res
+
+    def quarantine(stage: str, cause: str) -> None:
+        with tr.span("quarantine", stage=stage, histories=1):
+            tr.counter("quarantined").inc()
+        events.emit("quarantine", stage=stage, histories=1, cause=cause)
+
     edges = [elle_wr.to_edge_dict(e) for _d, e in good]
+    tr = trace.get_current()
     try:
-        return elle_kernels.check_edge_batch_bucketed(edges, **kw)
+        batch: list | None = [] if stats_out is not None else None
+        res = check(edges, batch)
+        if stats_out is not None:
+            stats_out.extend(batch)
+        return res
     except Exception as e:
         if not recoverable(e):
             raise
-        # counter: oom_retries, when e is an OOM
+        if supervisor.is_oom_error(e):
+            # watchdog failures are counted inside the bounded wait
+            tr.counter("oom_retries").inc()
     out: list = []
+    souts: list | None = [] if stats_out is not None else None
     wedged = 0
     for ed in edges:
         if wedged >= 2:
-            # counter: quarantined, with a "quarantine" span and event
+            quarantine("watchdog", "device wedged")
             out.append(supervisor.Quarantined(
                 "watchdog", "device wedged: consecutive singleton "
                 "watchdog timeouts"))
+            if souts is not None:
+                souts.append(None)
             continue
+        one: list | None = [] if souts is not None else None
         try:
-            out.append(elle_kernels.check_edge_batch_bucketed([ed],
-                                                              **kw)[0])
+            out.append(check([ed], one)[0])
+            if souts is not None:
+                souts.append(one[0] if one else None)
             wedged = 0
         except Exception as e:
             if not recoverable(e):
@@ -493,8 +689,12 @@ def _wr_chunk_with_backdown(good, elle_kernels, elle_wr, **kw) -> list:
                 wedged += 1
             else:
                 stage = "oom"
-            # counter: quarantined, with a "quarantine" span and event
+            quarantine(stage, repr(e)[:300])
             out.append(supervisor.Quarantined(stage, repr(e)))
+            if souts is not None:
+                souts.append(None)
+    if stats_out is not None:
+        stats_out.extend(souts)
     return out
 
 
@@ -517,6 +717,11 @@ def main(argv: list[str] | None = None) -> int:
                         "checker already verdicted (its .sweep-* "
                         "marker, a results.json naming it, or a "
                         "verdicts.jsonl line)")
+    a.add_argument("--report", action="store_true",
+                   help="write the critical-path attribution report "
+                        "(<store>/report.json + report.md) from the "
+                        "sweep's timeline at exit (JEPSEN_TPU_REPORT=1 "
+                        "is the env equivalent; needs tracing on)")
     a.add_argument("--device", default=None, choices=["cuda", "cpu"],
                    help="where the kernels run (default cuda; cpu only "
                         "when asked)")
@@ -530,7 +735,7 @@ def main(argv: list[str] | None = None) -> int:
         t0 = time.perf_counter()
         rc = analyze_store(Store(args.store), checker=args.checker,
                            device=args.device, name=args.name,
-                           resume=args.resume)
+                           resume=args.resume, report=args.report or None)
         print(f"analyze-store: {time.perf_counter() - t0:.3f}s",
               file=sys.stderr)
         return rc

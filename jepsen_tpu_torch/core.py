@@ -19,14 +19,15 @@ log = logging.getLogger(__name__)
 
 
 def analyze(test: dict) -> dict:
-    """Index the history, run the checker, persist results. The
-    reference's trace span around the check is left out (the port has
-    no tracer yet)."""
+    """Index the history, run the checker (inside an "analyze" trace
+    span), persist results."""
+    from . import trace
     log.info("Analyzing...")
     test["history"] = jhistory.index(test.get("history", []))
-    results = jchecker.check_safe(
-        test.get("checker") or jchecker.unbridled_optimism(),
-        test, test["history"], {})
+    with trace.span("analyze", ops=len(test["history"])):
+        results = jchecker.check_safe(
+            test.get("checker") or jchecker.unbridled_optimism(),
+            test, test["history"], {})
     test["results"] = results
     store: Store = test.get("store") or Store()
     test["store"] = store

@@ -27,7 +27,12 @@
 //     the grid empties, as the reference's select over s < S does);
 //   * valid[b] = any bit of the grid still set; rounds[b] = the rounds
 //     run, summed over steps: the reference's count, since every round
-//     reads only the previous round's grid.
+//     reads only the previous round's grid;
+//   * with a `peak` output (the reference's `with_stats`), peak[b] = the
+//     most configurations the grid held: 1 at the start, and after each
+//     completion step's rounds, before its bit retires, the grid's
+//     popcount if larger (a retire only drops configurations, and a pad
+//     step changes nothing, so those are the reference's maxima).
 //
 // What bounds it on an H100. The inputs are small (16*S bytes a step)
 // and a round is 32-bit logic over V * 2^S bits: at S = 10, V = 8 that
@@ -66,7 +71,8 @@
 //    kept beside the grid: a round's writes OR themselves into it
 //    (shared atomics), and the retire transforms it as it transforms a
 //    row, so it is never rebuilt. 4 instantiations (words a thread
-//    keeps in registers: 1, 2, 4, 8), none spilling.
+//    keeps in registers: 1, 2, 4, 8), none spilling. (Each instantiation
+//    has a STATS twin, below.)
 //  * Both tiers decode a step once: every warp holds the step's slot
 //    table one slot a lane, loaded a step ahead of use, and turns it into
 //    warp-uniform masks by ballots (read, read of any value, write, cas);
@@ -76,6 +82,13 @@
 // The wrapper (dense.plan_scan) picks the tier and launch shape; the
 // tier boundary is where the warp tier's registers run out, and the
 // measured times are in PERF.md.
+//
+// The peak is a template parameter (STATS) of both tiers, so the build
+// without it carries not one instruction more. With it, the warp tier
+// sums __popc over a lane's words with one __reduce_add_sync after a
+// step's rounds (the grid is in registers); the block tier does the
+// same per warp and adds the warps' sums into one shared word past the
+// round scratch, behind one more barrier a step.
 //
 // Inputs must be contiguous, regs 16-byte aligned; 1 <= S <= 14,
 // 1 <= V <= 64 (the wrapper checks). Values a1, a2 outside [0, V) never
@@ -134,12 +147,13 @@ __host__ __device__ constexpr uint32_t has_bit_pattern(int s) {
 // instantiation lifts NS = 5 + LW + log2(words of a row a lane holds)
 // slots: S itself when it has a register bit of w, else S <= NS and the
 // slots past S are free.
-template <int LW, int LOGK, bool VHI>
+template <int LW, int LOGK, bool VHI, bool STATS>
 __global__ void __launch_bounds__(WARP_MAX_THREADS, 1)
 dense_warp_kernel(const int32_t* __restrict__ regs,
                   const int32_t* __restrict__ comp,
                   uint8_t* __restrict__ valid_out,
-                  int32_t* __restrict__ rounds_out, int B, int C, int S,
+                  int32_t* __restrict__ rounds_out,
+                  int32_t* __restrict__ peak_out, int B, int C, int S,
                   int V) {
   constexpr int LV = 5 - LW;                 // lane bits of v
   constexpr int VMASK = (1 << LV) - 1;
@@ -168,6 +182,7 @@ dense_warp_kernel(const int32_t* __restrict__ regs,
   int4 row_next = (C > 0 && lane < S) ? hregs[lane] : none;
   int cs_next = C > 0 ? hcomp[0] : -1;
   int total_rounds = 0;
+  int peak = 1;
   for (int c = 0; c < C; ++c) {
     const int4 row = row_next;
     const int cs = cs_next;
@@ -262,6 +277,13 @@ dense_warp_kernel(const int32_t* __restrict__ regs,
       ++rnd;
     }
     total_rounds += rnd;
+    if constexpr (STATS) {
+      unsigned occ = 0u;
+#pragma unroll
+      for (int r = 0; r < K; ++r) occ += __popc(g[r]);
+      occ = __reduce_add_sync(FULL, occ);
+      peak = max(peak, static_cast<int>(occ));
+    }
 
     // the completion deadline: keep configurations that applied cs, and
     // retire its bit
@@ -302,6 +324,7 @@ dense_warp_kernel(const int32_t* __restrict__ regs,
   if (lane == 0) {
     valid_out[b] = any_set ? 1 : 0;
     rounds_out[b] = total_rounds;
+    if constexpr (STATS) peak_out[b] = peak;
   }
 }
 
@@ -319,13 +342,15 @@ __device__ __forceinline__ uint32_t lift(const uint32_t* row, int w, int s) {
 
 // One block a history; thread t owns words t + k * blockDim.x: it
 // computes a round's new values of the first KR of them in registers,
-// and of the rest in `scratch`, a shared-memory buffer past the grid.
-template <int KR>
+// and of the rest in `scratch`, a shared-memory buffer past the grid
+// (and under STATS, one word past the scratch sums the grid's popcount).
+template <int KR, bool STATS>
 __global__ void __launch_bounds__(BLOCK_MAX_THREADS, 1)
 dense_block_kernel(const int32_t* __restrict__ regs,
                    const int32_t* __restrict__ comp,
                    uint8_t* __restrict__ valid_out,
-                   int32_t* __restrict__ rounds_out, int C, int S, int V) {
+                   int32_t* __restrict__ rounds_out,
+                   int32_t* __restrict__ peak_out, int C, int S, int V) {
   extern __shared__ uint32_t smem[];
   const int log_w = S > 5 ? S - 5 : 0;
   const int W = 1 << log_w;                  // words a row
@@ -338,6 +363,13 @@ dense_block_kernel(const int32_t* __restrict__ regs,
 
   for (int i = tid; i < VW; i += nt) grid[i] = i == 0 ? 1u : 0u;
   for (int w = tid; w < W; w += nt) any_row[w] = w == 0 ? 1u : 0u;
+  // STATS: the step's popcount, summed by the warps (thread 0 reads and
+  // clears it between barriers)
+  unsigned* occ = scratch + (VW > in_regs ? VW - in_regs : 0);
+  int peak = 1;
+  if constexpr (STATS) {
+    if (tid == 0) *occ = 0u;
+  }
 
   const int4* hregs = reinterpret_cast<const int4*>(regs) +
                       static_cast<size_t>(blockIdx.x) * C * S;
@@ -422,6 +454,17 @@ dense_block_kernel(const int32_t* __restrict__ regs,
       ++rnd;
     }
     total_rounds += rnd;
+    if constexpr (STATS) {
+      unsigned mine_occ = 0u;
+      for (int i = tid; i < VW; i += nt) mine_occ += __popc(grid[i]);
+      mine_occ = __reduce_add_sync(FULL, mine_occ);
+      if (lane == 0 && mine_occ) atomicAdd(occ, mine_occ);
+      __syncthreads();                       // every count in, before the retire
+      if (tid == 0) {
+        peak = max(peak, static_cast<int>(*occ));
+        *occ = 0u;
+      }
+    }
 
     // the completion deadline, on the grid and on the rows' OR alike
     if (cs >= S) {
@@ -456,6 +499,7 @@ dense_block_kernel(const int32_t* __restrict__ regs,
   if (tid == 0) {
     valid_out[blockIdx.x] = any ? 1 : 0;
     rounds_out[blockIdx.x] = total_rounds;
+    if constexpr (STATS) peak_out[blockIdx.x] = peak;
   }
 }
 
@@ -470,33 +514,36 @@ struct Args {
   const int32_t* comp;
   uint8_t* valid;
   int32_t* rounds;
+  int32_t* peak;                             // nullptr: no peak (STATS off)
   int B, C, S, V;
 };
 
-template <int LW, int LOGK, bool VHI>
+template <int LW, int LOGK, bool VHI, bool STATS>
 cudaError_t launch_warp(const Args& a, int threads, cudaStream_t stream) {
   const int per_block = threads / 32;
   const int blocks = (a.B + per_block - 1) / per_block;
-  dense_warp_kernel<LW, LOGK, VHI><<<blocks, threads, 0, stream>>>(
-      a.regs, a.comp, a.valid, a.rounds, a.B, a.C, a.S, a.V);
+  dense_warp_kernel<LW, LOGK, VHI, STATS><<<blocks, threads, 0, stream>>>(
+      a.regs, a.comp, a.valid, a.rounds, a.peak, a.B, a.C, a.S, a.V);
   return cudaGetLastError();
 }
 
-template <int LW, bool VHI>
+template <int LW, bool VHI, bool STATS>
 cudaError_t launch_warp_k(const Args& a, int logk, int threads,
                           cudaStream_t stream) {
   switch (logk) {
     case 0:
-      if constexpr (!VHI) return launch_warp<LW, 0, VHI>(a, threads, stream);
+      if constexpr (!VHI)
+        return launch_warp<LW, 0, VHI, STATS>(a, threads, stream);
       break;
-    case 1: return launch_warp<LW, 1, VHI>(a, threads, stream);
-    case 2: return launch_warp<LW, 2, VHI>(a, threads, stream);
-    case 3: return launch_warp<LW, 3, VHI>(a, threads, stream);
-    case 4: return launch_warp<LW, 4, VHI>(a, threads, stream);
+    case 1: return launch_warp<LW, 1, VHI, STATS>(a, threads, stream);
+    case 2: return launch_warp<LW, 2, VHI, STATS>(a, threads, stream);
+    case 3: return launch_warp<LW, 3, VHI, STATS>(a, threads, stream);
+    case 4: return launch_warp<LW, 4, VHI, STATS>(a, threads, stream);
   }
   return cudaErrorInvalidValue;
 }
 
+template <bool STATS>
 cudaError_t launch_warp_tier(const Args& a, int threads,
                              cudaStream_t stream) {
   if (threads < 32 || threads > WARP_MAX_THREADS || threads % 32)
@@ -507,29 +554,30 @@ cudaError_t launch_warp_tier(const Args& a, int threads,
   const int log_w = a.S > 5 ? a.S - 5 : 0;
   const int logk = (log_w > lw ? log_w - lw : 0) + (vhi ? 1 : 0);
   if (logk > WARP_MAX_LOGK) return cudaErrorInvalidValue;
-  if (vhi) return launch_warp_k<0, true>(a, logk, threads, stream);
+  if (vhi) return launch_warp_k<0, true, STATS>(a, logk, threads, stream);
   switch (lw) {
-    case 0: return launch_warp_k<0, false>(a, logk, threads, stream);
-    case 1: return launch_warp_k<1, false>(a, logk, threads, stream);
-    case 2: return launch_warp_k<2, false>(a, logk, threads, stream);
+    case 0: return launch_warp_k<0, false, STATS>(a, logk, threads, stream);
+    case 1: return launch_warp_k<1, false, STATS>(a, logk, threads, stream);
+    case 2: return launch_warp_k<2, false, STATS>(a, logk, threads, stream);
   }
   return cudaErrorInvalidValue;
 }
 
-template <int KR>
+template <int KR, bool STATS>
 cudaError_t launch_block(const Args& a, int threads, size_t smem,
                          cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        dense_block_kernel<KR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        dense_block_kernel<KR, STATS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  dense_block_kernel<KR><<<a.B, threads, smem, stream>>>(
-      a.regs, a.comp, a.valid, a.rounds, a.C, a.S, a.V);
+  dense_block_kernel<KR, STATS><<<a.B, threads, smem, stream>>>(
+      a.regs, a.comp, a.valid, a.rounds, a.peak, a.C, a.S, a.V);
   return cudaGetLastError();
 }
 
+template <bool STATS>
 cudaError_t launch_block_tier(const Args& a, int threads,
                               cudaStream_t stream) {
   const int W = a.S > 5 ? 1 << (a.S - 5) : 1;
@@ -543,13 +591,14 @@ cudaError_t launch_block_tier(const Args& a, int threads,
   while ((1 << log_kr) > BLOCK_MAX_REG_WORDS) --log_kr;
   const int scratch = VW - (threads << log_kr);
   const size_t smem = sizeof(uint32_t) *
-      (static_cast<size_t>(VW) + W + (scratch > 0 ? scratch : 0));
+      (static_cast<size_t>(VW) + W + (scratch > 0 ? scratch : 0) +
+       (STATS ? 1 : 0));
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   switch (log_kr) {
-    case 0: return launch_block<1>(a, threads, smem, stream);
-    case 1: return launch_block<2>(a, threads, smem, stream);
-    case 2: return launch_block<4>(a, threads, smem, stream);
-    case 3: return launch_block<8>(a, threads, smem, stream);
+    case 0: return launch_block<1, STATS>(a, threads, smem, stream);
+    case 1: return launch_block<2, STATS>(a, threads, smem, stream);
+    case 2: return launch_block<4, STATS>(a, threads, smem, stream);
+    case 3: return launch_block<8, STATS>(a, threads, smem, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -557,16 +606,17 @@ cudaError_t launch_block_tier(const Args& a, int threads,
 }  // namespace
 
 // Launch on `stream` of `device`: regs [B,C,S,4] int32, comp [B,C] int32,
-// valid [B] bytes and rounds [B] int32 written. `tier` 0 is the warp
+// valid [B] bytes and rounds [B] int32 written, and peak [B] int32 when
+// `peak` is not null (the STATS instantiations). `tier` 0 is the warp
 // tier (`threads` = 32 a history a block, <= 256), 1 the block tier
 // (`threads` a history, <= 1,024, at least a 32nd of V * 2^S / 32 words).
 // Returns a cudaError_t (0 on success): cudaErrorInvalidValue for
 // arguments outside these bounds (a grid too large for the warp tier
 // among them), else cudaGetLastError() right after the launch.
 extern "C" int knossos_dense_launch(const void* regs, const void* comp,
-                                    void* valid, void* rounds, int B, int C,
-                                    int S, int V, int tier, int threads,
-                                    int device, void* stream) {
+                                    void* valid, void* rounds, void* peak,
+                                    int B, int C, int S, int V, int tier,
+                                    int threads, int device, void* stream) {
   if (B <= 0 || C < 0 || S < 1 || S > MAX_SLOTS || V < 1 ||
       V > MAX_VALUES || (tier != 0 && tier != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -578,10 +628,14 @@ extern "C" int knossos_dense_launch(const void* regs, const void* comp,
   const Args a{static_cast<const int32_t*>(regs),
                static_cast<const int32_t*>(comp),
                static_cast<uint8_t*>(valid), static_cast<int32_t*>(rounds),
-               B, C, S, V};
+               static_cast<int32_t*>(peak), B, C, S, V};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = tier == 0 ? launch_warp_tier(a, threads, st)
-                  : launch_block_tier(a, threads, st);
+  if (tier == 0)
+    err = peak ? launch_warp_tier<true>(a, threads, st)
+               : launch_warp_tier<false>(a, threads, st);
+  else
+    err = peak ? launch_block_tier<true>(a, threads, st)
+               : launch_block_tier<false>(a, threads, st);
   return static_cast<int>(err);
 }
 

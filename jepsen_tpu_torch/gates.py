@@ -12,7 +12,7 @@ Parse rules, per gate kind and default:
   * bool, default on  — unset or anything but ``"0"`` is True;
   * bool, default off — only a set, non-empty, non-``"0"`` value is
     True;
-  * float — parsed, falling back to the declared default on a
+  * int/float — parsed, falling back to the declared default on a
     malformed value instead of crashing the run;
   * str — the stripped raw value, empty treated as unset.
 """
@@ -27,7 +27,7 @@ log = logging.getLogger(__name__)
 PREFIX = "JEPSEN_TPU_"
 
 #: Parse kinds a gate may declare.
-KINDS = ("bool", "float", "str")
+KINDS = ("bool", "int", "float", "str")
 
 
 class Gate:
@@ -51,9 +51,9 @@ class Gate:
             if self.default:
                 return raw != "0"
             return raw not in ("", "0")
-        if self.kind == "float":
+        if self.kind in ("int", "float"):
             try:
-                return float(raw)
+                return int(raw) if self.kind == "int" else float(raw)
             except ValueError:
                 log.debug("malformed %s=%r; using default %r",
                           self.name, raw, self.default)
@@ -71,6 +71,38 @@ def _g(name: str, kind: str, default, doc: str) -> None:
     GATES[name] = Gate(name, kind, default, doc)
 
 
+# -- observability ----------------------------------------------------------
+_g("JEPSEN_TPU_TRACE", "bool", True,
+   "`0`: no trace/metrics files, no-op spans (the flight recorder "
+   "`events.jsonl` is still written)")
+_g("JEPSEN_TPU_TRACE_MAX_EVENTS", "int", 200_000,
+   "bounded tracer event buffer; overflow is counted "
+   "(`dropped_events`), never silent")
+_g("JEPSEN_TPU_REPORT", "bool", False,
+   "set: `analyze-store` writes the critical-path attribution report "
+   "(`<store>/report.json` + `report.md`) at sweep end, as if "
+   "`--report` were passed")
+_g("JEPSEN_TPU_JAX_PROFILE", "bool", False,
+   "`1`: wrap the sweep in a `torch.profiler` capture (CPU and CUDA "
+   "activities; a Chrome trace under `<store>/torch-profile/`)")
+_g("JEPSEN_TPU_EVENTS_MAX_BYTES", "int", None,
+   "rotate `<store>/events.jsonl` once it exceeds this many bytes "
+   "(atomic rename to `events.jsonl.1`, then an `events_rotated` "
+   "event opens the fresh log); unset/<=0 = unbounded (the default)")
+_g("JEPSEN_TPU_KERNEL_STATS", "bool", False,
+   "set: kernel search telemetry — checker dispatches additionally "
+   "return a per-history graph/search stats record (edge counts, "
+   "closure rounds, SCC shape, decision-boundary margin; grid and "
+   "frontier occupancy; WGL counters), journaled to "
+   "`<store>/analytics.jsonl` and aggregated into the report's "
+   "\"search\" section; off (the default) leaves verdicts, files and "
+   "launches as they are")
+_g("JEPSEN_TPU_KERNEL_STATS_SAMPLE", "int", 1,
+   "journal every Nth history's stats line into `analytics.jsonl` "
+   "(in-memory aggregates and the report still cover every history); "
+   "`1` (the default) journals all; only read when "
+   "`JEPSEN_TPU_KERNEL_STATS` is on")
+# -- dispatch and supervision -----------------------------------------------
 _g("JEPSEN_TPU_FUSED_CLASSIFY", "bool", True,
    "`0`: detect-then-classify two-pass instead of the fused kernel")
 _g("JEPSEN_TPU_PACK_THREAD", "bool", True,

@@ -32,14 +32,18 @@ def encode_run_dir(run_dir: str | os.PathLike, checker: str = "append"
     persists them) and the per-row completion ops dropped. The
     self-nemesis (JEPSEN_TPU_FAULT_INJECT) strikes first, ahead of
     everything else, so a selected run dir fails identically every
-    time."""
-    from . import supervisor
+    time. The load and the encode are the reference's "load_history"
+    and "encode_py" spans."""
+    from . import supervisor, trace
     supervisor.maybe_inject_encode_fault(run_dir)
     if checker not in ENCODERS:
         raise ValueError(f"unknown checker {checker!r}")
     encode, lean = ENCODERS[checker]
-    enc = encode(load_history_dir(run_dir))
-    enc.anomalies = lean(enc)
+    with trace.span("load_history"):
+        hist = load_history_dir(run_dir)
+    with trace.span("encode_py"):
+        enc = encode(hist)
+        enc.anomalies = lean(enc)
     enc.txn_ops = []
     return enc
 

@@ -18,9 +18,22 @@ reference donates them to XLA instead).
 
 One history past `DENSE_TXN_LIMIT` txns goes through
 `check_long_history`, which condenses it to its strongly connected
-components first. The reference's tracer spans and counters, its cost
-planner and its mesh are not ported; each call site that feeds one of
-its counters is marked with the counter's name.
+components first.
+
+The sweep tracer (`trace`) sees what the reference's sees: "pack",
+"h2d", "feed", "dispatch" and "collect" phase spans (also summed into a
+caller's `phases` dict), a "bucket" window on the device track from each
+bucket's enqueue to the host seeing its CUDA event complete, the
+counters `h2d_bytes`, `pad_waste_cells`, `buckets_dispatched`,
+`buckets_resolved`, `quarantined`, `oom_retries`, `bucket_splits` and
+`watchdog_timeouts`, the `inflight_depth` gauge, the `bucket_cells`
+histogram, and the flight recorder's `quarantine`, `oom_split` and
+`watchdog_fire` events. A dispatch of host-built edge dicts (the wr
+sweep, a condensed run's SCCs) records only its watchdog, as the
+reference's `check_edge_batch` does. With `with_stats` /
+`stats_out` each bucket's check also computes the kernel-stats matrix
+(`kernels.STAT_FIELDS`), read with the flags when the bucket resolves.
+The reference's cost planner and mesh are not ported.
 """
 
 from __future__ import annotations
@@ -36,7 +49,9 @@ import torch
 
 from .. import gates
 from .. import supervisor as sv
+from .. import trace
 from ..checker.elle import kernels as K
+from ..obs import events as obs_events
 
 log = logging.getLogger(__name__)
 
@@ -48,20 +63,28 @@ DENSE_TXN_LIMIT = 32_768
 class _Sweep:
     """What every bucket of one dispatch shares: the histories (encoded
     histories, or host-built edge dicts: `edges`), the device, the
-    kernel options, the caller's bucket log, and whether the supervisor
+    kernel options, the caller's bucket log, whether the supervisor
     recovers from failures here (`supervise`) or leaves every one to the
-    caller."""
+    caller, whether the checks compute the stats matrix (`with_stats`),
+    the caller's `phases` dict, and the tracer its spans and counters go
+    to (the null tracer for edge dicts, which the reference does not
+    trace)."""
 
-    __slots__ = ("encs", "device", "kw", "bucket_log", "edges", "supervise")
+    __slots__ = ("encs", "device", "kw", "bucket_log", "edges", "supervise",
+                 "with_stats", "phases", "tr")
 
     def __init__(self, encs: Sequence, device: torch.device, kw: dict,
-                 bucket_log: list | None, supervise: bool = True):
+                 bucket_log: list | None, supervise: bool = True,
+                 with_stats: bool = False, phases: dict | None = None):
         self.encs = encs
         self.device = device
         self.kw = kw
         self.bucket_log = bucket_log
         self.edges = bool(len(encs)) and isinstance(encs[0], dict)
         self.supervise = supervise
+        self.with_stats = with_stats
+        self.phases = phases
+        self.tr = trace.NullTracer() if self.edges else trace.get_current()
 
     def fail_fast(self) -> bool:
         """Re-raise a failure instead of recovering: strict mode, or a
@@ -70,13 +93,16 @@ class _Sweep:
 
 
 class _Staged:
-    """One bucket on its way to the device: packed on the host
-    (`packed`), then copied (`batch`, with `ready` the copy's CUDA event
-    and `host` its pinned buffers, kept until the bucket resolves)."""
+    """One bucket of sweep `sw` on its way to the device: packed on the
+    host (`packed`), then copied (`batch`, with `ready` the copy's CUDA
+    event and `host` its pinned buffers, kept until the bucket
+    resolves)."""
 
-    __slots__ = ("bucket", "t0", "packed", "batch", "ready", "host")
+    __slots__ = ("sw", "bucket", "t0", "packed", "batch", "ready", "host")
 
-    def __init__(self, bucket: list[int], t0: float, packed: dict):
+    def __init__(self, sw: _Sweep, bucket: list[int], t0: float,
+                 packed: dict):
+        self.sw = sw
         self.bucket = bucket
         self.t0 = t0
         self.packed = packed
@@ -85,19 +111,24 @@ class _Staged:
 
 class _Dispatch:
     """One bucket enqueued on the device and not yet read: its [B] flag
-    words and closure round counters (device tensors), the CUDA event
-    recorded after its last launch (None on the CPU), its padded T and
-    pack start (for the bucket log), and its pinned host buffers."""
+    words, closure round counters and, under stats, its [B, N_STATS]
+    stats matrix (device tensors), the CUDA event recorded after its
+    last launch (None on the CPU), its padded T, pack start and enqueue
+    end (for the bucket log and the device window), and its pinned host
+    buffers."""
 
-    __slots__ = ("flags", "rounds", "done", "t_pad", "t0", "host")
+    __slots__ = ("flags", "rounds", "stats", "done", "t_pad", "t0",
+                 "t_disp", "host")
 
     def __init__(self, flags, rounds, done, t_pad: int, t0: float,
-                 host=None):
+                 host=None, stats=None):
         self.flags = flags
         self.rounds = rounds
+        self.stats = stats
         self.done = done
         self.t_pad = t_pad
         self.t0 = t0
+        self.t_disp = time.perf_counter()
         self.host = host
 
     def is_ready(self) -> bool:
@@ -138,13 +169,30 @@ def _block_flags(done) -> None:
     stall under a healthy device resolves here — then WatchdogTimeout
     raises and the caller quarantines the bucket. The device work itself
     cannot be cancelled: it runs on, and what it reads and writes is
-    freed in stream order."""
+    freed in stream order. One wedged dispatch counts one
+    `watchdog_timeouts`; each timed-out attempt leaves a
+    `watchdog_timeout` mark on the device track and a `watchdog_fire`
+    event."""
     timeout = sv.dispatch_timeout_s()
-    for _attempt in range(2):
+    tr = trace.get_current()
+    for attempt in range(2):
         if _device_ready(done, timeout):
             return
-        # counter: watchdog_timeouts (once per dispatch, first attempt)
+        if attempt == 0:
+            tr.counter("watchdog_timeouts").inc()
+        tr.instant("watchdog_timeout", track="device", timeout_s=timeout,
+                   attempt=attempt)
+        obs_events.emit("watchdog_fire", timeout_s=timeout,
+                        attempt=attempt)
     raise sv.WatchdogTimeout(f"device dispatch exceeded {timeout}s twice")
+
+
+def _acc_phase(sw: _Sweep, key: str, t0: float) -> None:
+    """Record a phase span started at `t0` on the sweep's tracer and add
+    its seconds to the caller's `phases` dict, so the two agree."""
+    dt = sw.tr.phase(key, t0)
+    if sw.phases is not None:
+        sw.phases[key] = sw.phases.get(key, 0.0) + dt
 
 
 def check_long_history(enc, device=None, *, classify: bool = True,
@@ -152,17 +200,22 @@ def check_long_history(enc, device=None, *, classify: bool = True,
                        dense_limit: int = DENSE_TXN_LIMIT,
                        square: K.Square | None = None,
                        bucket_log: list | None = None,
-                       condense_log: list | None = None) -> dict:
+                       condense_log: list | None = None,
+                       stats_out: list | None = None) -> dict:
     """Check ONE encoded history on `device` (default cuda); returns
     {anomaly: True} flags.
 
     Up to `dense_limit` txns: the dense closure, one bucket, its wait
     bounded by the dispatch watchdog (a timeout raises WatchdogTimeout
-    to the caller). Beyond it: host SCC condensation feeding the device
-    classification per nontrivial SCC (`condense.check_condensed`,
-    which also takes `condense_log`) — the 100k-op path, exact because
-    every anomaly query is answered inside one SCC. `square` and
-    `bucket_log` as in `check_bucketed`."""
+    to the caller), its device window named "long-history". Beyond it:
+    host SCC condensation feeding the device classification per
+    nontrivial SCC (`condense.check_condensed`, which also takes
+    `condense_log`) — the 100k-op path, exact because every anomaly
+    query is answered inside one SCC. `square` and `bucket_log` as in
+    `check_bucketed`. `stats_out`, when given, gets one stats dict for
+    the history: from the device on the dense path
+    (`kernels.stats_row`), from the condensation past it
+    (`condense.condensed_stats`)."""
     from ..devices import resolve_device
     dev = resolve_device(device)
     if enc.n > dense_limit:
@@ -170,12 +223,19 @@ def check_long_history(enc, device=None, *, classify: bool = True,
         return condense.check_condensed(
             enc, dev, classify=classify, realtime=realtime,
             process_order=process_order, square=square,
-            bucket_log=bucket_log, condense_log=condense_log)
+            bucket_log=bucket_log, condense_log=condense_log,
+            stats_out=stats_out)
     sw = _Sweep([enc], dev, dict(
         classify=classify, realtime=realtime, process_order=process_order,
-        fused=K.fused_classify_enabled(), square=square), bucket_log)
+        fused=K.fused_classify_enabled(), square=square), bucket_log,
+        with_stats=stats_out is not None)
     staged = _h2d_bucket(_prep_bucket(sw, [0]), dev)
-    return K.flags_to_names(_resolve(sw, _enqueue(sw, staged))[0])
+    (w,) = _resolve(sw, [0], _enqueue(sw, staged, sw.with_stats),
+                    "long-history", txns=enc.n)
+    if isinstance(w, tuple):
+        w, st = w
+        stats_out.append(st)
+    return K.flags_to_names(w)
 
 
 def _size_of(e) -> int:
@@ -216,17 +276,22 @@ class PendingVerdicts:
     host work with the device's. `.result()` waits, reads the flag words
     back and returns per-history {anomaly: True} dicts in input order (a
     history the supervisor abandoned yields its `supervisor.Quarantined`
-    sentinel instead — callers render it as `valid? unknown`)."""
+    sentinel instead — callers render it as `valid? unknown`);
+    `.stats()` then holds the per-history stats dicts of a `with_stats`
+    dispatch."""
 
-    def __init__(self, n: int, parts: list, finish):
+    def __init__(self, n: int, parts: list, finish, sw: _Sweep):
         self._n = n
         # [bucket indices, a _Dispatch still on the device, or the
-        # resolved per-history flag words / Quarantined sentinels]
+        # resolved per-history flag words / (word, stats dict) pairs /
+        # Quarantined sentinels]
         self._parts = parts
         # finish(idx, dispatch) -> resolved list: the dispatcher's
         # watchdog + OOM-backdown closure
         self._finish = finish
+        self._sw = sw
         self._result: list | None = None
+        self._stats: list = [None] * n
 
     def is_ready(self) -> bool:
         """True when every bucket's work has completed on the device;
@@ -234,18 +299,31 @@ class PendingVerdicts:
         return all(not isinstance(x, _Dispatch) or x.is_ready()
                    for _, x in self._parts)
 
+    def stats(self) -> list:
+        """Per-history `kernels.stats_row` dicts aligned with the
+        verdicts (None for a history whose check carried no stats: gate
+        off, quarantined, or resolved through the OOM backdown, whose
+        re-checks run stats-free). Filled by `.result()`."""
+        return self._stats
+
     def result(self) -> list:
-        """The verdicts, in input order; idempotent."""
+        """The verdicts, in input order; idempotent (a second call
+        records no more "collect" time)."""
         if self._result is not None:
             return self._result
+        t0 = time.perf_counter()
         out: list = [None] * self._n
         for idx, words in self._parts:
             if isinstance(words, _Dispatch):
                 words = self._finish(idx, words)
             for i, w in zip(idx, words):
+                if isinstance(w, tuple):
+                    w, self._stats[i] = w
                 out[i] = (w if isinstance(w, sv.Quarantined)
                           else K.flags_to_names(int(w)))
         self._parts = []
+        self._sw.tr.gauge("inflight_depth").set(0)   # fully drained
+        _acc_phase(self._sw, "collect", t0)
         self._result = out
         return out
 
@@ -268,30 +346,47 @@ def _est_cells(encs: Sequence, bucket: list[int]) -> int:
 
 
 def _prep_bucket(sw: _Sweep, bucket: list[int]) -> _Staged:
-    """Host-side packing of one bucket: its histories padded into numpy
-    arrays (`kernels.pack_batch`), or its edge dicts into cell lists
-    (`kernels.pack_edge_matrices`). Runs on the pack-h2d thread when
-    pack_thread_enabled(), inline otherwise."""
+    """Host-side packing of one bucket (the "pack" phase): its histories
+    padded into numpy arrays (`kernels.pack_batch`), or its edge dicts
+    into cell lists (`kernels.pack_edge_matrices`). Runs on the pack-h2d
+    thread when pack_thread_enabled(), inline otherwise — the span lands
+    on whichever thread did the work. Counts the bucket's padding waste
+    (`pad_waste_cells`: B·T_pad² less its histories' own cells) and its
+    footprint (`bucket_cells`)."""
     t0 = time.perf_counter()
     group = [sw.encs[i] for i in bucket]
-    return _Staged(bucket, t0, K.pack_edge_matrices(group) if sw.edges
-                   else K.pack_batch(group))
+    packed = K.pack_edge_matrices(group) if sw.edges else K.pack_batch(group)
+    if sw.tr.enabled:
+        t_pad = packed["T"] if sw.edges else packed["shape"].n_txns
+        cells = len(group) * t_pad * t_pad
+        sw.tr.counter("pad_waste_cells").inc(
+            cells - sum(max(_size_of(e), 1) ** 2 for e in group))
+        sw.tr.histogram("bucket_cells").observe(cells)
+    _acc_phase(sw, "pack", t0)
+    return _Staged(sw, bucket, t0, packed)
 
 
 def _h2d_bucket(item: _Staged, device: torch.device,
                 stream=None) -> _Staged:
-    """The host-to-device copy of one packed bucket, on `stream` (the
+    """The host-to-device copy of one packed bucket (the "h2d" phase,
+    counting the bytes that cross in `h2d_bytes`), on `stream` (the
     dispatch's copy stream; None: the current stream), an event marking
     its end. A packed batch's arrays are pinned and copied without
     blocking, widened to int64 there; the pinned buffers stay with the
     bucket until it resolves. An edge batch's cell lists are copied and
     scattered into its [B,T,T] matrices (`kernels.edge_batch_to_device`)
     on that stream, so the copy waits for no earlier bucket's check."""
+    t0 = time.perf_counter()
+    sw = item.sw
     packed, item.packed = item.packed, None
     to_device = K.edge_batch_to_device if "T" in packed \
         else K.batch_to_device
+    if sw.tr.enabled and to_device is K.batch_to_device:
+        sw.tr.counter("h2d_bytes").inc(
+            sum(np.asarray(packed[k]).nbytes for k in K.DEVICE_FIELDS))
     if device.type != "cuda":
         item.batch = to_device(packed, device)
+        _acc_phase(sw, "h2d", t0)
         return item
     with torch.cuda.stream(stream):
         if to_device is K.batch_to_device:
@@ -305,12 +400,15 @@ def _h2d_bucket(item: _Staged, device: torch.device,
             item.batch = to_device(packed, device)
         item.ready = torch.cuda.Event()
         item.ready.record()
+    _acc_phase(sw, "h2d", t0)
     return item
 
 
-def _enqueue(sw: _Sweep, item: _Staged) -> _Dispatch:
+def _enqueue(sw: _Sweep, item: _Staged,
+             with_stats: bool = False) -> _Dispatch:
     """Enqueue one copied bucket's check on the device's current stream
-    and return without reading anything back. The stream first waits
+    and return without reading anything back (with `with_stats`, the
+    check also computes the stats matrix). The stream first waits
     for the bucket's copy, and each input tensor is marked as used on
     it, so the caching allocator cannot hand the inputs' memory to a
     later copy before this check has read them; the inputs are then
@@ -324,25 +422,38 @@ def _enqueue(sw: _Sweep, item: _Staged) -> _Dispatch:
                 v.record_stream(compute)
     rounds: list = []
     if sw.edges:
-        flags = K.classify_matrices_device(batch, rounds=rounds, **sw.kw)
+        out = K.classify_matrices_device(batch, rounds=rounds,
+                                         with_stats=with_stats, **sw.kw)
         t_pad = batch["T"]
     else:
-        flags = K.check_batch_device(batch, rounds=rounds, **sw.kw)
+        out = K.check_batch_device(batch, rounds=rounds,
+                                   with_stats=with_stats, **sw.kw)
         t_pad = batch["shape"].n_txns
+    flags, stats = out if with_stats else (out, None)
     part = _Dispatch(flags, rounds, _done_event(sw.device), t_pad,
-                     item.t0, item.host)
+                     item.t0, item.host, stats)
     item.host = None
     return part
 
 
-def _resolve(sw: _Sweep, part: _Dispatch) -> list[int]:
+def _resolve(sw: _Sweep, idx: list, part: _Dispatch,
+             window: str = "bucket", **args) -> list:
     """Wait for one dispatch (bounded by the watchdog) and read its flag
-    words. The bucket log gets the bucket's history count, padded T, the
+    words (with a stats matrix, (word, `kernels.stats_row` dict) pairs),
+    recording its device window (`window`, from enqueue to the host
+    seeing it complete; `args` default to the bucket's history count).
+    The bucket log gets the bucket's history count, padded T, the
     rounds each closure ran (`kernels.read_rounds`), the closure_square
     launches it enqueued (every round of every closure, skipped ones
     included) and the seconds since its packing began."""
     _block_flags(part.done)
+    sw.tr.device_complete(window, part.t_disp,
+                          **(args or {"histories": len(idx)}))
     words = part.flags.tolist()
+    if part.stats is not None:
+        words = [(w, K.stats_row(r, n_txns=_size_of(sw.encs[i]),
+                                 t_pad=part.t_pad))
+                 for w, r, i in zip(words, part.stats.tolist(), idx)]
     if sw.bucket_log is not None:
         sw.bucket_log.append({
             "histories": len(words), "t_pad": part.t_pad,
@@ -352,12 +463,17 @@ def _resolve(sw: _Sweep, part: _Dispatch) -> list[int]:
     return words
 
 
-def _quarantine_bucket(idx: list, stage: str, err) -> list:
+def _quarantine_bucket(sw: _Sweep, idx: list, stage: str, err) -> list:
     """Per-history Quarantined sentinels for a bucket the supervisor
-    abandoned."""
-    # counter: quarantined (+= len(idx)), with a "quarantine" span
-    log.warning("quarantined %d histories (%s): %r", len(idx), stage, err)
+    abandoned, attributed as a "quarantine" span, the `quarantined`
+    counter and a `quarantine` event."""
+    with sw.tr.span("quarantine", stage=stage, histories=len(idx)):
+        sw.tr.counter("quarantined").inc(len(idx))
+        log.warning("quarantined %d histories (%s): %r", len(idx), stage,
+                    err)
     e = repr(err)
+    obs_events.emit("quarantine", stage=stage, histories=len(idx),
+                    cause=e[:300])
     return [sv.Quarantined(stage, e) for _ in idx]
 
 
@@ -375,10 +491,12 @@ def _drop_frames(err: BaseException) -> None:
 def _sync_check(sw: _Sweep, idx: list) -> list[int]:
     """One synchronous bucket check — the OOM-backdown retry path: pack,
     copy, enqueue, wait. Raises on OOM or watchdog timeout; the caller
-    owns the split/quarantine policy."""
+    owns the split/quarantine policy. Stats-free, as the reference's
+    retries are: a re-planned history keeps its verdict and drops its
+    telemetry."""
     item = _h2d_bucket(_prep_bucket(sw, idx), sw.device)
     sv.maybe_inject_oom()
-    return _resolve(sw, _enqueue(sw, item))
+    return _resolve(sw, idx, _enqueue(sw, item))
 
 
 def _oom_backdown(sw: _Sweep, idx: list, budget_cells: int, err) -> list:
@@ -393,10 +511,12 @@ def _oom_backdown(sw: _Sweep, idx: list, budget_cells: int, err) -> list:
     if sw.fail_fast():
         raise err
     _drop_frames(err)
-    # counter: oom_retries
+    sw.tr.counter("oom_retries").inc()
     if len(idx) == 1:
-        return _quarantine_bucket(idx, "oom", err)
-    # counter: bucket_splits
+        return _quarantine_bucket(sw, idx, "oom", err)
+    sw.tr.counter("bucket_splits").inc()
+    obs_events.emit("oom_split", histories=len(idx),
+                    budget_cells=budget_cells)
     mid = (len(idx) + 1) // 2
     half_budget = max(1, budget_cells // 2)
     out: list = []
@@ -405,7 +525,7 @@ def _oom_backdown(sw: _Sweep, idx: list, budget_cells: int, err) -> list:
             out.extend(_sync_check(sw, half))
         except BaseException as e:
             if isinstance(e, sv.WatchdogTimeout) and not sw.fail_fast():
-                out.extend(_quarantine_bucket(half, "watchdog", e))
+                out.extend(_quarantine_bucket(sw, half, "watchdog", e))
             elif sv.is_oom_error(e) and not sw.fail_fast():
                 out.extend(_oom_backdown(sw, half, half_budget, e))
             else:
@@ -417,12 +537,14 @@ def _finish_part(sw: _Sweep, idx: list, part: _Dispatch,
                  budget_cells: int) -> list:
     """Resolve one dispatched bucket to per-history flag words,
     recovering from an OOM (backdown) and a watchdog timeout
-    (quarantine) unless strict."""
+    (quarantine) unless strict. The device window is recorded on the
+    success path only: a recovered bucket's device time is the
+    backdown's own windows."""
     try:
-        return _resolve(sw, part)
+        return _resolve(sw, idx, part)
     except BaseException as e:
         if isinstance(e, sv.WatchdogTimeout) and not sw.fail_fast():
-            return _quarantine_bucket(idx, "watchdog", e)
+            return _quarantine_bucket(sw, idx, "watchdog", e)
         if sv.is_oom_error(e) and not sw.fail_fast():
             return _oom_backdown(sw, idx, budget_cells, e)
         raise
@@ -436,7 +558,9 @@ def check_bucketed_async(encs: Sequence, device: torch.device, *,
                          max_inflight: int = 2,
                          square: K.Square | None = None,
                          bucket_log: list | None = None,
-                         supervise: bool = True) -> PendingVerdicts:
+                         supervise: bool = True,
+                         phases: dict | None = None,
+                         with_stats: bool = False) -> PendingVerdicts:
     """Dispatch a bucketed sweep WITHOUT waiting on the device: every
     bucket is packed, copied and enqueued, and the returned
     PendingVerdicts resolves the flags later. `encs` are encoded
@@ -467,7 +591,13 @@ def check_bucketed_async(encs: Sequence, device: torch.device, *,
     the long-run quarantine).
 
     `fused` defaults to the JEPSEN_TPU_FUSED_CLASSIFY gate; `square` and
-    `bucket_log` as in `check_bucketed`."""
+    `bucket_log` as in `check_bucketed`. `phases` (a dict) accumulates
+    the host seconds of each phase: "pack", "h2d", "feed" (the calling
+    thread waiting on the pack-h2d thread), "dispatch" (enqueue) and
+    "collect" (waits and reads). With `with_stats` every bucket's check
+    also computes its stats matrix, and `.stats()` of the result holds
+    the per-history dicts."""
+    t_plan = time.perf_counter()
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         # the pack-h2d thread names its device explicitly
@@ -478,7 +608,8 @@ def check_bucketed_async(encs: Sequence, device: torch.device, *,
     sw = _Sweep(encs, device, dict(
         classify=classify, realtime=realtime, process_order=process_order,
         fused=K.fused_classify_enabled() if fused is None else fused,
-        square=square), bucket_log, supervise)
+        square=square), bucket_log, supervise, with_stats, phases)
+    tr = sw.tr
     copies = torch.cuda.Stream(device) if device.type == "cuda" else None
     eff_budget = max(1, budget_cells // depth)
     buckets = bucket_by_length(encs, budget_cells=eff_budget)
@@ -487,26 +618,34 @@ def check_bucketed_async(encs: Sequence, device: torch.device, *,
     # strictly alone after the pipelined buckets drain.
     oversized = [b for b in buckets if _est_cells(encs, b) > eff_budget]
     buckets = [b for b in buckets if _est_cells(encs, b) <= eff_budget]
+    _acc_phase(sw, "pack", t_plan)
 
     def finish(idx, part):
-        # counter: buckets_resolved
-        return _finish_part(sw, idx, part, eff_budget)
+        out = _finish_part(sw, idx, part, eff_budget)
+        # exactly the buckets `buckets_dispatched` counted resolve here
+        tr.counter("buckets_resolved").inc()
+        return out
 
     def resolve_oldest():
         j = inflight.pop(0)
+        t0 = time.perf_counter()
         idx, part = parts[j]
         parts[j] = [idx, finish(idx, part)]
+        tr.gauge("inflight_depth").set(len(inflight))
+        _acc_phase(sw, "collect", t0)
 
     def dispatch(item: _Staged) -> bool:
         """Enqueue one copied bucket; returns False when the bucket was
         instead resolved synchronously (an OOM at enqueue went down the
         backdown path — nothing joined the pipeline)."""
+        t0 = time.perf_counter()
         try:
             sv.maybe_inject_oom()
-            part = _enqueue(sw, item)
+            part = _enqueue(sw, item, with_stats)
         except BaseException as e:
             if not sv.is_oom_error(e) or sw.fail_fast():
                 raise
+            _acc_phase(sw, "dispatch", t0)
             # the failed bucket's tensors go before the halves allocate
             item.batch = item.host = None
             parts.append([item.bucket, _oom_backdown(
@@ -514,7 +653,9 @@ def check_bucketed_async(encs: Sequence, device: torch.device, *,
             return False
         parts.append([item.bucket, part])
         inflight.append(len(parts) - 1)
-        # counter: buckets_dispatched
+        tr.counter("buckets_dispatched").inc()
+        tr.gauge("inflight_depth").set(len(inflight))
+        _acc_phase(sw, "dispatch", t0)
         return True
 
     def handle_failed(bucket, e):
@@ -527,7 +668,8 @@ def check_bucketed_async(encs: Sequence, device: torch.device, *,
             parts.append([bucket, _oom_backdown(sw, bucket, eff_budget,
                                                 e)])
         else:
-            parts.append([bucket, _quarantine_bucket(bucket, "pack", e)])
+            parts.append([bucket, _quarantine_bucket(sw, bucket, "pack",
+                                                     e)])
 
     failed = object()
 
@@ -567,7 +709,11 @@ def check_bucketed_async(encs: Sequence, device: torch.device, *,
         th.start()
         try:
             while True:
+                # the calling thread's stall on the producer is its own
+                # phase ("feed"), pack and h2d accruing on that thread
+                t0 = time.perf_counter()
                 item = out.get()
+                _acc_phase(sw, "feed", t0)
                 if item is done:
                     break
                 if isinstance(item, BaseException):
@@ -607,7 +753,7 @@ def check_bucketed_async(encs: Sequence, device: torch.device, *,
             handle_failed(bucket, e)
             continue
         dispatch(item)
-    return PendingVerdicts(len(encs), parts, finish)
+    return PendingVerdicts(len(encs), parts, finish, sw)
 
 
 def check_bucketed(encs: Sequence, device: torch.device, *,
@@ -617,7 +763,9 @@ def check_bucketed(encs: Sequence, device: torch.device, *,
                    two_pass: bool | None = None,
                    fused: bool | None = None,
                    square: K.Square | None = None,
-                   bucket_log: list | None = None) -> list:
+                   bucket_log: list | None = None,
+                   phases: dict | None = None,
+                   stats_out: list | None = None) -> list:
     """Check many encoded histories bucketed by length on `device`
     (`check_bucketed_async(...).result()`), results in input order as
     {anomaly-name: True} dicts, or `supervisor.Quarantined` for a
@@ -634,7 +782,14 @@ def check_bucketed(encs: Sequence, device: torch.device, *,
     `bucket_log`, when given, gets one dict per bucket checked (its
     history count, padded T, the rounds each closure ran, the launches it
     enqueued and the seconds from its packing to its flags on the host;
-    see `_resolve`), in the order the buckets resolve."""
+    see `_resolve`), in the order the buckets resolve. `phases` as in
+    `check_bucketed_async`.
+
+    `stats_out`, when given, is extended with one `kernels.stats_row`
+    dict per history (None for a quarantined or backdown-recovered
+    one). On the two-pass strategy the stats come from the detect pass
+    (the from-scratch full closure); the classify re-check runs
+    stats-free."""
     if not len(encs):
         return []
     if fused is None:
@@ -646,7 +801,8 @@ def check_bucketed(encs: Sequence, device: torch.device, *,
                                 realtime=realtime,
                                 process_order=process_order,
                                 budget_cells=budget_cells, square=square,
-                                bucket_log=bucket_log)
+                                bucket_log=bucket_log, phases=phases,
+                                stats_out=stats_out)
         flagged = [i for i, f in enumerate(detect)
                    if f and not isinstance(f, sv.Quarantined)]
         if not flagged:
@@ -656,12 +812,17 @@ def check_bucketed(encs: Sequence, device: torch.device, *,
                               process_order=process_order,
                               budget_cells=budget_cells, two_pass=False,
                               fused=False, square=square,
-                              bucket_log=bucket_log)
+                              bucket_log=bucket_log, phases=phases)
         out = list(detect)
         for i, r in zip(flagged, full):
             out[i] = r
         return out
-    return check_bucketed_async(
+    pv = check_bucketed_async(
         encs, device, classify=classify, realtime=realtime,
         process_order=process_order, budget_cells=budget_cells,
-        fused=fused, square=square, bucket_log=bucket_log).result()
+        fused=fused, square=square, bucket_log=bucket_log, phases=phases,
+        with_stats=stats_out is not None)
+    res = pv.result()
+    if stats_out is not None:
+        stats_out.extend(pv.stats())
+    return res

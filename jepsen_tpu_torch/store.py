@@ -14,6 +14,11 @@ Layout (the reference's `store/<test-name>/<start-time>/`):
         latest          link to the newest run of this test name
     store/latest, store/current  links to the newest run
     store/verdicts.jsonl  one line per verdict, appended as it lands
+    store/trace.json, metrics.json  the sweep's timeline and metrics
+    store/events.jsonl  the sweep's lifecycle events, flushed as they land
+    store/report.json, report.md  the attribution report (--report)
+    store/analytics.jsonl  per-history search stats
+                        (JEPSEN_TPU_KERNEL_STATS)
 """
 
 from __future__ import annotations
@@ -248,8 +253,11 @@ class VerdictJournal:
                 if self._f.tell() > 0:
                     with open(self.path, "rb") as rf:
                         rf.seek(-1, os.SEEK_END)
-                        if rf.read(1) != b"\n":
-                            self._f.write("\n")
+                        torn = rf.read(1) != b"\n"
+                    if torn:
+                        self._f.write("\n")
+                        from .obs import events
+                        events.emit("journal_seal", path=str(self.path))
             self._f.write(json.dumps(entry) + "\n")
             self._f.flush()
             return True
@@ -289,6 +297,73 @@ class VerdictJournal:
             if isinstance(e, dict) and "dir" in e and "checker" in e:
                 out[(str(e["dir"]), str(e["checker"]))] = e
         return out
+
+
+#: The analytics ledger's file name (`JEPSEN_TPU_KERNEL_STATS`).
+ANALYTICS_NAME = "analytics.jsonl"
+
+
+def analytics_path(store_base, shard: int | None = None) -> Path:
+    """The analytics ledger of a store (`analytics-shard<k>.jsonl` for a
+    shard of a multi-host sweep, as the reference names it)."""
+    if shard is None:
+        return Path(store_base) / ANALYTICS_NAME
+    return Path(store_base) / f"analytics-shard{shard}.jsonl"
+
+
+def append_analytics(path, records: list[dict]) -> int:
+    """Append stats records as JSON lines, each flushed as written; a
+    crash-torn tail from a previous writer is sealed first (the
+    journal's rule). Best-effort: a read-only store returns 0, never
+    raises."""
+    p = Path(path)
+    n = 0
+    try:
+        p.parent.mkdir(parents=True, exist_ok=True)
+        with open(p, "a") as f:
+            if f.tell() > 0:
+                with open(p, "rb") as rf:
+                    rf.seek(-1, os.SEEK_END)
+                    if rf.read(1) != b"\n":
+                        f.write("\n")
+            for rec in records:
+                try:
+                    line = json.dumps(rec)
+                except (TypeError, ValueError):
+                    continue
+                f.write(line + "\n")
+                f.flush()
+                n += 1
+    except OSError:
+        log.debug("analytics append failed for %s", p, exc_info=True)
+    return n
+
+
+def load_analytics(path) -> list[dict]:
+    """Records from an existing analytics ledger (a file, or a store
+    directory), in file order; unparseable lines (the crash-torn tail)
+    are skipped, as `VerdictJournal.load` skips them."""
+    out: list[dict] = []
+    p = Path(path)
+    if p.is_dir():
+        p = p / ANALYTICS_NAME
+    if not p.is_file():
+        return out
+    try:
+        lines = p.read_text().splitlines()
+    except OSError:
+        return out
+    for ln in lines:
+        ln = ln.strip()
+        if not ln:
+            continue
+        try:
+            rec = json.loads(ln)
+        except json.JSONDecodeError:
+            continue
+        if isinstance(rec, dict) and "checker" in rec:
+            out.append(rec)
+    return out
 
 
 def _results_to_edn(v: Any) -> Any:

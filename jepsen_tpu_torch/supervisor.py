@@ -223,15 +223,21 @@ def reset_injection() -> None:
 def maybe_inject_encode_fault(run_dir) -> None:
     """The encode-side nemesis hook, at the top of
     `ingest.encode_run_dir`: raises InjectedFault for a selected run
-    dir (kill mode too: the port has no pool worker to kill)."""
+    dir (kill mode too: the port has no pool worker to kill). Each
+    injection leaves a `fault_inject` mark on the sweep tracer."""
     inj = _get_injector()
     if inj is None:
         return
     name = os.path.basename(str(run_dir).rstrip("/"))
     if inj.selects("kill", name):
+        from . import trace
+        trace.get_current().instant("fault_inject", kind="kill", run=name)
         raise InjectedFault(f"injected worker kill for {name!r} "
                             "(parent process: degraded to encode fault)")
     if inj.selects("encode", name):
+        from . import trace
+        trace.get_current().instant("fault_inject", kind="encode",
+                                    run=name)
         raise InjectedFault(f"injected encode fault for {name!r}")
 
 

@@ -200,7 +200,7 @@ def main() -> int:
 
         def run():
             rc = fn(regs.data_ptr(), comp.data_ptr(), valid.data_ptr(),
-                    rounds.data_ptr(), B, C, S, V,
+                    rounds.data_ptr(), None, B, C, S, V,
                     0 if plan.tier == "warp" else 1, plan.threads, 0,
                     torch.cuda.current_stream().cuda_stream)
             if rc:

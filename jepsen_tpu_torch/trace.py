@@ -1,0 +1,618 @@
+"""Sweep-wide tracing and metrics, stdlib only.
+
+Counterpart of `jepsen_tpu/trace.py` (the tracer, the metrics registry,
+the Chrome export and the interval helpers the attribution report
+walks):
+
+  * `span("pack", bucket=i)`: nestable wall-clock spans recorded into a
+    thread-safe per-sweep `Tracer`, one Chrome-trace track per thread
+    (the pack-h2d thread records on its own);
+  * a metrics registry: counters (`buckets_dispatched`, `h2d_bytes`,
+    `pad_waste_cells`, ...), gauges (`inflight_depth`, `runs_total`)
+    and histograms (per-phase durations land in `phase.<name>`);
+  * device windows on a synthetic "device" track (`device_complete`):
+    each bucket's dispatch → its CUDA event seen complete, spilling to
+    "device-2", ... while windows overlap;
+  * Chrome trace-event JSON export (`trace.json`, loadable in Perfetto)
+    and a `metrics.json` summary, both written atomically;
+  * `profile_session`: a `torch.profiler` capture of a region behind
+    `JEPSEN_TPU_JAX_PROFILE=1`, the counterpart of the reference's
+    `jax_profile_session`.
+
+`JEPSEN_TPU_TRACE=0` swaps in the `NullTracer`: no file is written and
+a disabled span costs one call. The reference's worker-spool fabric
+(per-process spools of pooled ingest) comes with the pool, so
+`merge_traces` here folds the sweep's own events only.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import math
+import os
+import threading
+import time
+from pathlib import Path
+
+from . import gates
+
+log = logging.getLogger(__name__)
+
+#: Synthetic tid for the device track (real thread idents are pthread
+#: addresses, nowhere near this; named tracks count down from here).
+DEVICE_TID = 2 ** 31 - 1
+
+_MLOCK = threading.Lock()   # shared metric read-modify-write lock
+
+
+def atomic_write_text(path, text: str) -> Path:
+    """Temp-file + `os.replace` persistence for trace.json/metrics.json:
+    a crash mid-flush leaves the previous complete file (or none),
+    never a truncated JSON."""
+    p = Path(path)
+    p.parent.mkdir(parents=True, exist_ok=True)
+    tmp = p.with_name(f".{p.name}.{os.getpid()}.tmp")
+    try:
+        tmp.write_text(text)
+        os.replace(tmp, p)
+    except BaseException:
+        try:
+            tmp.unlink(missing_ok=True)
+        except OSError:
+            pass
+        raise
+    return p
+
+
+def enabled() -> bool:
+    """The JEPSEN_TPU_TRACE gate (default on)."""
+    return gates.get("JEPSEN_TPU_TRACE")
+
+
+# ---------------------------------------------------------------------------
+# Metrics
+# ---------------------------------------------------------------------------
+
+class Counter:
+    __slots__ = ("value",)
+
+    def __init__(self):
+        self.value = 0
+
+    def inc(self, n: int = 1) -> None:
+        with _MLOCK:
+            self.value += n
+
+
+class Gauge:
+    __slots__ = ("value",)
+
+    def __init__(self):
+        self.value = None
+
+    def set(self, v) -> None:
+        self.value = v
+
+
+class Histogram:
+    """Summary-stat histogram: count/sum/min/max plus powers-of-two
+    magnitude buckets."""
+
+    __slots__ = ("count", "total", "min", "max", "buckets")
+
+    def __init__(self):
+        self.count = 0
+        self.total = 0.0
+        self.min = None
+        self.max = None
+        self.buckets: dict[int, int] = {}   # floor(log2(v)) -> count
+
+    def observe(self, v: float) -> None:
+        with _MLOCK:
+            self.count += 1
+            self.total += v
+            self.min = v if self.min is None else min(self.min, v)
+            self.max = v if self.max is None else max(self.max, v)
+            b = math.floor(math.log2(v)) if v > 0 else 0
+            self.buckets[b] = self.buckets.get(b, 0) + 1
+
+    def summary(self) -> dict:
+        return {"count": self.count, "sum": self.total,
+                "min": self.min, "max": self.max,
+                "mean": (self.total / self.count) if self.count else None,
+                "log2_buckets": {str(k): v for k, v in
+                                 sorted(self.buckets.items())}}
+
+
+class _NullMetric:
+    """Counter/gauge/histogram stand-in on the disabled path."""
+
+    __slots__ = ()
+
+    def inc(self, n: int = 1) -> None:
+        pass
+
+    def set(self, v) -> None:
+        pass
+
+    def observe(self, v) -> None:
+        pass
+
+
+_NULL_METRIC = _NullMetric()
+
+
+# ---------------------------------------------------------------------------
+# Span context managers
+# ---------------------------------------------------------------------------
+
+class _SpanCM:
+    __slots__ = ("_tracer", "_name", "_cat", "_args", "_t0")
+
+    def __init__(self, tracer: "Tracer", name: str, cat: str, args):
+        self._tracer = tracer
+        self._name = name
+        self._cat = cat
+        self._args = args
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self._tracer._complete(self._name, self._t0, time.perf_counter(),
+                               self._cat, self._args)
+        return False
+
+
+class _NullCM:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL_CM = _NullCM()
+
+
+# ---------------------------------------------------------------------------
+# Tracers
+# ---------------------------------------------------------------------------
+
+class NullTracer:
+    """The JEPSEN_TPU_TRACE=0 tracer: every operation is a no-op, except
+    `phase`, which still returns the measured duration."""
+
+    enabled = False
+    run = None
+    scope = "run"
+    pid = None
+
+    def span(self, name: str, **args):
+        return _NULL_CM
+
+    def phase(self, key: str, t0: float) -> float:
+        return time.perf_counter() - t0
+
+    def device_complete(self, name, t0, t1=None, **args):
+        pass
+
+    def add_span(self, name, t0, t1, track=None, clock="perf", **args):
+        pass
+
+    def instant(self, name, track=None, **args):
+        pass
+
+    def counter(self, name: str):
+        return _NULL_METRIC
+
+    def gauge(self, name: str):
+        return _NULL_METRIC
+
+    def histogram(self, name: str):
+        return _NULL_METRIC
+
+    def phase_totals(self) -> dict:
+        return {}
+
+    def export(self, path) -> None:
+        return None
+
+    def export_metrics(self, path) -> None:
+        return None
+
+
+class Tracer:
+    """A per-sweep trace + metrics recorder. Thread-safe: spans from any
+    thread land on that thread's own track (an event append is one
+    GIL-atomic list.append; metric updates take the shared lock)."""
+
+    enabled = True
+
+    def __init__(self, run: str | None = None,
+                 max_events: int | None = None, scope: str = "run"):
+        self.run = run
+        # "sweep": the tracer spans many runs (analyze-store), and only
+        # its owner exports it, once, at the end
+        self.scope = scope
+        # the RECORDING process's pid: the export stamps events with it
+        self.pid = os.getpid()
+        # bounded event buffer: overflow is counted (dropped_events in
+        # metrics.json), never silent; phase totals and metrics keep
+        # accumulating past the cap
+        if max_events is None:
+            max_events = gates.get("JEPSEN_TPU_TRACE_MAX_EVENTS")
+        self._max_events = max_events
+        self._dropped = 0
+        self._origin = time.perf_counter()
+        # CLOCK_MONOTONIC -> perf_counter offset, for external spans
+        # measured with time.monotonic
+        self._mono_off = time.perf_counter() - time.monotonic()
+        self._events: list[dict] = []
+        self._threads: dict[int, str] = {}
+        self._tracks: dict[str, int] = {"device": DEVICE_TID}
+        # per named-track lane ends (µs): concurrently-open windows (two
+        # buckets in flight) spill to "name-2", "name-3"…, so no tid
+        # carries partially overlapping X events
+        self._lanes: dict[str, list[float]] = {}
+        self._counters: dict[str, Counter] = {}
+        self._gauges: dict[str, Gauge] = {}
+        self._hists: dict[str, Histogram] = {}
+        self._phase_totals: dict[str, float] = {}
+
+    # -- recording --------------------------------------------------------
+
+    def span(self, name: str, *, cat: str = "span", **args):
+        """A nestable wall-clock span: `with tracer.span("pack",
+        bucket=i): ...` records one complete ("X") event on the calling
+        thread's track."""
+        return _SpanCM(self, name, cat, args or None)
+
+    def _room(self) -> bool:
+        if len(self._events) >= self._max_events:
+            self._dropped += 1
+            return False
+        return True
+
+    def _complete(self, name: str, t0: float, t1: float, cat: str,
+                  args) -> None:
+        if not self._room():
+            return
+        tid = threading.get_ident()
+        if tid not in self._threads:
+            self._threads[tid] = threading.current_thread().name
+        self._events.append({
+            "name": name, "cat": cat, "ph": "X", "tid": tid,
+            "ts": (t0 - self._origin) * 1e6,
+            "dur": max(0.0, (t1 - t0) * 1e6),
+            **({"args": args} if args else {})})
+
+    def phase(self, key: str, t0: float) -> float:
+        """Record a completed phase span started at perf_counter() time
+        `t0`, accumulate its per-phase total + histogram, and return
+        the duration."""
+        t1 = time.perf_counter()
+        dt = t1 - t0
+        self._complete(key, t0, t1, "phase", None)
+        with _MLOCK:
+            self._phase_totals[key] = self._phase_totals.get(key, 0.0) + dt
+        self.histogram(f"phase.{key}").observe(dt)
+        return dt
+
+    def device_complete(self, name: str, t0: float,
+                        t1: float | None = None, **args) -> None:
+        """A device-track event: one dispatch's window from its enqueue
+        to the host seeing it complete (t0/t1 in perf_counter time; t1
+        defaults to now)."""
+        if t0 is None:
+            return
+        t1 = time.perf_counter() if t1 is None else t1
+        if self._room():
+            ts = (t0 - self._origin) * 1e6
+            dur = max(0.0, (t1 - t0) * 1e6)
+            self._events.append({
+                "name": name, "cat": "device", "ph": "X",
+                "tid": self._laned_tid("device", ts, ts + dur),
+                "ts": ts, "dur": dur,
+                **({"args": args} if args else {})})
+        self.histogram(f"device.{name}").observe(t1 - t0)
+
+    def add_span(self, name: str, t0: float, t1: float,
+                 track: str | None = None, clock: str = "perf",
+                 **args) -> None:
+        """Record an externally measured span (`clock="monotonic"`
+        converts time.monotonic stamps)."""
+        if clock == "monotonic":
+            t0 += self._mono_off
+            t1 += self._mono_off
+        if track is None:
+            self._complete(name, t0, t1, "span", args or None)
+            return
+        if not self._room():
+            return
+        ts = (t0 - self._origin) * 1e6
+        dur = max(0.0, (t1 - t0) * 1e6)
+        self._events.append({
+            "name": name, "cat": "span", "ph": "X",
+            "tid": self._laned_tid(track, ts, ts + dur),
+            "ts": ts, "dur": dur,
+            **({"args": args} if args else {})})
+
+    def instant(self, name: str, track: str | None = None,
+                **args) -> None:
+        """A zero-duration mark ("i" event): fault-path punctuation
+        (watchdog fired, fault injected). Lands on the calling thread's
+        track, or a named track when given."""
+        if not self._room():
+            return
+        tid = threading.get_ident()
+        if track is not None:
+            tid = self._track_tid(track)
+        elif tid not in self._threads:
+            self._threads[tid] = threading.current_thread().name
+        self._events.append({
+            "name": name, "cat": "instant", "ph": "i", "s": "t",
+            "tid": tid,
+            "ts": (time.perf_counter() - self._origin) * 1e6,
+            **({"args": args} if args else {})})
+
+    def _track_tid(self, name: str) -> int:
+        with _MLOCK:
+            tid = self._tracks.get(name)
+            if tid is None:
+                tid = DEVICE_TID - len(self._tracks)
+                self._tracks[name] = tid
+            return tid
+
+    def _laned_tid(self, base: str, ts_us: float, end_us: float) -> int:
+        """The tid for a window on named track `base`, spilling
+        overlapping windows to numbered sibling lanes."""
+        with _MLOCK:
+            lanes = self._lanes.setdefault(base, [])
+            for i, lane_end in enumerate(lanes):
+                if lane_end <= ts_us:
+                    lanes[i] = end_us
+                    break
+            else:
+                i = len(lanes)
+                lanes.append(end_us)
+        return self._track_tid(base if i == 0 else f"{base}-{i + 1}")
+
+    # -- metrics ----------------------------------------------------------
+
+    def counter(self, name: str) -> Counter:
+        c = self._counters.get(name)
+        if c is None:
+            with _MLOCK:
+                c = self._counters.setdefault(name, Counter())
+        return c
+
+    def gauge(self, name: str) -> Gauge:
+        g = self._gauges.get(name)
+        if g is None:
+            with _MLOCK:
+                g = self._gauges.setdefault(name, Gauge())
+        return g
+
+    def histogram(self, name: str) -> Histogram:
+        h = self._hists.get(name)
+        if h is None:
+            with _MLOCK:
+                h = self._hists.setdefault(name, Histogram())
+        return h
+
+    def phase_totals(self) -> dict[str, float]:
+        """Accumulated seconds per phase key."""
+        with _MLOCK:
+            return dict(self._phase_totals)
+
+    # -- export -----------------------------------------------------------
+
+    def chrome_events(self) -> list[dict]:
+        """The Chrome trace-event list: one metadata-named track per
+        recording thread plus the synthetic device/named tracks; the
+        timed events follow, sorted by ts. Events carry the recording
+        process's pid."""
+        pid = self.pid
+        ev: list[dict] = [{
+            "name": "process_name", "ph": "M", "pid": pid, "tid": 0,
+            "args": {"name": self.run or "jepsen-tpu"}}]
+        for tid, tname in sorted(self._threads.items()):
+            ev.append({"name": "thread_name", "ph": "M", "pid": pid,
+                       "tid": tid, "args": {"name": tname}})
+        for tname, tid in sorted(self._tracks.items()):
+            ev.append({"name": "thread_name", "ph": "M", "pid": pid,
+                       "tid": tid, "args": {"name": tname}})
+        ev.extend({**e, "pid": e.get("pid", pid)}
+                  for e in sorted(list(self._events),
+                                  key=lambda e: e["ts"]))
+        return ev
+
+    def export(self, path) -> Path:
+        """Write Chrome trace-event JSON to `path`; returns the path."""
+        return atomic_write_text(
+            path, json.dumps({"traceEvents": self.chrome_events(),
+                              "displayTimeUnit": "ms"}))
+
+    def metrics_dict(self) -> dict:
+        with _MLOCK:
+            return {
+                "counters": {k: c.value for k, c in
+                             sorted(self._counters.items())},
+                "gauges": {k: g.value for k, g in
+                           sorted(self._gauges.items())},
+                "histograms": {k: h.summary() for k, h in
+                               sorted(self._hists.items())},
+                "phase_totals_secs": {k: round(v, 6) for k, v in
+                                      sorted(self._phase_totals.items())},
+                "dropped_events": self._dropped,
+            }
+
+    def export_metrics(self, path) -> Path:
+        return atomic_write_text(
+            path, json.dumps(self.metrics_dict(), indent=2))
+
+
+# ---------------------------------------------------------------------------
+# The current tracer
+# ---------------------------------------------------------------------------
+
+_NULL = NullTracer()
+_current: Tracer | NullTracer | None = None
+
+
+def get_current() -> Tracer | NullTracer:
+    """The process's current tracer, lazily built from the env gate."""
+    t = _current
+    if t is None:
+        return _init()
+    return t
+
+
+def _init() -> Tracer | NullTracer:
+    global _current
+    _current = Tracer() if enabled() else _NULL
+    return _current
+
+
+def set_current(t: Tracer | NullTracer | None):
+    """Install `t` as the current tracer (None = re-init lazily)."""
+    global _current
+    _current = t
+    return _current
+
+
+def reset() -> None:
+    """Drop the current tracer; the next use re-reads the env gate."""
+    set_current(None)
+
+
+def fresh_run(run: str | None = None,
+              scope: str = "run") -> Tracer | NullTracer:
+    """Install a FRESH tracer (honoring the env gate), so a sweep's
+    trace.json covers exactly that sweep."""
+    return set_current(Tracer(run=run, scope=scope)
+                       if enabled() else _NULL)
+
+
+def span(name: str, **args):
+    """`with trace.span("pack", bucket=i): ...` on the current tracer;
+    the disabled path returns the shared no-op context manager."""
+    t = _current
+    if t is None:
+        t = _init()
+    if not t.enabled:
+        return _NULL_CM
+    return t.span(name, **args)
+
+
+def counter(name: str):
+    return get_current().counter(name)
+
+
+def gauge(name: str):
+    return get_current().gauge(name)
+
+
+def histogram(name: str):
+    return get_current().histogram(name)
+
+
+# ---------------------------------------------------------------------------
+# Interval arithmetic, shared with the attribution report
+# ---------------------------------------------------------------------------
+
+def merge_intervals(spans):
+    """Sorted union of (start, end) pairs."""
+    out: list = []
+    for s, e in sorted(spans):
+        if out and s <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], e))
+        else:
+            out.append((s, e))
+    return out
+
+
+def overlap_seconds(spans_a, spans_b) -> float:
+    """Total seconds where some span in `a` intersects some span in
+    `b` (both lists of (start, end) pairs); each side is merged first
+    so double-counting can't inflate the number."""
+    if not spans_a or not spans_b:
+        return 0.0
+    total, bi = 0.0, 0
+    b = merge_intervals(spans_b)
+    for s, e in merge_intervals(spans_a):
+        while bi < len(b) and b[bi][1] <= s:
+            bi += 1
+        j = bi
+        while j < len(b) and b[j][0] < e:
+            total += max(0.0, min(e, b[j][1]) - max(s, b[j][0]))
+            j += 1
+    return total
+
+
+def merge_traces(tracer) -> list[dict]:
+    """The sweep's Chrome trace-event list: the tracer's own events (the
+    port has no per-process worker spools to fold in; [] for the null
+    tracer)."""
+    if not getattr(tracer, "enabled", False):
+        return []
+    return tracer.chrome_events()
+
+
+# ---------------------------------------------------------------------------
+# Optional torch.profiler capture (JEPSEN_TPU_JAX_PROFILE=1)
+# ---------------------------------------------------------------------------
+
+def profile_enabled() -> bool:
+    """The JEPSEN_TPU_JAX_PROFILE gate (default off): the same gate the
+    reference's profiler session reads."""
+    return gates.get("JEPSEN_TPU_JAX_PROFILE")
+
+
+class profile_session:
+    """Wrap a region in a `torch.profiler` capture (CPU and, where there
+    is a card, CUDA activities) when JEPSEN_TPU_JAX_PROFILE=1, exporting
+    a Chrome trace to `<out_dir>/trace.json`; otherwise a no-op that
+    never imports the profiler. A profiler that fails to start or stop
+    degrades to a warning: observability never sinks the run."""
+
+    def __init__(self, out_dir):
+        self.out_dir = Path(out_dir)
+        self.path: Path | None = None
+        self._prof = None
+
+    def __enter__(self):
+        if profile_enabled():
+            try:
+                import torch
+                from torch.profiler import ProfilerActivity, profile
+                acts = [ProfilerActivity.CPU]
+                if torch.cuda.is_available():
+                    acts.append(ProfilerActivity.CUDA)
+                self.out_dir.mkdir(parents=True, exist_ok=True)
+                self._prof = profile(activities=acts)
+                self._prof.__enter__()
+                log.info("torch.profiler capture -> %s", self.out_dir)
+            except Exception:
+                self._prof = None
+                log.warning("torch.profiler capture failed to start",
+                            exc_info=True)
+        return self
+
+    def __exit__(self, *exc):
+        if self._prof is not None:
+            try:
+                self._prof.__exit__(None, None, None)
+                p = self.out_dir / "trace.json"
+                self._prof.export_chrome_trace(str(p))
+                self.path = p
+            except Exception:
+                log.warning("torch.profiler capture failed to stop",
+                            exc_info=True)
+            self._prof = None
+        return False
