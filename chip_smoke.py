@@ -123,10 +123,26 @@ failure:
               JEPSEN_TPU_JAX_PROFILE=1 sweep of a small append store:
               its torch.profiler Chrome trace holds CUDA kernel events
               named closure_square.
+ 12. native ingest  phase 4's store (64 x T=5000) and phase 5's wr store
+              (32 x T=5000) swept again with their sidecars removed
+              (cold: every run through the native encoder, csrc/
+              hist_encode.cc, which writes the encoded sidecar), then
+              warm (every run a cache hit; the append buckets packed
+              from the dispatch-shaped v2 views): verdict files
+              byte-identical to phases 4 and 5, the same closure_square
+              launches, cache_hits / cache_misses in metrics.json equal
+              to the runs, no native fallback; each sweep's wall, parse
+              share and the device's idle share (report.json) and
+              histories/s printed with the card's name and power limit.
+
+Since the sweeps' default is the native encoder with the sidecar cache
+on, phase 4's and 5's first sweeps are cold and write sidecars, and the
+later sweeps of their stores (phase 11's) are warm.
 
 Each path is driven with its kernels' launch counts set to 0 just before
 it and read just after; a path that launched one of them no time fails.
-Phase 11's stats sweeps count as paths of their own (`stats-<path>`).
+Phase 11's stats sweeps count as paths of their own (`stats-<path>`),
+and so do phase 12's (`native-<path>-cold`, `native-<path>-warm`).
 
 The last lines are a `{"kernels": [...]}` record per kernel (with its
 launches and summed device milliseconds per path), the nvidia-smi line,
@@ -1559,13 +1575,34 @@ def phase_closure_stats() -> dict:
     for k in ("off", "stats", "graph", "graph", "stats", "off") * 2:
         samples[k] += cuda_ms(fns[k], 1, burst=2)
     ms = {k: statistics.median(v) for k, v in samples.items()}
+    # bounds from the shapes: each active round a 2·B·T³ int8 squaring;
+    # the counters three word operations a cell a round; the closure
+    # reads its [B,T,T] input once and writes its result once, and
+    # _graph_stats reads the closure once (its outputs are [B] words)
+    # and does ~4 word operations a cell
+    name = torch.cuda.get_device_name(0)
+    ops, bw = peaks(name)
+    wops = word_peak(name)
+    active = int(tel[0].max())
+    cells = MAIN_B * MAIN_T * MAIN_T
+    t_sq = active * 2 * MAIN_B * MAIN_T ** 3 / ops * 1e3
+    t_cnt = steps * 3 * cells / wops * 1e3
+    t_rw = 2 * cells / bw * 1e3
+    bounds = {"off": max(t_sq, t_rw), "stats": max(t_sq + t_cnt, t_rw),
+              "graph": max(4 * cells / wops * 1e3, cells / bw * 1e3)}
+    bound_by = {"off": "operations" if t_sq >= t_rw else "bytes",
+                "stats": "operations" if t_sq + t_cnt >= t_rw else "bytes",
+                "graph": "operations" if 4 * cells / wops >= cells / bw
+                else "bytes"}
     say(f"(a) Elle closure at B={MAIN_B}, T={MAIN_T} ({steps} rounds "
-        f"enqueued, {int(tel[0].max())} active): {ms['off']} ms without "
+        f"enqueued, {active} active): {ms['off']} ms without "
         f"the stats, {ms['stats']} ms with the per-round counters; "
         f"_graph_stats on its closure {ms['graph']} ms (medians of 4 "
-        "samples of bursts of 2, in turns)")
+        "samples of bursts of 2, in turns); bounds "
+        + ", ".join(f"{k} {bounds[k]} ms ({bound_by[k]})" for k in bounds))
     return {"closure_ms": ms["off"], "closure_stats_ms": ms["stats"],
-            "graph_stats_ms": ms["graph"]}
+            "graph_stats_ms": ms["graph"], "bound_ms": bounds,
+            "bound_by": bound_by}
 
 
 def small_store(kind: str, base: Path) -> Path:
@@ -1727,6 +1764,68 @@ def phase_telemetry(launches: dict, dense_record: dict) -> dict:
     return out
 
 
+def phase_native(launches: dict, verdicts: dict) -> dict:
+    """Phase 12: phase 4's and phase 5's stores swept cold (sidecars
+    removed) and then warm. `launches` and `verdicts` hold each path's
+    closure_square launches and verdict files from phases 4 and 5.
+    Returns the paths' (launches, device ms) and the numbers PERF.md
+    reads."""
+    paths: dict = {}
+    out: dict = {}
+    smi = nvidia_smi()
+    for kind, store, n_runs, sidecar in (
+            ("append", WORK / "store", STORE_RUNS, "encoded.v2.bin"),
+            ("wr", WORK / "wr", WR_RUNS, "encoded-wr.v1.bin")):
+        for p in store.rglob("encoded*.bin"):
+            p.unlink()
+        for warmth in ("cold", "warm"):
+            (rc, log, wall, _), n, ms = counted(lambda: sweep(
+                store, kind, device=DEVICE, report=True))
+            check(rc == 1, f"the {warmth} native {kind} sweep exited {rc}")
+            check(run_files(store) == verdicts[kind],
+                  f"the {warmth} native {kind} sweep's verdict files differ "
+                  f"from phase {4 if kind == 'append' else 5}'s")
+            check(n == launches[kind], f"the {warmth} native {kind} sweep "
+                  f"launched closure_square {n} times, phase "
+                  f"{4 if kind == 'append' else 5} {launches[kind]}")
+            c = json.loads((store / "metrics.json").read_text())["counters"]
+            hits, misses = c.get("cache_hits", 0), c.get("cache_misses", 0)
+            check((hits, misses) == ((0, n_runs) if warmth == "cold"
+                                     else (n_runs, 0)),
+                  f"{warmth} {kind}: {hits} cache hits, {misses} misses "
+                  f"of {n_runs} runs")
+            check(not c.get("native_fallback"),
+                  f"{warmth} {kind}: native fallbacks {c}")
+            check(len(list(store.rglob(sidecar))) == n_runs,
+                  f"{warmth} {kind}: not every run has its {sidecar}")
+            if kind == "append" and warmth == "warm":
+                check(not c.get("warm_copy_bytes"), "the warm append "
+                      "sweep repacked cached histories on the host")
+            rep = json.loads((store / "report.json").read_text())
+            st = rep["stalls"]
+            idle = st["device_idle_secs"] / rep["wall_secs"] \
+                if rep["wall_secs"] else None
+            parse = rep["shares"].get("parse")
+            key = f"native-{kind}-{warmth}"
+            paths[key] = (n, ms)
+            out[key] = {"wall": wall, "histories_per_s": n_runs / wall,
+                        "parse_share": parse, "idle_share": idle,
+                        "report_wall": rep["wall_secs"], "launches": n,
+                        "device_ms": ms, "buckets": len(log),
+                        "counters": {k: c.get(k) for k in (
+                            "cache_hits", "cache_misses", "h2d_bytes",
+                            "warm_copy_bytes")}}
+            say(f"{key}: {wall:.3f}s wall, {n_runs / wall:.3f} "
+                f"histories/s; report.json: parse share {parse}, device "
+                f"idle share {idle} (busy {st['device_busy_secs']}s over "
+                f"{st['dispatches']} windows of a {rep['wall_secs']}s "
+                f"timeline), shares {rep['shares']}; {n} closure_square "
+                f"launches ({ms} ms); verdicts byte-identical to phase "
+                f"{4 if kind == 'append' else 5}; counters "
+                f"{out[key]['counters']}; card {smi}")
+    return {"paths": paths, "numbers": out}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1746,8 +1845,8 @@ def main() -> int:
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
+    # the CUDA kernels, the CPU oracle (wgl) and the history encoder
     libs = _build.build_all()
-    libs["wgl"] = _build.build("wgl")      # the CPU oracle, host C++
     say(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f}s")
     for lib in libs:
         print(_build.build_log(lib).strip(), flush=True)
@@ -1757,9 +1856,12 @@ def main() -> int:
     try:
         record = phase_kernels(name)
         paths = {}
+        verdicts = {}
         paths["append"] = phase_main()
+        verdicts["append"] = run_files(WORK / "store")
         phase_cli()
         paths["wr"] = phase_wr()
+        verdicts["wr"] = run_files(WORK / "wr")
         paths["long"] = phase_long()
         dense_record = phase_knossos(name)
         dense_paths = phase_register(name)
@@ -1776,6 +1878,9 @@ def main() -> int:
             (dense_paths if kind == "register" else paths)[
                 f"stats-{kind}"] = (tele[kind]["launches"],
                                     tele[kind]["device_ms"])
+        paths.update(phase_native(
+            {"append": paths["append"][0], "wr": paths["wr"][0]},
+            verdicts)["paths"])
         for rec, ps in ((record, paths), (dense_record, dense_paths)):
             rec["launches"] = sum(n for n, _ in ps.values())
             rec["paths"] = {k: {"launches": n, "device_ms": ms}

@@ -70,10 +70,37 @@ PROTOTYPES = {
         "jt_wgl_run": (None, [_i32p, ctypes.c_int64, ctypes.c_int64,
                               ctypes.c_int64, _i64p]),
     },
+    # the history encoder's whole C surface but the per-key splitter
+    # (jt_ks_*, which no sweep of the port calls yet)
+    "hist_encode": {
+        "jt_ha_abi_version": (ctypes.c_int64, []),
+        # (path) -> handle, NULL: the Python encoder takes the file
+        "jt_ha_encode_file": (ctypes.c_void_p, [ctypes.c_char_p]),
+        "jt_wr_encode_file": (ctypes.c_void_p, [ctypes.c_char_p]),
+        # (handle, out[8]): n, n_keys, max_pos, n_app, n_rd, n_anom,
+        # pre-key names' JSON length, n_edges
+        "jt_ha_dims": (None, [ctypes.c_void_p, _i64p]),
+        **{fn: (_i32p, [ctypes.c_void_p])
+           for fn in ("jt_ha_appends", "jt_ha_reads", "jt_ha_edges",
+                      "jt_ha_status", "jt_ha_process", "jt_ha_kid_to_pre")},
+        **{fn: (_i64p, [ctypes.c_void_p])
+           for fn in ("jt_ha_invoke_index", "jt_ha_complete_index",
+                      "jt_ha_anomalies")},
+        "jt_ha_pre_key_names_json": (ctypes.c_char_p, [ctypes.c_void_p]),
+        "jt_ha_free": (None, [ctypes.c_void_p]),
+        # (handle, history path, sidecar path, layout version 1|2) -> 1|0
+        "jt_ha_write_sidecar": (ctypes.c_int64,
+                                [ctypes.c_void_p, ctypes.c_char_p,
+                                 ctypes.c_char_p, ctypes.c_int64]),
+        # (bytes, length, seed) -> XXH64
+        "jt_xxh64_buf": (ctypes.c_uint64,
+                         [ctypes.c_char_p, ctypes.c_int64, ctypes.c_uint64]),
+    },
 }
 
 #: library -> (its ABI-version function, the version this port speaks)
-ABI_VERSIONS = {"wgl": ("jt_wgl_abi_version", 2)}
+ABI_VERSIONS = {"wgl": ("jt_wgl_abi_version", 2),
+                "hist_encode": ("jt_ha_abi_version", 5)}
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -179,36 +206,41 @@ def build_log(name: str) -> str:
     return log.read_text() if log.is_file() else ""
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for `name`, built first if need be, with its
-    C functions' argument and result types declared and its ABI version
-    checked."""
+def load(name: str, path: str | os.PathLike | None = None) -> ctypes.CDLL:
+    """The loaded library for `name`, built first if need be (or, with
+    `path`, the library already built there), with its C functions'
+    argument and result types declared and its ABI version checked.
+    A library that cannot be loaded, lacks a function or speaks another
+    ABI raises KernelBuildError."""
+    key = name if path is None else f"{name}@{path}"
     with _lock:
-        lib = _loaded.get(name)
+        lib = _loaded.get(key)
         if lib is None:
-            path = build(name)
+            path = build(name) if path is None else Path(path)
             try:
                 lib = ctypes.CDLL(str(path))
-            except OSError as e:
+                for fn, (restype, argtypes) in PROTOTYPES[name].items():
+                    f = getattr(lib, fn)
+                    f.restype = restype
+                    f.argtypes = argtypes
+            except (OSError, AttributeError) as e:
                 raise KernelBuildError(f"cannot load {path}: {e}") from e
-            for fn, (restype, argtypes) in PROTOTYPES[name].items():
-                f = getattr(lib, fn)
-                f.restype = restype
-                f.argtypes = argtypes
             if name in ABI_VERSIONS:
                 fn, want = ABI_VERSIONS[name]
                 got = getattr(lib, fn)()
                 if got != want:
                     raise KernelBuildError(
                         f"{path} speaks ABI {got}, expected {want}")
-            _loaded[name] = lib
+            _loaded[key] = lib
         return lib
 
 
 def build_all() -> dict[str, Path]:
-    """Build every CUDA source `csrc/*.cu`, one nvcc per source, all
-    started together; raises the first KernelBuildError. The host
-    sources build at first use (`load`), or with `build(name)`."""
-    names = [p.stem for p in sorted(SRC_DIR.glob("*.cu"))]
+    """Build every source, CUDA (`csrc/*.cu`) and host C++
+    (`csrc/*.cc`), one compiler per source, all started together;
+    raises the first KernelBuildError. (`load` builds one source at
+    first use.)"""
+    names = [p.stem for p in sorted(SRC_DIR.glob("*.cu"))] \
+        + [p.stem for p in sorted(SRC_DIR.glob("*.cc"))]
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
         return dict(zip(names, pool.map(build, names)))

@@ -68,14 +68,18 @@ class Linearizable(Checker):
     (`knossos.analysis`: native WGL for a fresh mutex, the Python
     engine otherwise).
 
-    `frontier` is the bounded frontier's arena size. `dense_scan`
+    `frontier` is the bounded frontier's arena size (None: the
+    JEPSEN_TPU_FRONTIER gate, default 512). `dense_scan`
     replaces the dense grid's scan (e.g. `dense.scan_dense_ref` in
     place of the `knossos_dense_scan` kernel)."""
 
     def __init__(self, m: model.Model | None = None, device=None,
-                 frontier: int = 512, dense_scan=None):
+                 frontier: int | None = None, dense_scan=None):
         self.model = m if m is not None else model.cas_register()
         self.device = device
+        if frontier is None:
+            from .. import gates
+            frontier = gates.get("JEPSEN_TPU_FRONTIER")
         self.frontier = frontier
         self.dense_scan = dense_scan
 

@@ -38,6 +38,7 @@ same either way.
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from typing import Callable
 
@@ -161,6 +162,86 @@ def pack_batch(encs: list[EncodedHistory],
     return {"appends": appends, "reads": reads, "n_txns": n_txns,
             "invoke_index": invoke_idx, "complete_index": complete_idx,
             "process": process, "shape": shape}
+
+
+def dispatch_shape(enc) -> "BatchShape | None":
+    """The BatchShape a v2 (dispatch-shaped) sidecar pre-padded this
+    encoding to (`store.dispatch_pad_plan`), or None when it carries no
+    dispatch views."""
+    p = getattr(enc, "dispatch_pad", None)
+    if not p or getattr(enc, "dispatch", None) is None:
+        return None
+    try:
+        return BatchShape(n_txns=p["n_txns"], n_appends=p["n_appends"],
+                          n_reads=p["n_reads"], n_keys=p["n_keys"],
+                          max_pos=p["max_pos"])
+    except KeyError:
+        return None
+
+
+#: The fields a views-packed batch carries one view per history of, and
+#: the fill of their padding (pack_batch's convention).
+VIEW_FILLS = {"appends": -1, "reads": -1, "invoke_index": 0,
+              "complete_index": 0, "process": -1}
+
+
+def pack_batch_views(encs: list, shape: BatchShape) -> dict | None:
+    """Copy-free sibling of pack_batch: when EVERY encoding carries
+    dispatch-shaped mmap views (the v2 sidecar's warm path), per-field
+    LISTS of those views instead of freshly-copied stacked arrays —
+    the h2d stage copies each view to the device as it lies in the
+    mapped pages, pads a ragged one there (a history's own pad
+    geometry may be smaller than the bucket's: `pad_to` is monotone,
+    so never larger) and stacks them on the device. None when any
+    encoding carries no views (cold encodings, the v1 cache) or claims
+    a geometry beyond the bucket's: the caller falls back to
+    pack_batch."""
+    for e in encs:
+        ds = dispatch_shape(e)
+        if ds is None or ds.n_txns > shape.n_txns \
+                or ds.n_appends > shape.n_appends \
+                or ds.n_reads > shape.n_reads:
+            return None
+    out: dict = {f: [e.dispatch[f] for e in encs] for f in VIEW_FILLS}
+    out["n_txns"] = np.asarray([e.n for e in encs], np.int32)
+    out["shape"] = shape
+    out["views"] = True
+    return out
+
+
+def views_to_device(packed: dict, device: torch.device) -> dict:
+    """The host->device copy of a views-packed batch: each history's
+    view copied as it lies (int32), padded on the device to the
+    bucket's shape with the pack fill, stacked there and widened to
+    the device dtype — the batch `batch_to_device` would give for the
+    same histories."""
+    shape: BatchShape = packed["shape"]
+    targets = {"appends": (shape.n_appends, 3),
+               "reads": (shape.n_reads, 3),
+               "invoke_index": (shape.n_txns,),
+               "complete_index": (shape.n_txns,),
+               "process": (shape.n_txns,)}
+    out = {}
+    for k, fill in VIEW_FILLS.items():
+        parts = []
+        for v in packed[k]:
+            with warnings.catch_warnings():
+                # a read-only mapping: the tensor is only read, and
+                # stack or the padding copies it
+                warnings.simplefilter("ignore", UserWarning)
+                t = torch.from_numpy(v)
+            t = t.to(device)
+            if tuple(v.shape) != targets[k]:
+                full = torch.full(targets[k], fill, dtype=t.dtype,
+                                  device=device)
+                full[tuple(slice(0, s) for s in v.shape)] = t
+                t = full
+            parts.append(t)
+        out[k] = torch.stack(parts).to(DEVICE_FIELDS[k])
+    out["n_txns"] = torch.as_tensor(packed["n_txns"]).to(
+        device=device, dtype=DEVICE_FIELDS["n_txns"])
+    out["shape"] = shape
+    return out
 
 
 #: Packed-batch fields and the dtype each has on the device.

@@ -2,7 +2,7 @@
 
     python -m jepsen_tpu_torch.cli analyze-store --store DIR \\
         [--checker append|wr|register|stored] [--name NAME] [--resume] \\
-        [--report] [--device cuda|cpu]
+        [--report] [--[no-]trace] [--[no-]jax-profile] [--device cuda|cpu]
 
 Counterpart of `jepsen_tpu/cli.py`'s `analyze-store`: every stored run
 (with `--name`, every run of that test name) is checked, and each
@@ -698,6 +698,34 @@ def _wr_chunk_with_backdown(good, elle_kernels, elle_wr,
     return out
 
 
+def add_trace_opts(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--trace", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="write trace.json (Chrome trace-event / "
+                        "Perfetto) + metrics.json into the store "
+                        "(default on; --no-trace or JEPSEN_TPU_TRACE=0 "
+                        "disables)")
+    p.add_argument("--jax-profile",
+                   action=argparse.BooleanOptionalAction, default=None,
+                   help="additionally capture a torch.profiler session "
+                        "of the sweep (sets JEPSEN_TPU_JAX_PROFILE, the "
+                        "reference's name; lands in "
+                        "<store>/torch-profile; --no-jax-profile "
+                        "overrides an inherited env)")
+
+
+def apply_trace_opts(args: argparse.Namespace) -> None:
+    """Export --trace/--no-trace/--jax-profile to the env gates every
+    layer reads (JEPSEN_TPU_TRACE / JEPSEN_TPU_JAX_PROFILE), so
+    embedded callers and subprocesses see the same choice."""
+    from . import gates
+    if getattr(args, "trace", None) is not None:
+        gates.export("JEPSEN_TPU_TRACE", args.trace)
+        trace.reset()
+    if getattr(args, "jax_profile", None) is not None:
+        gates.export("JEPSEN_TPU_JAX_PROFILE", args.jax_profile)
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="python -m jepsen_tpu_torch.cli")
     sub = p.add_subparsers(dest="command", required=True)
@@ -725,11 +753,13 @@ def main(argv: list[str] | None = None) -> int:
     a.add_argument("--device", default=None, choices=["cuda", "cpu"],
                    help="where the kernels run (default cuda; cpu only "
                         "when asked)")
+    add_trace_opts(a)
     try:
         args = p.parse_args(argv)
     except SystemExit as e:
         return 254 if e.code not in (0, None) else 0
     logging.basicConfig(level=logging.WARNING)
+    apply_trace_opts(args)
     from .devices import DeviceUnavailable
     try:
         t0 = time.perf_counter()

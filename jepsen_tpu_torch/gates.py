@@ -1,8 +1,9 @@
 """The registry of the `JEPSEN_TPU_*` environment gates the port reads.
 
 The port's own copy of `jepsen_tpu/gates.py` (`Gate`, `_g`, `get`,
-`get_raw`, `is_set`), declaring only the gates the port reads. The
-names are the reference's, so one environment drives both packages.
+`get_raw`, `is_set`, `export`), declaring only the gates the port
+reads. The names are the reference's, so one environment drives both
+packages.
 Every read of a `JEPSEN_TPU_*` variable in the port goes through
 `get` (or `get_raw`/`is_set`), at call time, so tests can monkeypatch
 the environment freely.
@@ -117,6 +118,29 @@ _g("JEPSEN_TPU_DISPATCH_TIMEOUT_S", "float", None,
 _g("JEPSEN_TPU_FAULT_INJECT", "str", "",
    "self-nemesis spec, e.g. `encode:0.05,oom:first` — deterministic "
    "encode faults / simulated OOMs")
+_g("JEPSEN_TPU_FRONTIER", "int", 512,
+   "bounded-frontier arena size for the sorted-frontier register "
+   "kernel")
+# -- ingest / native --------------------------------------------------------
+_g("JEPSEN_TPU_NATIVE_INGEST", "bool", True,
+   "`0`: Python jsonl→tensor encoder")
+_g("JEPSEN_TPU_NO_NATIVE", "bool", False,
+   "set (non-`0`): disable every ctypes-loaded helper")
+_g("JEPSEN_TPU_NATIVE_LIB_DIR", "str", None,
+   "load the native `.so`s from this directory instead of "
+   "building into `jepsen_tpu_torch/_build/` — no rebuild, and a "
+   "missing or stale lib there raises")
+_g("JEPSEN_TPU_ENCODE_CACHE", "bool", True,
+   "`0`: no `encoded.v1.bin` sidecar reads or writes — every sweep "
+   "re-parses")
+_g("JEPSEN_TPU_ENCODE_CACHE_WRITE", "bool", True,
+   "`0`: read-only cache (hit existing sidecars, never write — e.g. "
+   "a read-only store mount)")
+# -- warm path --------------------------------------------------------------
+_g("JEPSEN_TPU_SIDECAR_V2", "bool", True,
+   "`0`: write/read only v1 (unpadded) encoded sidecars — no "
+   "dispatch-shaped `encoded.v2.bin`, no v1→v2 upgrade, warm sweeps "
+   "pack with host copies as before")
 
 
 def get(name: str):
@@ -135,3 +159,13 @@ def is_set(name: str) -> bool:
     """Is the gate explicitly set (non-empty) in the environment?"""
     GATES[name]
     return bool(os.environ.get(name))
+
+
+def export(name: str, value) -> None:
+    """Write gate `name` into the environment (the CLI flag→env
+    export; subprocesses and embedded callers then see the choice).
+    Booleans serialize to the canonical `1`/`0`."""
+    GATES[name]
+    if isinstance(value, bool):
+        value = "1" if value else "0"
+    os.environ[name] = str(value)

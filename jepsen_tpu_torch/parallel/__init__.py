@@ -24,11 +24,11 @@ The sweep tracer (`trace`) sees what the reference's sees: "pack",
 "h2d", "feed", "dispatch" and "collect" phase spans (also summed into a
 caller's `phases` dict), a "bucket" window on the device track from each
 bucket's enqueue to the host seeing its CUDA event complete, the
-counters `h2d_bytes`, `pad_waste_cells`, `buckets_dispatched`,
-`buckets_resolved`, `quarantined`, `oom_retries`, `bucket_splits` and
-`watchdog_timeouts`, the `inflight_depth` gauge, the `bucket_cells`
-histogram, and the flight recorder's `quarantine`, `oom_split` and
-`watchdog_fire` events. A dispatch of host-built edge dicts (the wr
+counters `h2d_bytes`, `warm_copy_bytes`, `pad_waste_cells`,
+`buckets_dispatched`, `buckets_resolved`, `quarantined`, `oom_retries`,
+`bucket_splits` and `watchdog_timeouts`, the `inflight_depth` gauge,
+the `bucket_cells` histogram, and the flight recorder's `quarantine`,
+`oom_split` and `watchdog_fire` events. A dispatch of host-built edge dicts (the wr
 sweep, a condensed run's SCCs) records only its watchdog, as the
 reference's `check_edge_batch` does. With `with_stats` /
 `stats_out` each bucket's check also computes the kernel-stats matrix
@@ -352,10 +352,30 @@ def _prep_bucket(sw: _Sweep, bucket: list[int]) -> _Staged:
     thread when pack_thread_enabled(), inline otherwise — the span lands
     on whichever thread did the work. Counts the bucket's padding waste
     (`pad_waste_cells`: B·T_pad² less its histories' own cells) and its
-    footprint (`bucket_cells`)."""
+    footprint (`bucket_cells`).
+
+    A bucket whose histories all carry v2-sidecar views that fit its
+    planned shape is packed as those views (`kernels.pack_batch_views`):
+    no host tensor is built. Otherwise pack_batch copies, and the bytes
+    it copied for warm (cache-loaded) histories count as
+    `warm_copy_bytes`, as the reference counts them."""
     t0 = time.perf_counter()
     group = [sw.encs[i] for i in bucket]
-    packed = K.pack_edge_matrices(group) if sw.edges else K.pack_batch(group)
+    if sw.edges:
+        packed = K.pack_edge_matrices(group)
+    else:
+        shape = K.BatchShape.plan(group)
+        packed = K.pack_batch_views(group, shape)
+        if packed is None:
+            packed = K.pack_batch(group, shape)
+            if sw.tr.enabled:
+                warm = sum(
+                    e.appends.nbytes + e.reads.nbytes
+                    + e.invoke_index.nbytes + e.complete_index.nbytes
+                    + e.process.nbytes
+                    for e in group if getattr(e, "warm", False))
+                if warm:
+                    sw.tr.counter("warm_copy_bytes").inc(warm)
     if sw.tr.enabled:
         t_pad = packed["T"] if sw.edges else packed["shape"].n_txns
         cells = len(group) * t_pad * t_pad
@@ -373,17 +393,27 @@ def _h2d_bucket(item: _Staged, device: torch.device,
     dispatch's copy stream; None: the current stream), an event marking
     its end. A packed batch's arrays are pinned and copied without
     blocking, widened to int64 there; the pinned buffers stay with the
-    bucket until it resolves. An edge batch's cell lists are copied and
-    scattered into its [B,T,T] matrices (`kernels.edge_batch_to_device`)
-    on that stream, so the copy waits for no earlier bucket's check."""
+    bucket until it resolves. A views-packed batch's views are copied
+    from their mapped pages and padded and stacked on the device
+    (`kernels.views_to_device`), and an edge batch's cell lists are
+    copied and scattered into its [B,T,T] matrices
+    (`kernels.edge_batch_to_device`), each on that stream, so the copy
+    waits for no earlier bucket's check."""
     t0 = time.perf_counter()
     sw = item.sw
     packed, item.packed = item.packed, None
-    to_device = K.edge_batch_to_device if "T" in packed \
-        else K.batch_to_device
-    if sw.tr.enabled and to_device is K.batch_to_device:
-        sw.tr.counter("h2d_bytes").inc(
-            sum(np.asarray(packed[k]).nbytes for k in K.DEVICE_FIELDS))
+    if "T" in packed:
+        to_device = K.edge_batch_to_device
+    elif packed.get("views"):
+        to_device = K.views_to_device
+        if sw.tr.enabled:
+            sw.tr.counter("h2d_bytes").inc(
+                sum(v.nbytes for k in K.VIEW_FILLS for v in packed[k]))
+    else:
+        to_device = K.batch_to_device
+        if sw.tr.enabled:
+            sw.tr.counter("h2d_bytes").inc(
+                sum(np.asarray(packed[k]).nbytes for k in K.DEVICE_FIELDS))
     if device.type != "cuda":
         item.batch = to_device(packed, device)
         _acc_phase(sw, "h2d", t0)

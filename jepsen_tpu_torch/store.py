@@ -19,6 +19,9 @@ Layout (the reference's `store/<test-name>/<start-time>/`):
     store/report.json, report.md  the attribution report (--report)
     store/analytics.jsonl  per-history search stats
                         (JEPSEN_TPU_KERNEL_STATS)
+    store/<test-name>/<start-time>/encoded.v2.bin (list-append) and
+        encoded-wr.v1.bin (rw-register)  the encoded sidecar cache
+                        (JEPSEN_TPU_ENCODE_CACHE*, JEPSEN_TPU_SIDECAR_V2)
 """
 
 from __future__ import annotations
@@ -364,6 +367,563 @@ def load_analytics(path) -> list[dict]:
         if isinstance(rec, dict) and "checker" in rec:
             out.append(rec)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Persistent encoded cache: encoded.v1.bin / encoded.v2.bin sidecars.
+#
+# The reference's (`jepsen_tpu/store.py`), byte for byte: each
+# successful lean encode leaves a flat binary sidecar next to
+# history.jsonl, tensors laid out raw, so a warm sweep maps them back as
+# zero-copy numpy views and skips the parse. The cache key is the
+# history file's (size, mtime_ns, xxh64 over its first and last 64 KiB):
+# any growth, rewrite or touch invalidates (the sidecar is then ignored
+# and overwritten by the next encode). The native encoder
+# (csrc/hist_encode.cc, jt_ha_write_sidecar) writes the same layout
+# straight from its own buffers.
+#
+# v2 (dispatch-shaped, append checker only): the same container, the
+# tensors the batch packer feeds the device persisted pre-padded to the
+# geometry a one-history bucket would get (kernels.BatchShape.plan: txn
+# axis to a multiple of 128, the others to 8), with the effective
+# completion keys precomputed. A warm bucket whose histories all carry
+# such views is stacked from them with no per-history repack
+# (kernels.pack_batch_views; `warm_copy_bytes` counts what a warm
+# history still costs in copies otherwise). The lean arrays are slices
+# of the padded ones. v1 sidecars stay readable and upgrade to v2 in
+# place on first warm load (`sidecar_upgrades` counter + a
+# `cache_rebuild` event); the wr checker keeps v1.
+# ---------------------------------------------------------------------------
+
+ENCODED_MAGIC = b"JTENC01\n"
+ENCODED_MAGIC_V2 = b"JTENC02\n"
+
+#: The dispatch-padding multiples — they mirror kernels.BatchShape.plan
+#: (txn axis 128, everything else 8).
+_PAD_TXNS = 128
+_PAD_MINOR = 8
+
+
+def _pad_up(x: int, multiple: int) -> int:
+    """kernels.pad_to, re-stated (round up to a positive multiple)."""
+    return max(multiple, ((x + multiple - 1) // multiple) * multiple)
+
+
+def dispatch_pad_plan(enc) -> dict:
+    """The padded geometry a one-history BatchShape.plan would pick for
+    this encoding — the shape the v2 sidecar persists at."""
+    return {"n_txns": _pad_up(enc.n, _PAD_TXNS),
+            "n_appends": _pad_up(len(enc.appends), _PAD_MINOR),
+            "n_reads": _pad_up(len(enc.reads), _PAD_MINOR),
+            "n_keys": _pad_up(enc.n_keys, _PAD_MINOR),
+            "max_pos": _pad_up(enc.max_pos, _PAD_MINOR)}
+
+
+# Per-checker array fields of a lean encoding, in canonical layout
+# order (the C++ sidecar writer mirrors it in hist_encode.cc's
+# write_sidecar).
+ENCODED_FIELDS = {
+    "append": ("appends", "reads", "status", "process",
+               "invoke_index", "complete_index"),
+    "wr": ("edges", "status", "process", "invoke_index",
+           "complete_index"),
+}
+
+
+def encoded_arrays(enc, checker: str) -> list:
+    """[(field, contiguous ndarray)] for a lean encoding, in
+    ENCODED_FIELDS order (WrEncoded.edges — a list of 3-tuples — is
+    densified to int32 [E,3])."""
+    import numpy as np
+    out = []
+    for f in ENCODED_FIELDS[checker]:
+        v = getattr(enc, f)
+        if f == "edges":
+            v = np.asarray(v or np.zeros((0, 3)),
+                           np.int32).reshape(-1, 3)
+        out.append((f, np.ascontiguousarray(v)))
+    return out
+
+
+def rebuild_encoded(checker: str, arrays: dict, meta: dict):
+    """(arrays + scalars) -> EncodedHistory/WrEncoded: the v1 sidecar
+    loader's one reconstruction (op_index aliasing, edges re-tupled)."""
+    if checker == "wr":
+        from .checker.elle.wr import WrEncoded
+        enc = WrEncoded()
+        enc.n = int(meta["n"])
+        enc.key_count = int(meta["key_count"])
+        enc.edges = [tuple(r) for r in arrays["edges"].tolist()]
+    else:
+        from .checker.elle.encode import EncodedHistory
+        enc = EncodedHistory()
+        enc.n = int(meta["n"])
+        enc.n_keys = int(meta["n_keys"])
+        enc.max_pos = int(meta["max_pos"])
+        enc.key_names = meta["key_names"]
+        enc.appends = arrays["appends"]
+        enc.reads = arrays["reads"]
+        enc.op_index = arrays["complete_index"]
+    enc.status = arrays["status"]
+    enc.process = arrays["process"]
+    enc.invoke_index = arrays["invoke_index"]
+    enc.complete_index = arrays["complete_index"]
+    enc.anomalies = meta["anomalies"]
+    enc.txn_ops = []
+    return enc
+
+
+# Bounded content hash: first + last 64KiB (whole file when smaller).
+# Histories are append-only artifacts — corruption or rewrite shows up
+# at one end — and an unbounded hash would put a full file read back on
+# the path the cache exists to remove.
+_HASH_SPAN = 64 * 1024
+
+_X1 = 0x9E3779B185EBCA87
+_X2 = 0xC2B2AE3D27D4EB4F
+_X3 = 0x165667B19E3779F9
+_X4 = 0x85EBCA77C2B2AE63
+_X5 = 0x27D4EB2F165667C5
+_M64 = (1 << 64) - 1
+
+
+def _rotl(x: int, r: int) -> int:
+    return ((x << r) | (x >> (64 - r))) & _M64
+
+
+def xxh64(data: bytes, seed: int = 0) -> int:
+    """Pure-Python XXH64, bit-exact with the algorithm and with
+    hist_encode.cc's jt_xxh64_buf: the parity oracle, and the hasher
+    when the native library is off (JEPSEN_TPU_NO_NATIVE)."""
+    n = len(data)
+    i = 0
+    if n >= 32:
+        v1 = (seed + _X1 + _X2) & _M64
+        v2 = (seed + _X2) & _M64
+        v3 = seed & _M64
+        v4 = (seed - _X1) & _M64
+        while i + 32 <= n:
+            for off, v in ((0, v1), (8, v2), (16, v3), (24, v4)):
+                lane = int.from_bytes(data[i + off:i + off + 8],
+                                      "little")
+                v = (_rotl((v + lane * _X2) & _M64, 31) * _X1) & _M64
+                if off == 0:
+                    v1 = v
+                elif off == 8:
+                    v2 = v
+                elif off == 16:
+                    v3 = v
+                else:
+                    v4 = v
+            i += 32
+        h = (_rotl(v1, 1) + _rotl(v2, 7) + _rotl(v3, 12)
+             + _rotl(v4, 18)) & _M64
+        for v in (v1, v2, v3, v4):
+            h ^= (_rotl((v * _X2) & _M64, 31) * _X1) & _M64
+            h = (h * _X1 + _X4) & _M64
+    else:
+        h = (seed + _X5) & _M64
+    h = (h + n) & _M64
+    while i + 8 <= n:
+        k = (int.from_bytes(data[i:i + 8], "little") * _X2) & _M64
+        h ^= (_rotl(k, 31) * _X1) & _M64
+        h = (_rotl(h, 27) * _X1 + _X4) & _M64
+        i += 8
+    if i + 4 <= n:
+        h ^= (int.from_bytes(data[i:i + 4], "little") * _X1) & _M64
+        h = (_rotl(h, 23) * _X2 + _X3) & _M64
+        i += 4
+    while i < n:
+        h ^= (data[i] * _X5) & _M64
+        h = (_rotl(h, 11) * _X1) & _M64
+        i += 1
+    h ^= h >> 33
+    h = (h * _X2) & _M64
+    h ^= h >> 29
+    h = (h * _X3) & _M64
+    h ^= h >> 32
+    return h
+
+
+def _buf_xxh64(data: bytes) -> int:
+    """XXH64 via the native library (one C call), pure Python under
+    JEPSEN_TPU_NO_NATIVE — both bit-identical, so cache keys do not
+    depend on which side hashed. A library that cannot be built
+    raises, as everywhere in the port."""
+    from .checker.elle import native_encode
+    L = native_encode.hist_lib()
+    if L is not None:
+        return L.jt_xxh64_buf(data, len(data), 0)
+    return xxh64(data)
+
+
+def bounded_file_xxh64(path: Path, size: int) -> int:
+    """xxh64 over the first + last _HASH_SPAN bytes (whole file when
+    it fits in one window pair) — the content part of the cache key,
+    byte-identical to the C++ side's file_cache_key()."""
+    with open(path, "rb") as f:
+        if size <= 2 * _HASH_SPAN:
+            data = f.read()
+        else:
+            head = f.read(_HASH_SPAN)
+            f.seek(size - _HASH_SPAN)
+            data = head + f.read(_HASH_SPAN)
+    return _buf_xxh64(data)
+
+
+def encode_cache_enabled() -> bool:
+    """The JEPSEN_TPU_ENCODE_CACHE master gate (default on)."""
+    from . import gates
+    return gates.get("JEPSEN_TPU_ENCODE_CACHE")
+
+
+def encode_cache_write_enabled() -> bool:
+    """JEPSEN_TPU_ENCODE_CACHE_WRITE=0 makes the cache read-only
+    (e.g. sweeping a store on a read-only mount)."""
+    from . import gates
+    return gates.get("JEPSEN_TPU_ENCODE_CACHE_WRITE")
+
+
+def sidecar_v2_enabled() -> bool:
+    """The JEPSEN_TPU_SIDECAR_V2 gate (default on): append sidecars are
+    written dispatch-shaped (encoded.v2.bin) and v1 sidecars upgrade in
+    place on load. 0 pins the v1 format."""
+    from . import gates
+    return gates.get("JEPSEN_TPU_SIDECAR_V2")
+
+
+def sidecar_version(checker: str) -> int:
+    """The sidecar version the current env writes for `checker`: v2 is
+    append-only (the wr edge packer has no padded fast path)."""
+    return 2 if checker == "append" and sidecar_v2_enabled() else 1
+
+
+def encoded_cache_path(run_dir: str | os.PathLike, checker: str,
+                       version: int | None = None) -> Path:
+    """The per-checker sidecar path: append and wr digests of the same
+    history are different tensors, so they cache separately. `version`
+    defaults to what the env would write (`sidecar_version`)."""
+    if version is None:
+        version = sidecar_version(checker)
+    name = f"encoded.v{version}.bin" if checker == "append" \
+        else f"encoded-{checker}.v1.bin"
+    return Path(run_dir) / name
+
+
+def _history_source(run_dir: Path) -> Path | None:
+    """The file the cache key covers — the same preference order as
+    load_history_dir, so the cache can never validate against a file
+    the encode would not have read."""
+    jl = run_dir / "history.jsonl"
+    if jl.is_file():
+        return jl
+    ed = run_dir / "history.edn"
+    return ed if ed.is_file() else None
+
+
+def _cache_key(src: Path) -> dict:
+    st = src.stat()
+    return {"size": st.st_size, "mtime_ns": st.st_mtime_ns,
+            "xxh64": f"{bounded_file_xxh64(src, st.st_size):016x}"}
+
+
+def _align64(n: int) -> int:
+    return (n + 63) & ~63
+
+
+def _padded_arrays(enc, pad: dict) -> list:
+    """[(field, contiguous ndarray)] for the v2 (dispatch-shaped)
+    sidecar: the lean arrays padded to `pad` with pack_batch's fill
+    convention (-1 dead triples/process rows, 0 dead index rows), plus
+    the two dispatch tensors pack_batch would otherwise compute per
+    sweep — int32 invoke keys and int32 EFFECTIVE completion keys."""
+    import numpy as np
+
+    from .checker.elle.encode import effective_complete_index
+    T, A, R = pad["n_txns"], pad["n_appends"], pad["n_reads"]
+    n = enc.n
+    appends = np.full((A, 3), -1, np.int32)
+    appends[:len(enc.appends)] = np.asarray(enc.appends,
+                                            np.int32).reshape(-1, 3)
+    reads = np.full((R, 3), -1, np.int32)
+    reads[:len(enc.reads)] = np.asarray(enc.reads,
+                                        np.int32).reshape(-1, 3)
+    process = np.full(T, -1, np.int32)
+    process[:n] = np.asarray(enc.process, np.int32)
+    d_invoke = np.zeros(T, np.int32)
+    d_invoke[:n] = np.asarray(enc.invoke_index, np.int32)
+    d_complete = np.zeros(T, np.int32)
+    d_complete[:n] = effective_complete_index(
+        np.asarray(enc.status, np.int32),
+        np.asarray(enc.complete_index, np.int64)).astype(np.int32)
+    return [("appends", appends), ("reads", reads),
+            ("status", np.ascontiguousarray(enc.status, np.int32)),
+            ("process", process),
+            ("invoke_index",
+             np.ascontiguousarray(enc.invoke_index, np.int64)),
+            ("complete_index",
+             np.ascontiguousarray(enc.complete_index, np.int64)),
+            ("d_invoke", d_invoke), ("d_complete", d_complete)]
+
+
+def save_encoded(run_dir: str | os.PathLike, checker: str,
+                 enc) -> Path | None:
+    """Write the flat encoded sidecar for a LEAN encoding (v2 when
+    `sidecar_version(checker)` says so, else v1). Best-effort: any
+    failure (non-JSON-able keys, read-only dir) returns None and the
+    run simply stays uncached. Layout — magic, int64 header length,
+    JSON header, zero pad to 64, then each tensor raw at the
+    64-aligned offset its header entry records (relative to the data
+    start, itself align64(16 + header_len)). A successful v2 write
+    also retires the run's v1 sidecar."""
+    if not (encode_cache_enabled() and encode_cache_write_enabled()):
+        return None
+    d = Path(run_dir)
+    src = _history_source(d)
+    if src is None:
+        return None
+    version = sidecar_version(checker)
+    tmp = None
+    try:
+        if version == 2:
+            pad = dispatch_pad_plan(enc)
+            arrays = _padded_arrays(enc, pad)
+            meta = {"n": enc.n, "n_keys": enc.n_keys,
+                    "max_pos": enc.max_pos,
+                    "key_names": list(enc.key_names),
+                    "pad": pad,
+                    "lens": {"appends": len(enc.appends),
+                             "reads": len(enc.reads)}}
+            magic = ENCODED_MAGIC_V2
+        else:
+            arrays = encoded_arrays(enc, checker)
+            if checker == "wr":
+                meta = {"n": enc.n, "key_count": enc.key_count}
+            else:
+                meta = {"n": enc.n, "n_keys": enc.n_keys,
+                        "max_pos": enc.max_pos,
+                        "key_names": list(enc.key_names)}
+            magic = ENCODED_MAGIC
+        off = 0
+        entries = {}
+        for name, a in arrays:
+            off = _align64(off)
+            entries[name] = [off, list(a.shape), a.dtype.str]
+            off += a.nbytes
+        header = {"v": version, "checker": checker, "src": src.name,
+                  "key": _cache_key(src), "arrays": entries,
+                  "anomalies": enc.anomalies, **meta}
+        hj = json.dumps(header).encode()
+        data_start = _align64(len(magic) + 8 + len(hj))
+        out = encoded_cache_path(d, checker, version)
+        tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
+        with open(tmp, "wb") as f:
+            f.write(magic)
+            f.write(len(hj).to_bytes(8, "little"))
+            f.write(hj)
+            f.write(b"\0" * (data_start - len(magic) - 8
+                             - len(hj)))
+            pos = 0
+            for name, a in arrays:
+                aligned = _align64(pos)
+                f.write(b"\0" * (aligned - pos))
+                f.write(memoryview(a).cast("B") if a.nbytes else b"")
+                pos = aligned + a.nbytes
+        os.replace(tmp, out)
+        if version == 2:
+            try:
+                encoded_cache_path(d, checker, 1).unlink()
+            except OSError:
+                pass
+        return out
+    except Exception:
+        log.debug("encoded-cache write failed for %s", d, exc_info=True)
+        try:
+            if tmp is not None:
+                tmp.unlink(missing_ok=True)
+        except Exception:
+            pass
+        return None
+
+
+def load_encoded(run_dir: str | os.PathLike, checker: str):
+    """mmap the encoded sidecar back into an EncodedHistory/WrEncoded
+    (zero-copy views over the mapped pages), or None on a miss: no
+    sidecar, stale key (history changed), wrong checker, or any parse
+    failure. Prefers the dispatch-shaped v2 sidecar when the gate is
+    on (the encoding then carries `.dispatch`, pre-padded views the
+    batch packer stacks as they are, and `.dispatch_pad`, the geometry
+    they were padded to); a v1-only run upgrades to v2 in place on the
+    way through. Every cache-loaded encoding is flagged `.warm = True`
+    so the pack stage can attribute `warm_copy_bytes`."""
+    if not encode_cache_enabled():
+        return None
+    d = Path(run_dir)
+    src = _history_source(d)
+    if src is None:
+        return None
+    want_v2 = sidecar_version(checker) == 2
+    if want_v2:
+        enc = _load_sidecar(encoded_cache_path(d, checker, 2), 2,
+                            checker, src)
+        if enc is not None:
+            return enc
+    enc = _load_sidecar(encoded_cache_path(d, checker, 1), 1,
+                        checker, src)
+    if enc is None:
+        return None
+    if want_v2 and encode_cache_write_enabled():
+        enc = _upgrade_sidecar(d, checker, enc)
+    return enc
+
+
+def _upgrade_sidecar(run_dir: Path, checker: str, enc):
+    """v1 → v2 in place: rewrite the sidecar dispatch-shaped and serve
+    the v2 views. A failed write (read-only mount) keeps serving the
+    v1 encoding — the upgrade is an optimization, never a gate."""
+    out = save_encoded(run_dir, checker, enc)
+    if out is None:
+        return enc
+    from . import trace
+    trace.counter("sidecar_upgrades").inc()
+    from .obs import events as obs_events
+    obs_events.emit("cache_rebuild", path=str(out),
+                    cause="v1->v2 upgrade")
+    src = _history_source(Path(run_dir))
+    enc2 = _load_sidecar(out, 2, checker, src) if src is not None \
+        else None
+    if enc2 is not None:
+        enc2.upgraded = True
+        return enc2
+    return enc
+
+
+def _map_retrying(p: Path):
+    """A read-only mmap of `p`. Transient open/mmap failures
+    (EMFILE/ENOMEM under a big sweep's pressure) get two jittered,
+    exponentially backed-off retries before the cache degrades to a
+    miss; a vanished sidecar fails straight to the re-encode."""
+    import mmap as _mmap
+    import random
+    import time
+    for attempt in range(3):
+        try:
+            with open(p, "rb") as f:
+                return _mmap.mmap(f.fileno(), 0, access=_mmap.ACCESS_READ)
+        except FileNotFoundError:
+            raise
+        except OSError:
+            if attempt == 2:
+                raise
+            time.sleep(0.005 * 2 ** attempt * random.uniform(0.5, 1.5))
+
+
+def _load_sidecar(p: Path, version: int, checker: str, src: Path):
+    """One sidecar file → encoding, or None on miss/corruption.
+    Handles both writer dialects at either version — the Python writer
+    embeds lean anomalies as JSON; the native writer stores raw
+    anomaly rows + the pre-key name table, decoded here with the exact
+    `_witness` mapping the in-process native path uses."""
+    if not p.is_file():
+        return None
+    magic = ENCODED_MAGIC_V2 if version == 2 else ENCODED_MAGIC
+    try:
+        import numpy as np
+
+        mm = _map_retrying(p)
+        if mm[:len(magic)] != magic:
+            # an existing sidecar without the magic is corruption, not
+            # a miss — the flight recorder gets the rebuild cause
+            from .obs import events as obs_events
+            obs_events.emit("cache_rebuild", path=str(p),
+                            cause="bad magic")
+            return None
+        hlen = int.from_bytes(
+            mm[len(magic):len(magic) + 8], "little")
+        header = json.loads(
+            mm[len(magic) + 8:len(magic) + 8 + hlen])
+        if header.get("v") != version \
+                or header.get("checker") != checker \
+                or header.get("src") != src.name:
+            return None
+        if header.get("key") != _cache_key(src):
+            return None
+        data_start = _align64(len(magic) + 8 + hlen)
+        arrays = {}
+        for name, (off, shape, dt) in header["arrays"].items():
+            n = 1
+            for s in shape:
+                n *= s
+            arrays[name] = np.frombuffer(
+                mm, dtype=np.dtype(dt), count=n,
+                offset=data_start + off).reshape(shape)
+        pre_names = header.get("pre_names", [])
+        if "anomalies" in header:
+            anomalies = header["anomalies"]
+        else:
+            # native-written sidecar: raw anomaly rows, decoded with
+            # the exact _witness mapping the in-process native path
+            # uses, so cache-loaded == freshly-encoded
+            from .checker.elle.native_encode import _CODES, _witness
+            anomalies = {}
+            for code, f0, f1, f2, f3 in arrays.pop("anom").tolist():
+                name = _CODES.get(int(code))
+                if name is None:    # ABI drift: don't guess
+                    return None
+                anomalies.setdefault(name, []).append(
+                    _witness(int(code), int(f0), int(f1), int(f2),
+                             int(f3), pre_names, wr=checker == "wr"))
+        meta = {k: header[k] for k in ("n", "n_keys", "max_pos",
+                                       "key_count") if k in header}
+        meta["anomalies"] = anomalies
+        if checker != "wr":
+            meta["key_names"] = header["key_names"] \
+                if "key_names" in header else \
+                [pre_names[i] for i in arrays.pop("kid_to_pre").tolist()]
+        if version == 2:
+            enc = _rebuild_v2(arrays, meta, header)
+        else:
+            enc = rebuild_encoded(checker, arrays, meta)
+        enc.warm = True
+        return enc
+    except Exception as e:
+        log.debug("encoded-cache load failed for %s", p, exc_info=True)
+        from .obs import events as obs_events
+        obs_events.emit("cache_rebuild", path=str(p),
+                        cause=repr(e)[:200])
+        return None
+
+
+def _rebuild_v2(arrays: dict, meta: dict, header: dict):
+    """(padded mmap arrays + scalars) → EncodedHistory whose lean
+    fields are SLICES of the padded tensors and whose `.dispatch` dict
+    holds the full dispatch-shaped views (pack order: appends, reads,
+    invoke, complete (effective), process)."""
+    from .checker.elle.encode import EncodedHistory
+    n = int(meta["n"])
+    lens = header["lens"]
+    pad = header["pad"]
+    enc = EncodedHistory()
+    enc.n = n
+    enc.n_keys = int(meta["n_keys"])
+    enc.max_pos = int(meta["max_pos"])
+    enc.key_names = meta["key_names"]
+    enc.appends = arrays["appends"][:int(lens["appends"])]
+    enc.reads = arrays["reads"][:int(lens["reads"])]
+    enc.status = arrays["status"]
+    enc.process = arrays["process"][:n]
+    enc.invoke_index = arrays["invoke_index"]
+    enc.complete_index = arrays["complete_index"]
+    enc.op_index = arrays["complete_index"]
+    enc.anomalies = meta["anomalies"]
+    enc.txn_ops = []
+    enc.dispatch = {"appends": arrays["appends"],
+                    "reads": arrays["reads"],
+                    "invoke_index": arrays["d_invoke"],
+                    "complete_index": arrays["d_complete"],
+                    "process": arrays["process"]}
+    enc.dispatch_pad = {k: int(v) for k, v in pad.items()}
+    return enc
 
 
 def _results_to_edn(v: Any) -> Any:

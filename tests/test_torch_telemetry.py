@@ -14,11 +14,14 @@ Then whole sweeps: each store is swept by both CLIs on one path in turn
 (tests/test_torch_stored.py's `in_turn`, so paths inside events and
 records agree), with `JEPSEN_TPU_KERNEL_STATS=1` and `--report`, the
 reference with `JEPSEN_TPU_AOT_CACHE=0`, a private compile cache, a
-one-core `os.cpu_count` (serial ingest), and its encode-sidecar cache,
-native encoder and buffer donation off (`JEPSEN_TPU_ENCODE_CACHE=0`,
-`JEPSEN_TPU_NATIVE_INGEST=0`, `JEPSEN_TPU_DONATE_BUFFERS=0`: the port has
-none of them, and the same environment drives both). What the port
-cannot have is named in `REF_ONLY_*` below, each with its reason.
+one-core `os.cpu_count` (serial ingest) and buffer donation off
+(`JEPSEN_TPU_DONATE_BUFFERS=0`: the port has no donation). The first
+cases run with the encode-sidecar cache and the native encoder off
+(`JEPSEN_TPU_ENCODE_CACHE=0`, `JEPSEN_TPU_NATIVE_INGEST=0`), the
+`native-*` cases with both at their defaults, cold (no sidecars) and
+warm (each package's own sidecars, from a first sweep whose telemetry
+and verdicts are cleared). What the port cannot have is named in
+`REF_ONLY_*` below, with its reason.
 
 Tolerance: exact. analytics.jsonl byte-identical; counters and gauges
 equal; event kinds and non-time fields equal in order; the trace's
@@ -53,10 +56,6 @@ CPU = torch.device("cpu")
 #: Reference counters the port has no counterpart of: the stale shared
 #: memory reclaim runs with the reference's pooled ingest (not ported).
 REF_ONLY_COUNTERS = {"shm_stale_reclaimed"}
-#: Reference spans the port has no counterpart of: the encode-sidecar
-#: write, which the reference's encoder runs whatever its cache gate
-#: says (the sidecar cache is not ported).
-REF_ONLY_SPANS = {("sidecar_write", "span", "X")}
 
 NEW_GATES = ("JEPSEN_TPU_TRACE", "JEPSEN_TPU_TRACE_MAX_EVENTS",
              "JEPSEN_TPU_REPORT", "JEPSEN_TPU_JAX_PROFILE",
@@ -454,16 +453,17 @@ def telemetry_env(reference_env, monkeypatch):  # noqa: F811
     monkeypatch.setenv("JEPSEN_TPU_KERNEL_STATS", "1")
 
 
-def both(tmp_path, pristine, argv, capsys, rearm=None) -> tuple:
+def both(tmp_path, pristine, argv, capsys, rearm=None, pre=None) -> tuple:
     """Both CLIs over `pristine` on one path in turn; returns in_turn's
-    result and, per package, the telemetry files each left."""
+    result and, per package, the telemetry files each left. `pre` are
+    in_turn steps run first (a warming sweep)."""
     grabbed = []
 
     def grab(store):
         grabbed.append({f: (store / f).read_bytes() for f in TELEMETRY
                         if (store / f).exists()})
 
-    steps = [(argv, None), grab]
+    steps = (pre or []) + [(argv, None), grab]
     if rearm is not None:
         steps.insert(0, rearm)
     got = in_turn(tmp_path, pristine, steps, capsys)
@@ -501,7 +501,7 @@ def assert_same_telemetry(tele: dict) -> dict:
             assert mr["histograms"][h] == mp["histograms"][h], h
     sr, tr_ = spans_of(ref["trace.json"])
     sp, tp = spans_of(port["trace.json"])
-    assert sr - REF_ONLY_SPANS == sp
+    assert sr == sp
     assert tr_ == tp
     if "report.json" in ref:
         rr, rp = json.loads(ref["report.json"]), json.loads(
@@ -525,10 +525,28 @@ def wr_store(base):
     synth.write_wr_run_store(base, B=4, T=60, K=4, bad_every=2)
 
 
-@pytest.mark.parametrize("kind", ["append", "wr", "long", "register"])
+@pytest.mark.parametrize("kind", [
+    "append", "wr", "long", "register", "native-append-cold",
+    "native-append-warm", "native-wr-cold", "native-wr-warm"])
 def test_sweep_telemetry_matches_reference(kind, tmp_path, telemetry_env,
                                            monkeypatch, capsys):
     pristine = tmp_path / "pristine"
+    warm = None
+    if kind.startswith("native-"):
+        # the encode cache and the native encoder at their defaults
+        monkeypatch.delenv("JEPSEN_TPU_ENCODE_CACHE")
+        monkeypatch.delenv("JEPSEN_TPU_NATIVE_INGEST")
+        _, kind, warmth = kind.split("-")
+        if warmth == "warm":
+            def warm(store):
+                # a first sweep leaves the package's own sidecars; its
+                # telemetry, verdicts and summary lines are cleared
+                capsys.readouterr()
+                for f in TELEMETRY + ("verdicts.jsonl",):
+                    (store / f).unlink(missing_ok=True)
+                for p in list(store.rglob("results.*")) \
+                        + list(store.rglob(".sweep-*")):
+                    p.unlink()
     checker = {"long": "append"}.get(kind, kind)
     if kind == "long":
         # every run takes the condensed path in both packages
@@ -538,10 +556,18 @@ def test_sweep_telemetry_matches_reference(kind, tmp_path, telemetry_env,
     else:
         {"append": append_store, "wr": wr_store,
          "register": register_store}[kind](pristine)
-    got, tele = both(tmp_path, pristine,
-                     ["--checker", checker, "--report"], capsys)
+    argv = ["--checker", checker, "--report"]
+    got, tele = both(tmp_path, pristine, argv, capsys,
+                     pre=[(argv, None), warm] if warm else None)
     assert_same(got)
     m = assert_same_telemetry(tele)
+    if warm is not None:
+        c = m["counters"]
+        assert c["cache_hits"] == len(got["port"][2])
+        assert "cache_misses" not in c
+        spans, _ = spans_of(tele["port"]["trace.json"])
+        assert ("cache_probe", "span", "X") in spans
+        assert ("encode_native", "span", "X") not in spans
     recs = [json.loads(ln) for ln in
             tele["port"]["analytics.jsonl"].decode().splitlines()]
     assert recs and all(r["checker"] == checker for r in recs)
