@@ -134,6 +134,39 @@ failure:
               to the runs, no native fallback; each sweep's wall, parse
               share and the device's idle share (report.json) and
               histories/s printed with the card's name and power limit.
+ 13. pooled ingest  the sweeps' spawned encode workers, driven from a
+              subprocess (`python -m jepsen_tpu_torch.tools.pool_smoke`,
+              which, unlike this script, imports no torch in the
+              workers spawn re-imports it in). /dev/shm's size first.
+              A store of 256 list-append runs at phase 4's width (every
+              8th with G1c): (a) every encoding the pool delivers equals
+              the serial path's, array for array and in run order
+              (the cache off, so both parse; phase 5's wr store too),
+              both ingest walls printed; (b) the plain sweep (plain
+              squaring, serial ingest), then the pooled CLI cold and
+              warm: the same results, markers and journal, closure_square
+              launches equal to the rounds the plain sweep enqueued,
+              the pool run in full (`pooled`, a worker pid track in
+              trace.json, no serial resume); wall, histories/s, parse
+              and idle shares, workers, shm_bytes, worker_spans and the
+              measured overlap of the workers' parse spans with the
+              device windows; the same sweeps through the serial
+              ingest, cold and warm, and pooled cold with one worker
+              fewer than the cores (the parent's own core), each in
+              its own process with its CUDA context made before the
+              sweep; phase 5's wr store (cold) and phase 8's
+              register store through the pooled CLI, verdict files and
+              launches as in those phases; (c) the register store's
+              load, pooled against serial; (d) JEPSEN_TPU_FAULT_INJECT=
+              kill:0.05 on a copy of the store: a worker SIGKILLs
+              itself, the sweep resumes serially, exit 2, the selected
+              runs quarantined (encode) and every other run as the
+              clean sweep's; no jttshm_<pid>_* segment of this process
+              or its sweeps left in /dev/shm.
+
+The sweeps run in this process (phases 4-12) ingest through the same
+pool. Spawn re-imports this script in each worker, so it imports torch
+only in `main()`: at load time it imports the standard library alone.
 
 Since the sweeps' default is the native encoder with the sidecar cache
 on, phase 4's and 5's first sweeps are cold and write sidecars, and the
@@ -142,7 +175,9 @@ later sweeps of their stores (phase 11's) are warm.
 Each path is driven with its kernels' launch counts set to 0 just before
 it and read just after; a path that launched one of them no time fails.
 Phase 11's stats sweeps count as paths of their own (`stats-<path>`),
-and so do phase 12's (`native-<path>-cold`, `native-<path>-warm`).
+and so do phase 12's (`native-<path>-cold`, `native-<path>-warm`) and
+phase 13's (`pool-append-cold`, `pool-append-warm`, `pool-wr`,
+`pool-register`, `pool-kill`), counted in the sweep's own process.
 
 The last lines are a `{"kernels": [...]}` record per kernel (with its
 launches and summed device milliseconds per path), the nvidia-smi line,
@@ -164,7 +199,9 @@ import sys
 import time
 from pathlib import Path
 
-import torch
+#: torch, imported by main(): spawn re-imports this script in every
+#: worker of a sweep's ingest pool, and a worker must not pay for torch
+torch = None
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / ".chip_smoke"
@@ -230,6 +267,11 @@ PEAK_CASES = [(10, 8, 8, 200), (12, 8, 8, 100), (14, 64, 2, 80)]
 SMALL_RUNS = 8
 SMALL_LONG_T, SMALL_LONG_K, SMALL_LONG_GAP, SMALL_LONG_LIMIT = \
     3000, 16, 1003, 1000
+#: Phase 13: the pooled sweep's store (BASELINE config #4's 1k-history
+#: batch cut to 256: four chunks of 64, so ingest can overlap the
+#: device) at phase 4's width, and the kill nemesis's rate.
+POOL_RUNS = 256
+POOL_KILL = "kill:0.05"
 #: The resumed append sweep: the CLI's own __main__, run as a subprocess
 #: with closure_square's count and event pairs reported on stderr at exit.
 RESUME_CMD = """\
@@ -1826,7 +1868,331 @@ def phase_native(launches: dict, verdicts: dict) -> dict:
     return {"paths": paths, "numbers": out}
 
 
+def clear_outputs(store: Path) -> None:
+    """A store's verdicts and telemetry removed, its histories and
+    encoded sidecars kept (the next sweep of it is warm)."""
+    for p in list(store.rglob("results.*")) + list(store.rglob(".sweep-*")):
+        p.unlink()
+    for f in ("verdicts.jsonl", "trace.json", "metrics.json",
+              "events.jsonl", "report.json", "report.md",
+              "analytics.jsonl"):
+        (store / f).unlink(missing_ok=True)
+    for p in store.glob("trace-*.jsonl"):
+        p.unlink()
+
+
+@contextlib.contextmanager
+def serial_ingest():
+    """The sweeps of this process ingest on the serial path, the pool's
+    plain version: `ingest._spawn_safe` answers no, as it does where a
+    spawned worker could not boot."""
+    from jepsen_tpu_torch import ingest
+    saved = ingest._spawn_safe
+    ingest._spawn_safe = lambda: False
+    try:
+        yield
+    finally:
+        ingest._spawn_safe = saved
+
+
+def pool_cli(store: Path, checker: str, pids: set, processes=None,
+             **env) -> dict:
+    """`python -m jepsen_tpu_torch.tools.pool_smoke cli analyze-store
+    ... --report` on the card in a subprocess (spawn re-imports the main
+    module in every worker: this one imports no torch), with the named
+    gates in its environment; returns its `pool_smoke` record (exit
+    code, wall, launches and device ms of each kernel, the ingest's
+    `pooled`, parse spans and measured overlap) and its stderr under
+    "stderr". Its pid joins `pids`. `processes` sizes the pool in place
+    of the CLI's choice."""
+    sized = [] if processes is None else ["--processes", str(processes)]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "jepsen_tpu_torch.tools.pool_smoke", "cli",
+         *sized, "analyze-store", "--store", str(store), "--checker", checker,
+         "--device", DEVICE, "--report"],
+        cwd=ROOT, env={**os.environ, **{k: str(v) for k, v in env.items()}},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    pids.add(proc.pid)
+    try:
+        _out, err = proc.communicate(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise SmokeFailure(f"pooled {checker} sweep of {store} timed out")
+    recs = [json.loads(ln.split(" ", 1)[1]) for ln in err.splitlines()
+            if ln.startswith("pool_smoke ")]
+    check(len(recs) == 1, f"pooled {checker} sweep of {store} (exit "
+          f"{proc.returncode}) reported nothing: {err[-3000:]}")
+    return {**recs[0], "stderr": err}
+
+
+def pool_tool(*args, **env) -> dict:
+    """`python -m jepsen_tpu_torch.tools.pool_smoke ARGS` (encodings or
+    load) in a subprocess; returns its JSON line."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "jepsen_tpu_torch.tools.pool_smoke",
+         *map(str, args)], cwd=ROOT,
+        env={**os.environ, **{k: str(v) for k, v in env.items()}},
+        capture_output=True, text=True, timeout=900)
+    check(proc.returncode == 0, f"pool_smoke {args} exited "
+          f"{proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.splitlines()[-1])
+
+
+def sweep_numbers(store: Path, rec: dict, n_runs: int) -> dict:
+    """What PERF.md reads of a pooled sweep: its wall, histories/s, the
+    report's parse and device idle shares, the pool's counters, the
+    workers' pid tracks and the measured overlap."""
+    rep = json.loads((store / "report.json").read_text())
+    c = json.loads((store / "metrics.json").read_text())["counters"]
+    evs = json.loads((store / "trace.json").read_text())["traceEvents"]
+    workers = {e["pid"] for e in evs if e["name"] == "process_name"
+               and e["args"]["name"].startswith("ingest-worker")}
+    st = rep["stalls"]
+    return {"wall": rec["wall"], "histories_per_s": n_runs / rec["wall"],
+            "parse_share": rep["shares"].get("parse"),
+            "idle_share": st["device_idle_secs"] / rep["wall_secs"]
+            if rep["wall_secs"] else None,
+            "workers": len(workers), "pooled": rec.get("pooled"),
+            "overlap_secs": rec.get("overlap_secs"),
+            "parse_secs": rec.get("parse_secs"),
+            "counters": {k: c.get(k) for k in (
+                "shm_bytes", "worker_spans", "cache_hits", "cache_misses",
+                "shm_stale_reclaimed", "quarantined")}}
+
+
+def pool_ran(store: Path, rec: dict, what: str) -> None:
+    """The sweep went through the pool, in full: `pooled`, a worker pid
+    track in trace.json, no serial resume, no pool failure."""
+    nums = sweep_numbers(store, rec, 1)
+    check(rec.get("pooled") is True and nums["workers"] > 0,
+          f"{what}: the pool did not run (pooled {rec.get('pooled')}, "
+          f"{nums['workers']} worker tracks)")
+    check("pool failed" not in rec["stderr"]
+          and "falling back" not in rec["stderr"],
+          f"{what}: the pool failed and the sweep resumed serially: "
+          f"{rec['stderr'][-3000:]}")
+
+
+def phase_pool(launches: dict, verdicts: dict) -> dict:
+    """Phase 13: the pooled ingest on the card. `launches` and `verdicts`
+    hold phase 4's, 5's and 8's launches and verdict files. Returns the
+    paths' (launches, device ms) per kernel and the numbers PERF.md
+    reads."""
+    from jepsen_tpu_torch import shm, supervisor
+    from jepsen_tpu_torch.checker.elle import closure_square as cs
+    from jepsen_tpu_torch.checker.elle import synth
+
+    smi = nvidia_smi()
+    ncpu = os.cpu_count() or 1
+    vfs = os.statvfs("/dev/shm")
+    out: dict = {"shm_total": vfs.f_frsize * vfs.f_blocks,
+                 "shm_free": vfs.f_frsize * vfs.f_bavail, "cpus": ncpu}
+    say(f"/dev/shm: {out['shm_total']} bytes, {out['shm_free']} free; "
+        f"{ncpu} CPUs")
+    pids = {os.getpid()}
+    square: dict = {}
+    scan: dict = {}
+
+    t0 = time.perf_counter()
+    store = WORK / "pool"
+    synth.write_synth_run_store(store, B=POOL_RUNS, T=STORE_T, K=STORE_K,
+                                bad_every=BAD_EVERY)
+    say(f"wrote {POOL_RUNS} runs x {2 * STORE_T} ops in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    # (a) every pooled encoding equals the serial one, in run order: cold
+    # (the cache read but never written, so both passes parse)
+    enc = {}
+    for kind, s in (("append", store), ("wr", WORK / "wr")):
+        r = pool_tool("encodings", s, kind, ncpu,
+                      JEPSEN_TPU_ENCODE_CACHE=0)
+        check(r["pooled"] and not r["diffs"] and r["errors"] == 0,
+              f"(a) {kind}: pooled encodings "
+              f"differ from the serial ones: {r}")
+        enc[kind] = r
+        say(f"(a) {kind}: {r['runs']} runs, {r['processes']} workers: "
+            f"every pooled encoding == the serial one, in run order; "
+            f"ingest {r['pooled_secs']:.3f}s pooled, "
+            f"{r['serial_secs']:.3f}s serial; counters {r['counters']}")
+    out["encodings"] = enc
+
+    # (b) the plain sweep (the plain squaring, the serial ingest), then
+    # the pooled CLI cold and warm
+    with serial_ingest():
+        (rc_p, log_p, wall_p, _), n_p, _ = counted(lambda: sweep(
+            store, device=DEVICE, square=cs.closure_square_ref))
+    check(rc_p == 1 and n_p == 0, f"plain sweep: exit {rc_p}, {n_p} "
+          "kernel launches")
+    plain = store_outputs(store)
+    enqueued = sum(b["launches"] for b in log_p)
+    clear_outputs(store)
+    for p in store.rglob("encoded*.bin"):
+        p.unlink()
+    say(f"(b) plain sweep of {POOL_RUNS} runs (plain squaring, serial "
+        f"ingest): {wall_p:.3f}s, {enqueued} rounds enqueued")
+    sweeps = {}
+    for warmth in ("cold", "warm"):
+        rec = pool_cli(store, "append", pids)
+        check(rec["rc"] == 1, f"(b) pooled {warmth} sweep exited "
+              f"{rec['rc']}: {rec['stderr'][-3000:]}")
+        check(store_outputs(store) == plain, f"(b) the pooled {warmth} "
+              "sweep's results, markers or journal differ from the plain "
+              "version's")
+        n = rec["closure_square"]["launches"]
+        check(n == enqueued, f"(b) {warmth}: {n} closure_square launches, "
+              f"the plain sweep enqueued {enqueued} rounds")
+        pool_ran(store, rec, f"(b) {warmth}")
+        nums = sweep_numbers(store, rec, POOL_RUNS)
+        c = nums["counters"]
+        check((c["cache_hits"] or 0, c["cache_misses"] or 0)
+              == ((0, POOL_RUNS) if warmth == "cold" else (POOL_RUNS, 0)),
+              f"(b) {warmth}: counters {c}")
+        square[f"pool-append-{warmth}"] = (
+            n, rec["closure_square"]["device_ms"])
+        sweeps[f"append-{warmth}"] = nums
+        say(f"(b) pooled append {warmth}: {nums['wall']:.3f}s wall, "
+            f"{nums['histories_per_s']:.3f} histories/s, parse share "
+            f"{nums['parse_share']}, device idle share {nums['idle_share']}, "
+            f"{nums['workers']} workers, parse {nums['parse_secs']:.3f}s "
+            f"over {rec['parse_spans']} spans in {rec['parse_range']}, "
+            f"{rec['device_windows']} device windows in "
+            f"{rec['device_range']} (s from the sweep's start; the CUDA "
+            f"context made before it in {rec['cuda_init_s']}s), overlap "
+            f"{nums['overlap_secs']:.6f}s; counters {c}; {n} launches "
+            f"({rec['closure_square']['device_ms']:.3f} ms); verdicts == "
+            f"the plain version's; card {smi}")
+        clean = store_outputs(store)
+        clear_outputs(store)
+
+    # the same sweeps through the serial ingest, cold and warm; then cold
+    # with one worker fewer than the cores, which leaves the parent a
+    # core of its own
+    for p in store.rglob("encoded*.bin"):
+        p.unlink()
+    for warmth in ("cold", "warm"):
+        rec = pool_cli(store, "append", pids, processes=0)
+        n = rec["closure_square"]["launches"]
+        check(rec["rc"] == 1 and store_outputs(store) == plain
+              and n == enqueued and rec.get("pooled") is False,
+              f"(b) serial {warmth} sweep: exit {rec['rc']}, {n} launches, "
+              f"pooled {rec.get('pooled')}: {rec['stderr'][-3000:]}")
+        nums = sweep_numbers(store, rec, POOL_RUNS)
+        sweeps[f"serial-append-{warmth}"] = nums
+        square[f"serial-append-{warmth}"] = (
+            n, rec["closure_square"]["device_ms"])
+        say(f"(b) serial-ingest append {warmth}: {nums['wall']:.3f}s wall, "
+            f"{nums['histories_per_s']:.3f} histories/s, parse share "
+            f"{nums['parse_share']}, device idle share "
+            f"{nums['idle_share']}; {n} launches "
+            f"({rec['closure_square']['device_ms']:.3f} ms)")
+        clear_outputs(store)
+    for p in store.rglob("encoded*.bin"):
+        p.unlink()
+    fewer = max(1, ncpu - 1)
+    rec = pool_cli(store, "append", pids, processes=fewer)
+    check(rec["rc"] == 1 and store_outputs(store) == plain,
+          f"(b) pooled cold sweep with {fewer} workers: exit {rec['rc']}")
+    pool_ran(store, rec, f"(b) {fewer} workers")
+    nums = sweep_numbers(store, rec, POOL_RUNS)
+    sweeps[f"append-cold-{fewer}"] = nums
+    square[f"pool-append-cold-{fewer}"] = (
+        rec["closure_square"]["launches"], rec["closure_square"]["device_ms"])
+    say(f"(b) pooled append cold, {fewer} workers: {nums['wall']:.3f}s "
+        f"wall, {nums['histories_per_s']:.3f} histories/s, parse share "
+        f"{nums['parse_share']}, device idle share {nums['idle_share']}, "
+        f"parse spans in {rec['parse_range']}, device windows in "
+        f"{rec['device_range']}, overlap {nums['overlap_secs']:.6f}s")
+
+    # phase 5's wr store, cold, and phase 8's register store
+    for kind, s in (("wr", WORK / "wr"), ("register", WORK / "reg")):
+        clear_outputs(s)
+        for p in s.rglob("encoded*.bin"):
+            p.unlink()
+        rec = pool_cli(s, kind, pids)
+        check(rec["rc"] == 1 and run_files(s) == verdicts[kind],
+              f"(b) pooled {kind} sweep: exit {rec['rc']}, verdict files "
+              f"{'equal' if run_files(s) == verdicts[kind] else 'differ'}"
+              f" (phase {5 if kind == 'wr' else 8}'s): "
+              f"{rec['stderr'][-3000:]}")
+        kern = "knossos_dense_scan" if kind == "register" \
+            else "closure_square"
+        n = rec[kern]["launches"]
+        check(n == launches[kind], f"(b) pooled {kind}: {n} {kern} "
+              f"launches, phase {5 if kind == 'wr' else 8} {launches[kind]}")
+        (scan if kind == "register" else square)[f"pool-{kind}"] = (
+            n, rec[kern]["device_ms"])
+        if kind == "wr":
+            pool_ran(s, rec, "(b) wr")
+            sweeps["wr-cold"] = sweep_numbers(s, rec, WR_RUNS)
+            check(bool(sweeps["wr-cold"]["counters"]["shm_bytes"]),
+                  "(b) wr: no encoding rode shared memory")
+            say(f"(b) pooled wr cold: {sweeps['wr-cold']}; {n} launches")
+        else:
+            load = rec.get("load") or {}
+            check(load.get("pooled") is True, f"(c) the register load "
+                  f"was not pooled: {load}")
+            sweeps["register"] = {"wall": rec["wall"], "load": load}
+            say(f"(b) pooled register: {rec['wall']:.3f}s wall, load "
+                f"{load}; {n} knossos_dense_scan launches")
+    out["sweeps"] = sweeps
+
+    # (c) the register store's load, pooled against serial
+    r = pool_tool("load", WORK / "reg", ncpu)
+    check(r["equal"], f"(c) parallel_load != load_runs: {r}")
+    out["register_load"] = r
+    say(f"(c) register load of {r['runs']} runs: {r['pooled_secs']:.3f}s "
+        f"pooled ({r['processes']} workers), {r['serial_secs']:.3f}s "
+        "serial, histories equal")
+
+    # (d) kill: a worker SIGKILLs itself on the selected runs; the sweep
+    # resumes serially, the selected runs quarantined, the rest as clean
+    kill = WORK / "pool-kill"
+    shutil.copytree(store, kill)
+    clear_outputs(kill)
+    inj = supervisor._Injector(POOL_KILL)
+    hit = {str(p.relative_to(kill)) for p in sorted(
+        (kill / "synth").iterdir()) if inj.selects("kill", p.name)}
+    check(0 < len(hit) < POOL_RUNS, f"(d) {POOL_KILL} selects {len(hit)}")
+    rec = pool_cli(kill, "append", pids,
+                   JEPSEN_TPU_FAULT_INJECT=POOL_KILL)
+    check(rec["rc"] == 2, f"(d) the kill sweep exited {rec['rc']}, the "
+          f"reference's code is 2: {rec['stderr'][-3000:]}")
+    check("pool failed" in rec["stderr"], "(d) no worker died: the pool "
+          "never failed")
+    got = store_outputs(kill)
+    for rel, want in clean.items():
+        if rel == "verdicts.jsonl":
+            continue
+        run = str(Path(rel).parent)
+        if run in hit:
+            if rel.endswith("results.json"):
+                res = json.loads(got[rel])
+                check(res.get("quarantined") == "encode", f"(d) {run} "
+                      f"was selected but not quarantined: {res}")
+        else:
+            check(got.get(rel) == want, f"(d) {rel} differs from the "
+                  "clean sweep's")
+    square["pool-kill"] = (rec["closure_square"]["launches"],
+                           rec["closure_square"]["device_ms"])
+    out["kill"] = {"selected": len(hit), "wall": rec["wall"],
+                   "rc": rec["rc"]}
+    say(f"(d) {POOL_KILL}: {len(hit)} runs selected, each quarantined "
+        f"(encode), every other run == the clean sweep; exit 2; "
+        f"{rec['wall']:.3f}s wall")
+    left = [x for x in os.listdir("/dev/shm")
+            if any(x.startswith(f"{shm.NAME_PREFIX}_{pid}_") for pid in pids)]
+    check(not left, f"shared-memory segments left behind: {left}")
+    say(f"/dev/shm holds no {shm.NAME_PREFIX}_<pid>_* segment of this "
+        f"process or its {len(pids) - 1} sweeps")
+    shutil.rmtree(kill)
+    return {"closure_square": square, "knossos_dense_scan": scan,
+            "numbers": out}
+
+
 def main() -> int:
+    global torch
+    import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
@@ -1881,6 +2247,13 @@ def main() -> int:
         paths.update(phase_native(
             {"append": paths["append"][0], "wr": paths["wr"][0]},
             verdicts)["paths"])
+        verdicts["register"] = run_files(WORK / "reg")
+        pool = phase_pool({"append": paths["append"][0],
+                           "wr": paths["wr"][0],
+                           "register": dense_paths["register"][0]},
+                          verdicts)
+        paths.update(pool["closure_square"])
+        dense_paths.update(pool["knossos_dense_scan"])
         for rec, ps in ((record, paths), (dense_record, dense_paths)):
             rec["launches"] = sum(n for n, _ in ps.values())
             rec["paths"] = {k: {"launches": n, "device_ms": ms}

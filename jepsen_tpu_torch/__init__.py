@@ -13,7 +13,8 @@ the dense limit by SCC condensation) and rw-register:
 
     cli            python -m jepsen_tpu_torch.cli analyze-store
     store          run-dir walk, verdict journal, results.edn rendering
-    ingest         serial history -> encoding (append or wr)
+    ingest         history -> encoding (append or wr) in a spawned pool
+    shm            the pool's shared-memory transport
     parallel       length bucketing, the supervised async dispatcher
                    (check_bucketed_async: packing, host->device copy,
                    OOM backdown, the watchdog), and check_long_history

@@ -17,6 +17,8 @@ long-history path. Where the reference calls its C++ kernels (Tarjan,
 batched reachability), this copy calls `scipy.sparse.csgraph`
 (strongly connected components, breadth-first search): the same
 partitions and the same reachability, with SCC ids arbitrary in both.
+scipy is imported where it is called: the rw-register encoder imports
+this module, and a pooled ingest worker should not pay for scipy.
 """
 
 from __future__ import annotations
@@ -24,8 +26,6 @@ from __future__ import annotations
 from typing import Iterable
 
 import numpy as np
-import scipy.sparse as sp
-from scipy.sparse import csgraph
 
 from .encode import EncodedHistory, effective_complete_index
 
@@ -107,10 +107,11 @@ def adjacency(n: int, edges: Iterable[tuple[int, int, int]],
     return adj
 
 
-def csr_graph(n: int, src: np.ndarray, dst: np.ndarray) -> sp.csr_matrix:
+def csr_graph(n: int, src: np.ndarray, dst: np.ndarray):
     """An n-node directed graph from edge arrays, as the CSR matrix
     `scipy.sparse.csgraph` takes (parallel edges kept; they change no
     component and no reachability)."""
+    import scipy.sparse as sp
     src = np.asarray(src, np.int64)
     dst = np.asarray(dst, np.int64)
     order = np.argsort(src, kind="stable")
@@ -120,7 +121,7 @@ def csr_graph(n: int, src: np.ndarray, dst: np.ndarray) -> sp.csr_matrix:
                          shape=(n, n))
 
 
-def _adj_graph(n: int, adj: list[list[int]]) -> sp.csr_matrix:
+def _adj_graph(n: int, adj: list[list[int]]):
     src = np.repeat(np.arange(n, dtype=np.int64),
                     [len(a) for a in adj])
     dst = np.fromiter((d for a in adj for d in a), np.int64, len(src))
@@ -132,6 +133,7 @@ def tarjan_scc(n: int, adj: list[list[int]]) -> list[int]:
     (the reference's name for the same partition)."""
     if n == 0:
         return []
+    from scipy.sparse import csgraph
     _, labels = csgraph.connected_components(
         _adj_graph(n, adj), directed=True, connection="strong")
     return labels.tolist()
@@ -141,6 +143,7 @@ def reach(n: int, adj: list[list[int]],
           queries: list[tuple[int, int]]) -> list[bool]:
     """Batch src->dst reachability: one breadth-first search per
     distinct source."""
+    from scipy.sparse import csgraph
     g = _adj_graph(n, adj)
     seen: dict = {}
     out = []

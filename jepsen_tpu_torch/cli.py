@@ -25,6 +25,17 @@ verdict lands as the reference writes it — `results.edn`,
   a stored test map holds no checker, so the verdict is `valid? true`
   unless the run cannot be loaded or saved).
 
+Ingest is pooled, as the reference's: `append` and `wr` runs are
+encoded in spawned workers (`ingest.iter_encode_chunks`) while the
+parent checks the previous chunk, one worker per core on the card (the
+CPU leaves the choice to ingest: more than one core, or
+`JEPSEN_TPU_PIPELINE`); `register` loads its runs through the same
+pool (`ingest.parallel_load`). Each worker spools its spans to
+`<store>/trace-<pid>.jsonl`, folded into `trace.json` at the end; a
+sweep starts by clearing stale spools and reclaiming shared-memory
+segments of dead sweeps (`shm.reclaim_stale`, the
+`shm_stale_reclaimed` counter).
+
 A run the device path cannot take goes to the stored checker too, as in
 the reference: for `append` and `wr` a run that is not encodable or has
 no txn ops (after the dense and the long runs), for `register` a run
@@ -244,7 +255,7 @@ def _register_sweep(run_dirs: list, dev, emit, stored,
     c = linearizable(models.cas_register(), device=dev,
                      dense_scan=dense_scan)
     t0 = time.perf_counter()
-    hists = ingest.load_runs(run_dirs)
+    hists = ingest.parallel_load(run_dirs)
     t1 = time.perf_counter()
     subs: list[list] = []          # flattened subhistories
     owners: list[tuple[int, object]] = []   # (run index, key)
@@ -398,7 +409,7 @@ def analyze_store(store: Store, checker: str = "append", device=None,
     with `report` (None defers to JEPSEN_TPU_REPORT; it needs the
     tracer on), and `analytics.jsonl` with JEPSEN_TPU_KERNEL_STATS. The
     device resolves first: without it nothing is written."""
-    from . import gates, obs
+    from . import gates, obs, shm
     from .devices import resolve_device
     from .obs import search as search_obs
     from .store import analytics_path
@@ -410,9 +421,17 @@ def analyze_store(store: Store, checker: str = "append", device=None,
         report = gates.get("JEPSEN_TPU_REPORT")
     tr = trace.fresh_run(f"analyze-store:{checker}", scope="sweep")
     search_obs.reset()
-    if report and not (tr.enabled and store.base.is_dir()):
+    if tr.enabled and store.base.is_dir():
+        # point the worker trace fabric at the store: pool workers
+        # spool their spans to <store>/trace-<pid>.jsonl; stale spools
+        # of an earlier sweep are cleared, so the store holds exactly
+        # this sweep's set
+        trace.clean_spools(store.base)
+        tr.spool_dir = store.base
+    elif report:
         print("attribution report needs tracing on "
               "(JEPSEN_TPU_TRACE=0 set); skipping", file=sys.stderr)
+    tr.counter("shm_stale_reclaimed").inc(shm.reclaim_stale())
     journal = VerdictJournal(store.base / "verdicts.jsonl", base=store.base)
     obs.install_events(store.base)
     obs.emit("sweep_start", checker=checker, resume=bool(resume),
@@ -543,9 +562,14 @@ def _analyze_store_impl(store: Store, checker: str, dev, name, resume: bool,
                         dense_scan=dense_scan, register_log=register_log,
                         record=record_stats if want_stats else None)
     else:
+        # the pool's size, decided as the reference decides it: on the
+        # card a worker pays even on a one-core host (it parses while
+        # the parent waits on the device); on the CPU, ingest decides
+        # (more than one core, or JEPSEN_TPU_PIPELINE)
+        procs = max(1, os.cpu_count() or 1) if dev.type == "cuda" else None
         huge, fallback = [], []
         for chunk in _parse_timed(ingest.iter_encode_chunks(
-                run_dirs, checker=checker)):
+                run_dirs, checker=checker, processes=procs)):
             good = []
             for d, enc in chunk:
                 if isinstance(enc, supervisor.InjectedFault):

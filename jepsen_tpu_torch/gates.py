@@ -79,6 +79,11 @@ _g("JEPSEN_TPU_TRACE", "bool", True,
 _g("JEPSEN_TPU_TRACE_MAX_EVENTS", "int", 200_000,
    "bounded tracer event buffer; overflow is counted "
    "(`dropped_events`), never silent")
+_g("JEPSEN_TPU_WORKER_TRACE", "bool", True,
+   "`0`: ingest pool workers record no spans and write no "
+   "`trace-<pid>.jsonl` spools (the merged sweep trace then carries "
+   "only parent-side tracks); moot when `JEPSEN_TPU_TRACE=0` — no "
+   "tracer means no spools either way")
 _g("JEPSEN_TPU_REPORT", "bool", False,
    "set: `analyze-store` writes the critical-path attribution report "
    "(`<store>/report.json` + `report.md`) at sweep end, as if "
@@ -130,6 +135,13 @@ _g("JEPSEN_TPU_NATIVE_LIB_DIR", "str", None,
    "load the native `.so`s from this directory instead of "
    "building into `jepsen_tpu_torch/_build/` — no rebuild, and a "
    "missing or stale lib there raises")
+_g("JEPSEN_TPU_SHM_INGEST", "bool", True,
+   "`0`: pool-encoded histories ride the classic pickle pipe instead "
+   "of `multiprocessing.shared_memory` descriptors (also "
+   "auto-falls-back when /dev/shm is unusable)")
+_g("JEPSEN_TPU_PIPELINE", "bool", False,
+   "set: force the multi-process ingest pipeline even on single-core "
+   "hosts")
 _g("JEPSEN_TPU_ENCODE_CACHE", "bool", True,
    "`0`: no `encoded.v1.bin` sidecar reads or writes — every sweep "
    "re-parses")

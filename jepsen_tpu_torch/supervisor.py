@@ -31,9 +31,12 @@ error other than an OOM (it poisons the context), and interrupts.
 
 Left out: the reference's device-slot ledger and donation gate (a
 bucket's inputs go back to PyTorch's caching allocator, in stream
-order, when they are dropped), its mesh shard markers, and pool-worker
-kills: the port has no pool, so `kill:` degrades to a raise, as the
-reference's does outside a pool worker.
+order, when they are dropped) and its mesh shard markers.
+
+The module imports no torch at load time (only `is_oom_error` and
+`must_end_sweep` need it): `ingest.encode_run_dir` calls the
+self-nemesis in every pooled encode worker, and a worker must stay as
+cheap to start as the reference's.
 """
 
 from __future__ import annotations
@@ -41,8 +44,6 @@ from __future__ import annotations
 import os
 import threading
 import zlib
-
-import torch
 
 from . import gates
 
@@ -111,8 +112,10 @@ def dispatch_timeout_s() -> float | None:
 def is_oom_error(e: BaseException) -> bool:
     """Device memory exhaustion: PyTorch's CUDA OOM by type, or the
     RESOURCE_EXHAUSTED status string the injected OOM carries."""
-    return isinstance(e, (InjectedOom, torch.cuda.OutOfMemoryError)) \
-        or "RESOURCE_EXHAUSTED" in str(e)
+    if isinstance(e, InjectedOom) or "RESOURCE_EXHAUSTED" in str(e):
+        return True
+    import torch
+    return isinstance(e, torch.cuda.OutOfMemoryError)
 
 
 def must_end_sweep(e: BaseException) -> bool:
@@ -128,6 +131,7 @@ def must_end_sweep(e: BaseException) -> bool:
         return True
     if is_oom_error(e):
         return False
+    import torch
     return isinstance(e, getattr(torch, "AcceleratorError", ())) \
         or "CUDA error" in str(e)
 
@@ -144,9 +148,10 @@ def must_end_sweep(e: BaseException) -> bool:
 #   encode:first / encode:<N>
 #                   fail the first (N) encodes in this process.
 #   kill:<rate|first|N>
-#                   the same selection; the reference's pool worker
-#                   kills itself, here (no pool) it degrades to an
-#                   encode fault, never a dead sweep.
+#                   the same selection; a pool worker flushes its trace
+#                   spool and SIGKILLs itself (the sweep resumes
+#                   serially), in the parent it degrades to an encode
+#                   fault, never a dead sweep.
 #   oom:<first|N>   raise a simulated RESOURCE_EXHAUSTED on the first
 #                   (N) bucket dispatches of this process.
 #
@@ -220,11 +225,19 @@ def reset_injection() -> None:
     _injector = None
 
 
+def _in_pool_worker() -> bool:
+    import multiprocessing as mp
+    return mp.parent_process() is not None
+
+
 def maybe_inject_encode_fault(run_dir) -> None:
     """The encode-side nemesis hook, at the top of
     `ingest.encode_run_dir`: raises InjectedFault for a selected run
-    dir (kill mode too: the port has no pool worker to kill). Each
-    injection leaves a `fault_inject` mark on the sweep tracer."""
+    dir, or, for kill mode in a pool worker, SIGKILLs the worker (in
+    the parent, kill degrades to a raise: the nemesis never kills the
+    sweep itself). Each injection leaves a `fault_inject` mark on the
+    current tracer, in a worker its own, which kill mode flushes to the
+    worker's spool first: a SIGKILLed process writes nothing after."""
     inj = _get_injector()
     if inj is None:
         return
@@ -232,6 +245,10 @@ def maybe_inject_encode_fault(run_dir) -> None:
     if inj.selects("kill", name):
         from . import trace
         trace.get_current().instant("fault_inject", kind="kill", run=name)
+        if _in_pool_worker():
+            trace.flush_worker_spool()
+            import signal
+            os.kill(os.getpid(), signal.SIGKILL)
         raise InjectedFault(f"injected worker kill for {name!r} "
                             "(parent process: degraded to encode fault)")
     if inj.selects("encode", name):

@@ -19,10 +19,14 @@ walks):
     `JEPSEN_TPU_JAX_PROFILE=1`, the counterpart of the reference's
     `jax_profile_session`.
 
+  * the worker trace fabric of the pooled ingest: each spawned encode
+    worker records its spans into its own tracer and spools them to
+    `<store>/trace-<pid>.jsonl` (`ensure_worker_tracer`,
+    `flush_worker_spool`), and `merge_traces` folds every spool of the
+    sweep into `trace.json` as that worker's own pid track.
+
 `JEPSEN_TPU_TRACE=0` swaps in the `NullTracer`: no file is written and
-a disabled span costs one call. The reference's worker-spool fabric
-(per-process spools of pooled ingest) comes with the pool, so
-`merge_traces` here folds the sweep's own events only.
+a disabled span costs one call.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import math
 import os
 import threading
 import time
+import uuid
 from pathlib import Path
 
 from . import gates
@@ -190,6 +195,8 @@ class NullTracer:
     enabled = False
     run = None
     scope = "run"
+    trace_id = None
+    spool_dir = None
     pid = None
 
     def span(self, name: str, **args):
@@ -241,6 +248,14 @@ class Tracer:
         self.scope = scope
         # the RECORDING process's pid: the export stamps events with it
         self.pid = os.getpid()
+        # sweep-unique id: worker spools record it, and merge_traces
+        # folds only spools carrying THIS id (a stale spool of an
+        # earlier sweep in the same store never contaminates)
+        self.trace_id = uuid.uuid4().hex[:16]
+        # where pool workers spool their spans (trace-<pid>.jsonl);
+        # None = workers don't spool. The sweep owner (analyze-store)
+        # points it at the store.
+        self.spool_dir = None
         # bounded event buffer: overflow is counted (dropped_events in
         # metrics.json), never silent; phase totals and metrics keep
         # accumulating past the cap
@@ -412,6 +427,12 @@ class Tracer:
 
     # -- export -----------------------------------------------------------
 
+    def origin_mono(self) -> float:
+        """This tracer's ts=0 in CLOCK_MONOTONIC seconds: the point
+        worker spools (recorded with time.monotonic, system-wide on
+        Linux) align to."""
+        return self._origin - self._mono_off
+
     def chrome_events(self) -> list[dict]:
         """The Chrome trace-event list: one metadata-named track per
         recording thread plus the synthetic device/named tracks; the
@@ -555,13 +576,280 @@ def overlap_seconds(spans_a, spans_b) -> float:
     return total
 
 
-def merge_traces(tracer) -> list[dict]:
-    """The sweep's Chrome trace-event list: the tracer's own events (the
-    port has no per-process worker spools to fold in; [] for the null
-    tracer)."""
+# ---------------------------------------------------------------------------
+# The cross-process trace fabric: per-worker span spools + merge
+# ---------------------------------------------------------------------------
+#
+# Pool workers are separate (spawned) processes. The parent hands each
+# one a small context (`worker_ctx`: trace id + spool dir + a monotonic
+# send stamp); the worker installs its own Tracer
+# (`ensure_worker_tracer`), records spans normally, and
+# `flush_worker_spool` (called per encode task) appends them to
+# `<spool_dir>/trace-<pid>.jsonl` — one JSON line per event, flushed as
+# written, torn tails skipped on load — and returns a compact digest
+# the parent folds into its own metrics. Timestamps are raw
+# CLOCK_MONOTONIC seconds: monotonic is system-wide on Linux, so
+# `merge_traces` aligns them against the parent tracer's
+# `origin_mono()` with no cross-clock arithmetic.
+
+#: Worker spool naming: this module is the only place the convention
+#: exists.
+SPOOL_PREFIX = "trace-"
+SPOOL_VERSION = 1
+
+
+def worker_trace_enabled() -> bool:
+    """The JEPSEN_TPU_WORKER_TRACE gate (default on; moot when
+    JEPSEN_TPU_TRACE=0 — no tracer, no spools)."""
+    return gates.get("JEPSEN_TPU_WORKER_TRACE")
+
+
+def spool_path(spool_dir, pid: int) -> Path:
+    return Path(spool_dir) / f"{SPOOL_PREFIX}{pid}.jsonl"
+
+
+def iter_spools(spool_dir):
+    """The worker spool files under a directory, sorted."""
+    return sorted(Path(spool_dir).glob(f"{SPOOL_PREFIX}*.jsonl"))
+
+
+def clean_spools(spool_dir) -> int:
+    """Remove stale worker spools (sweep start: spools are per-sweep
+    derived artifacts keyed by trace id; old ones only cost merge
+    filtering and disk). Returns the count removed."""
+    n = 0
+    try:
+        for p in iter_spools(spool_dir):
+            try:
+                p.unlink()
+                n += 1
+            except OSError:
+                pass
+    except OSError:
+        pass
+    return n
+
+
+def worker_ctx() -> dict | None:
+    """The context the parent hands each pool worker, or None when
+    workers should not spool (tracing off, worker tracing gated off,
+    or no spool dir registered on the current tracer) — None costs
+    the worker nothing (`ensure_worker_tracer` returns immediately)."""
+    t = get_current()
+    if not t.enabled or t.spool_dir is None \
+            or not worker_trace_enabled():
+        return None
+    return {"trace_id": t.trace_id, "dir": str(t.spool_dir),
+            "t_send": time.monotonic()}
+
+
+#: Worker-process spool state: {"f": file|None, "trace_id": str,
+#: "thr": set of tids whose names were already spooled, "tracer": T}.
+_wspool: dict | None = None
+
+
+def ensure_worker_tracer(tctx: dict | None) -> None:
+    """Install this worker process's spooling tracer (idempotent per
+    trace id). Called at the top of every pooled encode task; a None
+    context (or tracing disabled in the inherited env) is a no-op, so
+    the JEPSEN_TPU_TRACE=0 path creates no tracer and no file."""
+    global _wspool
+    if not tctx or not enabled():
+        # not spooling: in a POOL WORKER, park the NullTracer so the
+        # per-task spans don't accumulate in an enabled tracer's
+        # buffer nobody ever flushes or exports (up to _max_events
+        # retained per worker over a long sweep, pure waste). Only in
+        # a real child process — an in-process caller (tests, the
+        # serial path) must keep its own current tracer.
+        if _wspool is None:
+            import multiprocessing as mp
+            if mp.parent_process() is not None:
+                set_current(_NULL)
+        return
+    ws = _wspool
+    if ws is not None and ws["trace_id"] == tctx["trace_id"]:
+        set_current(ws["tracer"])
+        return
+    close_worker_spool()
+    tr = Tracer(run=f"ingest-worker-{os.getpid()}", scope="worker")
+    f = None
+    try:
+        p = spool_path(tctx["dir"], os.getpid())
+        f = open(p, "w")
+        f.write(json.dumps({
+            "k": "meta", "v": SPOOL_VERSION, "pid": os.getpid(),
+            "trace_id": tctx["trace_id"], "proc": "ingest-worker",
+            # the clock handshake: t_recv - t_send bounds the spawn/
+            # queue latency; on a shared CLOCK_MONOTONIC (Linux) the
+            # alignment error is zero and this is pure diagnostics
+            "t_send": tctx.get("t_send"),
+            "t_recv": time.monotonic()}) + "\n")
+        f.flush()
+    except OSError:
+        log.debug("worker spool open failed", exc_info=True)
+        if f is not None:
+            try:
+                f.close()
+            except OSError:
+                pass
+        f = None   # spans still feed the einfo digest
+    _wspool = {"f": f, "trace_id": tctx["trace_id"], "thr": set(),
+               "tracer": tr}
+    set_current(tr)
+
+
+def flush_worker_spool() -> dict | None:
+    """Spool every event recorded since the last flush (one JSON line
+    each, flushed — the torn-tail discipline) and return the compact
+    digest the parent aggregates: span count + per-name stage seconds.
+    The flushed events are dropped from the in-memory buffer, so a
+    long sweep's worker holds one task's events, not the sweep's."""
+    ws = _wspool
+    if ws is None:
+        return None
+    tr: Tracer = ws["tracer"]
+    evs = list(tr._events)
+    tr._events.clear()
+    om = tr.origin_mono()
+    stage: dict[str, float] = {}
+    lines: list[dict] = []
+    for tid, name in list(tr._threads.items()):
+        if tid not in ws["thr"]:
+            ws["thr"].add(tid)
+            lines.append({"k": "thr", "tid": tid, "name": name})
+    for name, tid in list(tr._tracks.items()):
+        if tid not in ws["thr"]:
+            ws["thr"].add(tid)
+            lines.append({"k": "thr", "tid": tid, "name": name})
+    spans = 0
+    for e in evs:
+        t0 = om + e["ts"] / 1e6
+        rec = {"k": "ev", "name": e["name"], "cat": e["cat"],
+               "ph": e["ph"], "tid": e["tid"], "t0": round(t0, 6)}
+        if e["ph"] == "X":
+            spans += 1
+            rec["t1"] = round(t0 + e["dur"] / 1e6, 6)
+            stage[e["name"]] = stage.get(e["name"], 0.0) \
+                + e["dur"] / 1e6
+        if e.get("args"):
+            rec["args"] = e["args"]
+        lines.append(rec)
+    if ws["f"] is not None and lines:
+        try:
+            ws["f"].write("".join(json.dumps(ln) + "\n"
+                                  for ln in lines))
+            ws["f"].flush()
+        except OSError:
+            log.debug("worker spool append failed", exc_info=True)
+    return {"spans": spans,
+            "stage_secs": {k: round(v, 6) for k, v in stage.items()}}
+
+
+def close_worker_spool() -> None:
+    """Drop the worker spool state (tests, or a worker re-seeded for a
+    different sweep)."""
+    global _wspool
+    ws = _wspool
+    _wspool = None
+    if ws is not None and ws["f"] is not None:
+        try:
+            ws["f"].close()
+        except OSError:
+            pass
+
+
+def load_spool(path):
+    """One spool file -> (meta | None, {tid: name}, [event dicts]).
+    Unparseable or incomplete lines — the crash-torn tail — are
+    skipped, mirroring VerdictJournal.load; a spool whose meta line
+    never landed returns meta None (the merge then ignores it)."""
+    meta = None
+    threads: dict[int, str] = {}
+    events: list[dict] = []
+    try:
+        lines = Path(path).read_text().splitlines()
+    except OSError:
+        return None, threads, events
+    for ln in lines:
+        ln = ln.strip()
+        if not ln:
+            continue
+        try:
+            rec = json.loads(ln)
+        except json.JSONDecodeError:
+            continue
+        if not isinstance(rec, dict):
+            continue
+        k = rec.get("k")
+        if k == "meta" and meta is None:
+            if "pid" in rec and "trace_id" in rec:
+                meta = rec
+        elif k == "thr":
+            try:
+                threads[int(rec["tid"])] = str(rec["name"])
+            except (KeyError, TypeError, ValueError):
+                continue
+        elif k == "ev":
+            if "name" in rec and "t0" in rec \
+                    and isinstance(rec["t0"], (int, float)):
+                events.append(rec)
+    return meta, threads, events
+
+
+def merge_traces(tracer, spool_dir=None) -> list[dict]:
+    """The merged Chrome trace-event list: the parent tracer's own
+    events plus every worker spool under `spool_dir` (default: the
+    tracer's registered spool_dir) whose trace id matches — each
+    worker becomes its own REAL-pid process track with process/thread
+    name metadata, and its monotonic timestamps align to the parent's
+    timeline via `origin_mono()` (clamped at 0: a span that somehow
+    predates the parent origin must not produce a negative ts Chrome
+    renders at the epoch). Metadata events lead, timed events follow
+    sorted by ts — the same golden shape as a single-process export."""
     if not getattr(tracer, "enabled", False):
         return []
-    return tracer.chrome_events()
+    evs = tracer.chrome_events()
+    d = spool_dir if spool_dir is not None \
+        else getattr(tracer, "spool_dir", None)
+    if d is None:
+        return evs
+    meta_evs = [e for e in evs if e["ph"] == "M"]
+    x_evs = [e for e in evs if e["ph"] != "M"]
+    om = tracer.origin_mono()
+    try:
+        spools = iter_spools(d)
+    except OSError:
+        spools = []
+    for p in spools:
+        meta, threads, wevents = load_spool(p)
+        if meta is None or meta.get("trace_id") != tracer.trace_id:
+            continue
+        try:
+            pid = int(meta["pid"])
+        except (TypeError, ValueError):
+            continue
+        meta_evs.append({
+            "name": "process_name", "ph": "M", "pid": pid, "tid": 0,
+            "args": {"name": f"{meta.get('proc', 'worker')} {pid}"}})
+        for tid, name in sorted(threads.items()):
+            meta_evs.append({"name": "thread_name", "ph": "M",
+                             "pid": pid, "tid": tid,
+                             "args": {"name": name}})
+        for w in wevents:
+            ts = max(0.0, (float(w["t0"]) - om) * 1e6)
+            e = {"name": w["name"], "cat": w.get("cat", "span"),
+                 "ph": w.get("ph", "X"), "pid": pid,
+                 "tid": w.get("tid", 0), "ts": ts}
+            if e["ph"] == "X":
+                t1 = float(w.get("t1", w["t0"]))
+                e["dur"] = max(0.0, (t1 - float(w["t0"])) * 1e6)
+            else:
+                e["s"] = "t"
+            if w.get("args"):
+                e["args"] = w["args"]
+            x_evs.append(e)
+    x_evs.sort(key=lambda e: e["ts"])
+    return meta_evs + x_evs
 
 
 # ---------------------------------------------------------------------------

@@ -4,6 +4,7 @@ run without it, and a kernel build that cannot happen raises instead of
 handing back the plain version."""
 
 import ast
+import json
 import os
 import stat
 import subprocess
@@ -138,3 +139,60 @@ def test_chip_smoke_refuses_without_cuda():
                           cwd=REPO, env=env)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_pool_worker_imports_no_torch(tmp_path):
+    """What a pooled ingest worker runs — `ingest.encode_run_dir`, the
+    self-nemesis, the shm export and the trace spool — imports neither
+    torch nor jax nor jepsen_tpu: a spawned worker must not pay
+    torch's import. Run in a process where all three are blocked."""
+    from jepsen_tpu_torch.checker.elle import synth
+    for i, T in enumerate((40, 60)):
+        d = tmp_path / "store" / f"run-{i}"
+        d.mkdir(parents=True)
+        hist = synth.synth_append_history(T=T, K=6, seed=i)
+        (d / "history.jsonl").write_text(
+            "".join(json.dumps(o) + "\n" for o in hist))
+    code = f"""
+import os, sys
+for name in ("torch",) + {FORBIDDEN!r}:
+    sys.modules[name] = None          # any import of them now fails
+sys.path.insert(0, {str(REPO)!r})
+from jepsen_tpu_torch import ingest, shm, supervisor, trace
+a, b = {str(tmp_path / "store" / "run-0")!r}, {str(tmp_path / "store" / "run-1")!r}
+os.environ["JEPSEN_TPU_SHM_INGEST"] = "1"
+enc = ingest.encode_run_dir(a, "append")
+assert enc.n > 0
+tr = trace.fresh_run("iso", scope="sweep")
+tr.spool_dir = {str(tmp_path)!r}
+idx, payload, einfo, t0, t1 = ingest._stream_worker(
+    (0, b, "append", None, trace.worker_ctx()))
+assert not isinstance(payload, Exception), payload
+assert einfo["tdigest"]["spans"] >= 1
+os.environ["JEPSEN_TPU_FAULT_INJECT"] = "encode:1.0"
+try:
+    ingest.encode_run_dir(a, "append")
+    raise SystemExit("no injected fault")
+except supervisor.InjectedFault:
+    pass
+os.environ["JEPSEN_TPU_FAULT_INJECT"] = "kill:1.0"
+try:
+    ingest.encode_run_dir(a, "append")   # the parent: degraded to a raise
+    raise SystemExit("no injected kill")
+except supervisor.InjectedFault as e:
+    assert "worker kill" in str(e)
+assert "torch" not in [m.split(".")[0] for m in sys.modules
+                       if sys.modules[m] is not None]
+print("ok")
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.split() == ["ok"]
+
+
+def test_port_shm_module_is_scanned():
+    """The AST scan above covers the pool's modules."""
+    names = {str(p.relative_to(REPO)) for p in port_sources()}
+    assert {"jepsen_tpu_torch/shm.py", "jepsen_tpu_torch/ingest.py",
+            "jepsen_tpu_torch/trace.py"} <= names

@@ -20,8 +20,13 @@ cases run with the encode-sidecar cache and the native encoder off
 (`JEPSEN_TPU_ENCODE_CACHE=0`, `JEPSEN_TPU_NATIVE_INGEST=0`), the
 `native-*` cases with both at their defaults, cold (no sidecars) and
 warm (each package's own sidecars, from a first sweep whose telemetry
-and verdicts are cleared). What the port cannot have is named in
-`REF_ONLY_*` below, with its reason.
+and verdicts are cleared). The `pooled-*` cases give both a two-core
+`os.cpu_count`, so each ingests through its process pool: the pool's
+counters (`shm_bytes`, `worker_spans`, `shm_stale_reclaimed`), its
+`worker.*` histograms and the workers' own pid tracks compare too,
+with pids in track names and the lanes of concurrent parse windows
+normalised, and the `reorder_depth` gauge (how far results arrived out
+of order) compared by presence.
 
 Tolerance: exact. analytics.jsonl byte-identical; counters and gauges
 equal; event kinds and non-time fields equal in order; the trace's
@@ -30,6 +35,7 @@ and stage names equal; verdict files byte-identical."""
 
 import json
 import os
+import re
 import time
 
 import pytest
@@ -52,10 +58,6 @@ from test_torch_register import mixed_store as register_store
 from test_torch_stored import assert_same, in_turn
 
 CPU = torch.device("cpu")
-
-#: Reference counters the port has no counterpart of: the stale shared
-#: memory reclaim runs with the reference's pooled ingest (not ported).
-REF_ONLY_COUNTERS = {"shm_stale_reclaimed"}
 
 NEW_GATES = ("JEPSEN_TPU_TRACE", "JEPSEN_TPU_TRACE_MAX_EVENTS",
              "JEPSEN_TPU_REPORT", "JEPSEN_TPU_JAX_PROFILE",
@@ -476,14 +478,22 @@ def events_of(raw: bytes) -> list:
             for ln in raw.decode().splitlines()]
 
 
-def spans_of(raw: bytes) -> tuple:
+def spans_of(raw: bytes, pooled: bool = False) -> tuple:
+    """The trace's (name, category, phase) set and its track names;
+    `pooled` writes a worker's pid in a track name as <pid> and folds
+    the numbered lanes of a named track into the track."""
     evs = json.loads(raw)["traceEvents"]
+
+    def track(name: str) -> str:
+        if pooled:
+            name = re.sub(r"-\d+$", "", re.sub(r" \d+$", " <pid>", name))
+        return name
     return ({(e["name"], e.get("cat"), e["ph"]) for e in evs
              if e["ph"] != "M"},
-            {e["args"]["name"] for e in evs if e["ph"] == "M"})
+            {track(e["args"]["name"]) for e in evs if e["ph"] == "M"})
 
 
-def assert_same_telemetry(tele: dict) -> dict:
+def assert_same_telemetry(tele: dict, pooled: bool = False) -> dict:
     ref, port = tele["ref"], tele["port"]
     assert sorted(ref) == sorted(port)
     if "analytics.jsonl" in ref:
@@ -491,16 +501,21 @@ def assert_same_telemetry(tele: dict) -> dict:
     assert events_of(ref["events.jsonl"]) == events_of(port["events.jsonl"])
     mr = json.loads(ref["metrics.json"])
     mp = json.loads(port["metrics.json"])
-    assert {k: v for k, v in mr["counters"].items()
-            if k not in REF_ONLY_COUNTERS} == mp["counters"]
+    assert mr["counters"] == mp["counters"]
+    if pooled:
+        # how deep the reorder buffer got depends on arrival order
+        assert ("reorder_depth" in mr["gauges"]) == \
+            ("reorder_depth" in mp["gauges"])
+        for m in (mr, mp):
+            m["gauges"].pop("reorder_depth", None)
     assert mr["gauges"] == mp["gauges"]
     assert sorted(mr["histograms"]) == sorted(mp["histograms"])
     for h in ("bucket_cells", "kernel.closure_rounds", "kernel.edges",
               "kernel.margin", "kernel.scc_max"):
         if h in mr["histograms"]:
             assert mr["histograms"][h] == mp["histograms"][h], h
-    sr, tr_ = spans_of(ref["trace.json"])
-    sp, tp = spans_of(port["trace.json"])
+    sr, tr_ = spans_of(ref["trace.json"], pooled)
+    sp, tp = spans_of(port["trace.json"], pooled)
     assert sr == sp
     assert tr_ == tp
     if "report.json" in ref:
@@ -511,9 +526,7 @@ def assert_same_telemetry(tele: dict) -> dict:
         assert sorted(rr["stalls"]) == sorted(rp["stalls"])
         assert rr.get("search") == rp.get("search")
         if "counters" in rr:        # a timeline to attribute
-            assert rr["counters"] == {**rp["counters"],
-                                      **{k: mr["counters"][k]
-                                         for k in REF_ONLY_COUNTERS}}
+            assert rr["counters"] == rp["counters"]
     return mp
 
 
@@ -527,11 +540,20 @@ def wr_store(base):
 
 @pytest.mark.parametrize("kind", [
     "append", "wr", "long", "register", "native-append-cold",
-    "native-append-warm", "native-wr-cold", "native-wr-warm"])
+    "native-append-warm", "native-wr-cold", "native-wr-warm",
+    "pooled-append", "pooled-wr", "pooled-register"])
 def test_sweep_telemetry_matches_reference(kind, tmp_path, telemetry_env,
                                            monkeypatch, capsys):
     pristine = tmp_path / "pristine"
     warm = None
+    pooled = kind.startswith("pooled-")
+    if pooled:
+        # two workers in each package's pool, spawned also where
+        # pytest-xdist runs this (test_torch_pool.spawn_anywhere)
+        from test_torch_pool import spawn_anywhere
+        monkeypatch.setattr(os, "cpu_count", lambda: 2)
+        spawn_anywhere(monkeypatch)
+        kind = kind.split("-")[1]
     if kind.startswith("native-"):
         # the encode cache and the native encoder at their defaults
         monkeypatch.delenv("JEPSEN_TPU_ENCODE_CACHE")
@@ -560,7 +582,13 @@ def test_sweep_telemetry_matches_reference(kind, tmp_path, telemetry_env,
     got, tele = both(tmp_path, pristine, argv, capsys,
                      pre=[(argv, None), warm] if warm else None)
     assert_same(got)
-    m = assert_same_telemetry(tele)
+    m = assert_same_telemetry(tele, pooled)
+    if pooled and kind != "register":
+        # every run parsed in a worker, each worker its own pid track
+        c = m["counters"]
+        assert c["worker_spans"] >= len(got["port"][2]) and c["shm_bytes"]
+        assert "ingest-worker <pid>" in spans_of(
+            tele["port"]["trace.json"], pooled=True)[1]
     if warm is not None:
         c = m["counters"]
         assert c["cache_hits"] == len(got["port"][2])
