@@ -163,6 +163,34 @@ failure:
               runs quarantined (encode) and every other run as the
               clean sweep's; no jttshm_<pid>_* segment of this process
               or its sweeps left in /dev/shm.
+ 14. analyze  `run_cli`'s `analyze` of one stored run, in this process,
+              through the checkers a suite composes, each path held to
+              its plain version on a copy (every file byte-identical
+              relative to its store, but the run's trace.json and
+              metrics.json): (a) a list-append run at phase 4's width
+              carrying a G1c pair and a valid one, through compose(elle
+              append_checker(backend="tpu"), stats, unhandled
+              exceptions): exit 1 and 0, G1c with its cycle-txns
+              witness, elle/G1c.txt and anomalies.edn, closure_square
+              launches equal to the dispatches' enqueued rounds; (b) a
+              rw-register run at phase 5's width with a write-skew pair
+              through rw_register_checker(backend="tpu"); (c) a lifted
+              CAS-register run of phase 8's shape (1,000 ops over 50
+              keys, key 0 corrupt) through independent.checker(
+              linearizable(backend="tpu")), the batch route: failures
+              [0], every key's results.edn and history.edn, linear.svg
+              for key 0 alone; (d) the same run through
+              independent.checker(compose(timeline, linearizable)), the
+              fan-out route: one knossos_dense_scan launch a key from
+              the pool's threads, every key's verdict as (c)'s, a
+              timeline.html a key; its device time from a second pass
+              on one thread, whose event pairs bracket no other
+              thread's wait; (e) backend="race": verdicts as (c)'s, the
+              winning side printed, a losing device side's verdicts
+              held to the CPU side's; (f) `analyze-store
+              --backend cpu` on a store written as phase 4's small CLI
+              store: the device sweep's verdicts.jsonl and verdicts,
+              no launch.
 
 The sweeps run in this process (phases 4-12) ingest through the same
 pool. Spawn re-imports this script in each worker, so it imports torch
@@ -177,7 +205,9 @@ it and read just after; a path that launched one of them no time fails.
 Phase 11's stats sweeps count as paths of their own (`stats-<path>`),
 and so do phase 12's (`native-<path>-cold`, `native-<path>-warm`) and
 phase 13's (`pool-append-cold`, `pool-append-warm`, `pool-wr`,
-`pool-register`, `pool-kill`), counted in the sweep's own process.
+`pool-register`, `pool-kill`), counted in the sweep's own process, and
+phase 14's (`analyze-append`, `analyze-wr`, `analyze-register`,
+`analyze-fanout`, `analyze-race`).
 
 The last lines are a `{"kernels": [...]}` record per kernel (with its
 launches and summed device milliseconds per path), the nvidia-smi line,
@@ -2190,6 +2220,273 @@ def phase_pool(launches: dict, verdicts: dict) -> dict:
             "numbers": out}
 
 
+def store_files(store: Path) -> dict:
+    """Every file under `store` (bytes, the store's own path replaced by
+    `<store>`, so two stores' artifacts that record their paths compare)
+    but the run's trace.json and metrics.json, and every link, by
+    store-relative path."""
+    out = {}
+    for p in sorted(store.rglob("*")):
+        rel = str(p.relative_to(store))
+        if p.is_symlink():
+            out[rel] = os.readlink(p)
+        elif p.is_file() and p.name not in ("trace.json", "metrics.json"):
+            out[rel] = p.read_bytes().replace(str(store).encode(),
+                                              b"<store>")
+    return out
+
+
+def same_files(a: Path, b: Path, what: str) -> None:
+    fa, fb = store_files(a), store_files(b)
+    check(sorted(fa) == sorted(fb),
+          f"{what}: files differ: {sorted(set(fa) ^ set(fb))}")
+    for k in fa:
+        check(fa[k] == fb[k], f"{what}: {k} differs between {a} and {b}")
+
+
+def analyze(store: Path, run: str, checker, argv=()) -> tuple[int, float]:
+    """`run_cli`'s analyze of one stored run in this process, its test
+    map carrying `checker`; returns (exit code, wall seconds). analyze
+    settles a race's losing side before it writes the verdict, and the
+    card is synchronised before this returns, so every launch is
+    counted and timed."""
+    from jepsen_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.run_cli(lambda t, a: {**t, "checker": checker},
+                         argv=["analyze", str(store / run), "--store",
+                               str(store), *argv])
+    torch.cuda.synchronize()
+    return rc, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def one_thread():
+    """`independent.checker`'s fan-out and `compose` map in the calling
+    thread for the block, one element after another."""
+    from jepsen_tpu_torch import checker, independent
+
+    def serial(f, coll, *_a, **_kw):
+        return [f(x) for x in coll]
+    saved = independent.bounded_pmap, checker.real_pmap
+    independent.bounded_pmap = checker.real_pmap = serial
+    try:
+        yield
+    finally:
+        independent.bounded_pmap, checker.real_pmap = saved
+
+
+def results_of(store: Path, run: str) -> dict:
+    return json.loads((store / run / "results.json").read_text())
+
+
+def phase_analyze(smi: str) -> dict:
+    """Phase 14: `analyze` of one stored run on the card through the
+    checkers a suite composes; returns per kernel, per path (launches,
+    device milliseconds)."""
+    from jepsen_tpu_torch import cli, independent
+    from jepsen_tpu_torch import checker as jc
+    from jepsen_tpu_torch.checker.elle import closure_square as cs
+    from jepsen_tpu_torch.checker.elle import kernels, synth, wr
+    from jepsen_tpu_torch.checker.elle import append_checker
+    from jepsen_tpu_torch.checker.knossos import dense
+    from jepsen_tpu_torch.checker.knossos import synth as ksynth
+
+    t_phase = time.perf_counter()
+    base = WORK / "analyze"
+    cs_paths, dense_paths = {}, {}
+
+    def copy(src: str, dst: str) -> Path:
+        shutil.copytree(base / src, base / dst, symlinks=True)
+        return base / dst
+
+    # (a) list-append: a G1c run and a valid one at phase 4's width
+    synth.write_synth_run_store(base / "append", B=2, T=STORE_T, K=STORE_K,
+                                bad_every=2)
+    copy("append", "append-plain")
+
+    def append_suite(**kw):
+        return jc.compose({"elle": append_checker(backend="tpu",
+                                                  device=DEVICE, **kw),
+                           "stats": jc.stats(),
+                           "exceptions": jc.unhandled_exceptions()})
+    log: list = []
+    n_total, ms_total, walls = 0, 0.0, []
+    for run, want in (("synth/run-00001", 1), ("synth/run-00000", 0)):
+        (rc, wall), n, ms = counted(lambda: analyze(
+            base / "append", run, append_suite(bucket_log=log)))
+        check(rc == want, f"analyze {run} exited {rc}, expected {want}")
+        n_total, ms_total = n_total + n, ms_total + ms
+        walls.append(wall)
+    active, skipped = launch_split(log, n_total)
+    res = results_of(base / "append", "synth/run-00001")
+    elle_res = res["elle"]
+    check(res["valid?"] is False and elle_res["anomaly-types"] == ["G1c"]
+          and elle_res["anomalies"]["G1c"][0]["cycle-txns"],
+          f"the G1c run's verdict: {elle_res.get('anomaly-types')}")
+    for f in ("G1c.txt", "anomalies.edn"):
+        check((base / "append" / "synth/run-00001/elle" / f).is_file(),
+              f"elle/{f} not written")
+    check(results_of(base / "append", "synth/run-00000")["valid?"] is True,
+          "the valid run")
+    for run in ("synth/run-00001", "synth/run-00000"):
+        (rc, _), relaunched, _ = counted(lambda: analyze(
+            base / "append-plain", run,
+            append_suite(square=cs.closure_square_ref)))
+        check(relaunched == 0, "the plain-squaring analyze launched")
+    same_files(base / "append", base / "append-plain", "analyze-append")
+    cs_paths["analyze-append"] = (n_total, ms_total)
+    say(f"analyze-append (compose of elle, stats, exceptions; {STORE_T} "
+        f"txns): G1c run {walls[0]:.3f}s wall, valid run {walls[1]:.3f}s; "
+        f"{n_total} closure_square launches ({active} active, {skipped} "
+        f"skipped; {len(log)} dispatches at T_pad "
+        f"{sorted({b['t_pad'] for b in log})}) taking {ms_total} ms of "
+        f"device time ({smi}); results, elle/ and links byte-identical "
+        "to the plain squaring's")
+
+    # (b) rw-register: a write-skew run at phase 5's width
+    synth.write_wr_run_store(base / "wr", B=2, T=WR_T, K=WR_K, bad_every=2)
+    copy("wr", "wr-plain")
+    (rc, wall), n, ms = counted(lambda: analyze(
+        base / "wr", "wr/run-00001",
+        wr.rw_register_checker(backend="tpu", device=DEVICE)))
+    check(rc == 1 and results_of(base / "wr", "wr/run-00001")[
+        "anomaly-types"] == ["G2-item"], f"wr analyze exited {rc}")
+    steps = kernels.closure_steps(kernels.pad_to(WR_T + 2, 128))
+    check(n > 0 and n % steps == 0,
+          f"{n} closure_square launches, not whole closures of {steps}")
+    (rc_p, _), relaunched, _ = counted(lambda: analyze(
+        base / "wr-plain", "wr/run-00001", wr.rw_register_checker(
+            backend="tpu", device=DEVICE, square=cs.closure_square_ref)))
+    check(rc_p == rc and relaunched == 0, "the plain-squaring wr analyze")
+    same_files(base / "wr", base / "wr-plain", "analyze-wr")
+    cs_paths["analyze-wr"] = (n, ms)
+    say(f"analyze-wr: {wall:.3f}s wall, {n} closure_square launches "
+        f"({n // steps} closures of {steps} rounds) taking {ms} ms of "
+        f"device time ({smi}); byte-identical to the plain squaring's")
+
+    # (c)-(e) an etcd-shaped lifted CAS-register run, key 0 corrupt
+    ksynth.write_register_run_store(base / "reg", runs=1, ops=REG_OPS,
+                                    keys=REG_KEYS, bad_every=1)
+    run = "register/run-00000"
+    for d in ("reg-plain", "reg-fanout", "reg-fanout-1", "reg-race"):
+        copy("reg", d)
+
+    def linear(**kw):
+        return jc.linearizable(backend=kw.pop("backend", "tpu"),
+                               device=DEVICE, **kw)
+
+    def keyed(store: Path) -> dict:
+        return results_of(store, run)["results"]
+
+    (rc, wall), n, ms = counted_dense(lambda: analyze(
+        base / "reg", run, independent.checker(linear())))
+    res = results_of(base / "reg", run)
+    check(rc == 1 and res["failures"] == [0] and n > 0,
+          f"register analyze: rc {rc}, failures {res['failures']}, "
+          f"{n} launches")
+    keys_dir = base / "reg" / run / "independent"
+    for k in range(REG_KEYS):
+        for f in ("results.edn", "history.edn"):
+            check((keys_dir / str(k) / f).is_file(), f"key {k}: no {f}")
+    check(sorted(p.parent.name for p in keys_dir.glob("*/linear.svg"))
+          == ["0"], "linear.svg for key 0 only")
+    (rc_p, _), relaunched, _ = counted_dense(lambda: analyze(
+        base / "reg-plain", run, independent.checker(
+            linear(dense_scan=dense.scan_dense_ref))))
+    check(rc_p == rc and relaunched == 0, "the plain-scan analyze")
+    same_files(base / "reg", base / "reg-plain", "analyze-register")
+    dense_paths["analyze-register"] = (n, ms)
+    say(f"analyze-register (batch route, {REG_KEYS} keys of "
+        f"{REG_OPS // REG_KEYS} ops): {wall:.3f}s wall, {n} "
+        f"knossos_dense_scan launches taking {ms} ms of device time "
+        f"({smi}); byte-identical to scan_dense_ref's")
+
+    def fanout():
+        return independent.checker(jc.compose({
+            "timeline": jc.timeline_checker(), "linear": linear()}))
+    (rc, wall), n, _ = counted_dense(lambda: analyze(
+        base / "reg-fanout", run, fanout()))
+    check(rc == 1 and n == REG_KEYS,
+          f"fan-out: rc {rc}, {n} launches for {REG_KEYS} keys")
+    # 8 threads launch at once, and a thread's event pair also brackets
+    # its wait for the GIL between the start and the launch; so the
+    # fan-out's device time comes from a second pass of the same path on
+    # one thread (the keys in turn, compose's checkers in turn)
+    with one_thread():
+        (rc_1, wall_1), n_1, ms = counted_dense(lambda: analyze(
+            base / "reg-fanout-1", run, fanout()))
+    check(rc_1 == rc and n_1 == n,
+          f"the one-thread fan-out: rc {rc_1}, {n_1} launches")
+    fan = keyed(base / "reg-fanout")
+    check({k: r["linear"] for k, r in fan.items()} == keyed(base / "reg")
+          == {k: r["linear"] for k, r in
+              keyed(base / "reg-fanout-1").items()},
+          "fan-out verdicts differ from the batch route's")
+    check(all((base / "reg-fanout" / run / "independent" / str(k)
+               / "timeline.html").is_file() for k in range(REG_KEYS)),
+          "a key without its timeline.html")
+    dense_paths["analyze-fanout"] = (n, ms)
+    say(f"analyze-fanout (compose of timeline and linear a key, "
+        f"{os.cpu_count()} threads): {wall:.3f}s wall, {n} "
+        f"knossos_dense_scan launches (one a key); on one thread "
+        f"({wall_1:.3f}s wall) they took {ms} ms of device time ({smi}); "
+        "every key's verdict as the batch route's")
+
+    (rc, wall), n, ms = counted_dense(lambda: analyze(
+        base / "reg-race", run, independent.checker(linear(backend="race"))))
+    def valid(store: Path) -> dict:
+        return {k: r["valid?"] for k, r in keyed(store).items()}
+    check(rc == 1 and valid(base / "reg-race") == valid(base / "reg"),
+          "race verdicts differ from the batch route's")
+    check(n > 0, "the race's device side never launched")
+    won = json.loads((base / "reg-race" / run / "metrics.json")
+                     .read_text())["counters"]
+    winner = "device" if won.get("race_won_device") else "cpu"
+    # the device side's own verdicts: they answered, or, as the loser,
+    # they were held to the CPU side's, which equal the batch route's
+    held = won.get("race_device_agree", 0)
+    check(won.get(f"race_won_{winner}") == 1
+          and held == (winner == "cpu")
+          and not won.get("race_device_disagree")
+          and not won.get("race_device_error"),
+          f"the race's counters: {won}")
+    dense_paths["analyze-race"] = (n, ms)
+    say(f"analyze-race: {wall:.3f}s wall, the {winner} side won; {n} "
+        f"knossos_dense_scan launches (the device side run to its end, "
+        f"its verdicts {'held to the CPU side' if held else 'the answer'})"
+        f" taking {ms} ms of device time ({smi}); verdicts as the batch "
+        "route's")
+
+    # (f) analyze-store --backend cpu: the host oracles, no launch
+    for d in ("small-dev", "small-host"):
+        synth.write_synth_run_store(base / d, B=8, T=300, K=16, bad_every=4)
+    rc_d, _, _, _ = sweep(base / "small-dev", device=DEVICE)
+    saved = os.environ.get("JEPSEN_TPU_BACKEND")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc_h, n, _ = counted(lambda: cli.main([
+            "analyze-store", "--store", str(base / "small-host"),
+            "--backend", "cpu"]))
+    check(rc_h == rc_d == 1 and n == 0,
+          f"--backend cpu: rc {rc_h} (device {rc_d}), {n} launches")
+    check(os.environ.get("JEPSEN_TPU_BACKEND") == saved,
+          "--backend outlived its call")
+    journal = [(base / d / "verdicts.jsonl").read_text()
+               for d in ("small-dev", "small-host")]
+    check(journal[0] == journal[1], "--backend cpu's verdicts.jsonl differs")
+    for p in sorted((base / "small-dev" / "synth").iterdir()):
+        a, b = (json.loads((base / d / "synth" / p.name / "results.json")
+                           .read_text()) for d in ("small-dev", "small-host"))
+        check((a["valid?"], a["anomaly-types"])
+              == (b["valid?"], b["anomaly-types"]),
+              f"--backend cpu: {p.name}'s verdict differs")
+    say("analyze-store --backend cpu: the same verdicts.jsonl and "
+        "verdicts as the device sweep, no kernel launched")
+    say(f"phase 14 in {time.perf_counter() - t_phase:.1f}s")
+    return {"closure_square": cs_paths, "knossos_dense_scan": dense_paths}
+
+
 def main() -> int:
     global torch
     import torch
@@ -2254,6 +2551,9 @@ def main() -> int:
                           verdicts)
         paths.update(pool["closure_square"])
         dense_paths.update(pool["knossos_dense_scan"])
+        single = phase_analyze(smi)
+        paths.update(single["closure_square"])
+        dense_paths.update(single["knossos_dense_scan"])
         for rec, ps in ((record, paths), (dense_record, dense_paths)):
             rec["launches"] = sum(n for n, _ in ps.values())
             rec["paths"] = {k: {"launches": n, "device_ms": ms}

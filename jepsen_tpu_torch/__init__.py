@@ -8,10 +8,14 @@ where it needs a module of the JAX package it keeps its own copy, under
 the same name and in the same place, so each module here has an
 obvious counterpart there.
 
-The ported slice is the batch Elle sweep, list-append (dense, and past
-the dense limit by SCC condensation) and rw-register:
+The ported slices are the batch sweeps — Elle list-append (dense, and
+past the dense limit by SCC condensation) and rw-register, per-key
+CAS-register linearizability, the stored checker — and the single-run
+checker stack that `analyze` runs on one stored run (`checker`'s
+compose, stats and friends, `Linearizable`, `checker.elle`'s
+`AppendChecker` and `WrChecker`, `independent.checker`):
 
-    cli            python -m jepsen_tpu_torch.cli analyze-store
+    cli            run_cli (analyze); analyze-store
     store          run-dir walk, verdict journal, results.edn rendering
     ingest         history -> encoding (append or wr) in a spawned pool
     shm            the pool's shared-memory transport
@@ -28,7 +32,9 @@ the dense limit by SCC condensation) and rw-register:
       wr           the rw-register encoder and verdict
       closure_square + csrc/closure_square.cu   the hand kernel
     _build         compiles csrc/*.cu with nvcc at first use
-    devices        the torch.device every entry point runs on
+    devices        the torch.device every entry point runs on, and
+                   the checkers' backend (auto|tpu: the device path)
+    independent    per-key split and checker; util: the thread maps
 
 Entry points run on `cuda` unless the caller asks for `cpu`.
 """

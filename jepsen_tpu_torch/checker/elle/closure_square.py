@@ -33,6 +33,8 @@ event pair appended around each launch, for timing a whole sweep.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 #: The kernel's row-tile edge; T must be a multiple of it.
@@ -119,7 +121,8 @@ def closure_square(m: torch.Tensor, mT: torch.Tensor,
         msg = lib.closure_square_error_string(rc).decode()
         raise _build.KernelLaunchError(
             f"closure_square launch failed (B={B}, T={T}): {msg}")
-    closure_square.launches += 1
+    with _COUNT_LOCK:   # launches come from several host threads
+        closure_square.launches += 1
     if events is not None:
         end = torch.cuda.Event(enable_timing=True)
         end.record(stream)
@@ -129,3 +132,6 @@ def closure_square(m: torch.Tensor, mT: torch.Tensor,
 
 closure_square.launches = 0
 closure_square.events = None
+#: Guards the read-modify-write of `.launches`: `independent.checker`'s
+#: fan-out and `checker.compose` launch from several threads.
+_COUNT_LOCK = threading.Lock()

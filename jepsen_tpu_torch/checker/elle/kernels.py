@@ -804,3 +804,4 @@ def flags_to_names(word: int) -> dict:
     if not out and word & (1 << CYCLE):
         out["cycle"] = True
     return out
+

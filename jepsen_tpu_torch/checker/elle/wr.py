@@ -1,10 +1,10 @@
 """Elle rw-register analysis: write/read register transactions.
 
-The port's own copy of `jepsen_tpu/checker/elle/wr.py` (the encoder and
-the verdict; the reference's `WrChecker` class is not ported — the
-batch sweep applies `WR_PROHIBITED`, its default prohibited set). Op
-values are transactions of [f k v] micro-ops with f in {"r","w"};
-writes are assumed unique per key.
+The port's own copy of `jepsen_tpu/checker/elle/wr.py`: the encoder,
+the verdict and the single-run `WrChecker` (the batch sweep applies
+`WR_PROHIBITED`, its default prohibited set). Op values are
+transactions of [f k v] micro-ops with f in {"r","w"}; writes are
+assumed unique per key.
 
 Unlike list-append, a register read reveals only the *latest* value, so
 version orders are not observable directly; they are inferred per key as
@@ -27,7 +27,10 @@ derive dependency edges between txns:
   rw  ext-reader of v1 -> writer(v2)  for v1 -> v2 adjacent versions
 
 Cycle search + classification then runs on the device over explicit
-edge matrices (`kernels.check_edge_batch_bucketed`).
+edge matrices (`kernels.check_edge_batch`, bucketed for many histories
+by `kernels.check_edge_batch_bucketed`), or on the host oracle
+(`graph.classify_cycles`) with backend "cpu". `kernels` and torch are
+imported where used: the ingest pool's workers import this module.
 
 Host-detected anomalies: internal (txn observes state inconsistent with
 its own prior reads/writes), G1a (read of a failed txn's write), G1b
@@ -42,6 +45,7 @@ from typing import Iterable
 import numpy as np
 
 from ... import history as h
+from .. import Checker
 from . import graph as g
 from . import txn as t
 from .encode import INFO, OK, NEVER_COMPLETED, _note, \
@@ -365,6 +369,27 @@ def encode_wr_history(history: list[dict], *, sequential_keys: bool = False,
     return enc
 
 
+def cycle_anomalies_cpu(enc: WrEncoded, realtime: bool = False,
+                        process_order: bool = False) -> dict:
+    edges = enc.edges + g.order_edges(
+        enc.n, enc.process, enc.invoke_index, enc.complete_index,
+        process_order=process_order, realtime=realtime)
+    return g.classify_cycles(enc.n, edges)
+
+
+def cycle_anomalies_tpu(enc: WrEncoded, realtime: bool = False,
+                        process_order: bool = False, device=None,
+                        square=None) -> dict:
+    """The device path's anomaly flags for one history, on `device`
+    (`kernels.check_edge_batch`); `square` replaces the squaring."""
+    if enc.n == 0:
+        return {}
+    from . import kernels
+    return kernels.check_edge_batch(
+        [to_edge_dict(enc)], device, realtime=realtime,
+        process_order=process_order, square=square)[0]
+
+
 # Anomalies that always invalidate an rw-register history.
 ALWAYS_INVALID = frozenset({
     "internal", "cyclic-versions", "dirty-update", "phantom-read",
@@ -423,3 +448,92 @@ def expand_anomalies(wanted: Iterable[str]) -> frozenset:
 #: internal, expanded), which its analyze-store sweep applies to every
 #: history.
 WR_PROHIBITED = expand_anomalies(("G2", "G1a", "G1b", "internal"))
+
+
+class WrChecker(Checker):
+    """Checker for rw-register histories (wr.clj:16-56 equivalent).
+
+    Options: anomalies to prohibit (default G2+G1a+G1b+internal, the
+    reference default at wr.clj:47), backend ("auto" | "tpu": the
+    device path, "cpu": the host oracle; `devices.resolve_backend`),
+    version-order inference flags, realtime/process_order graph
+    additions; and the port's `device` (default cuda) and `square` (e.g.
+    `closure_square_ref` in place of the kernel)."""
+
+    def __init__(self, anomalies: Iterable[str] = ("G2", "G1a", "G1b",
+                                                   "internal"),
+                 backend: str = "auto", sequential_keys: bool = False,
+                 linearizable_keys: bool = False, wfr_keys: bool = False,
+                 realtime: bool = False, process_order: bool = False,
+                 device=None, square=None):
+        self.prohibited = expand_anomalies(anomalies) if anomalies \
+            else frozenset()
+        self.backend = backend
+        self.opts = dict(sequential_keys=sequential_keys,
+                         linearizable_keys=linearizable_keys,
+                         wfr_keys=wfr_keys)
+        self.realtime = realtime
+        self.process_order = process_order
+        self.device = device
+        self.square = square
+
+    def check(self, test, history, opts):
+        from ...devices import resolve_backend
+        from . import artifacts
+        backend = resolve_backend(self.backend)
+        enc = encode_wr_history(history, **self.opts)
+        kw = dict(realtime=self.realtime, process_order=self.process_order)
+        divergent: dict = {}
+        if backend == "tpu":
+            cycles = cycle_anomalies_tpu(enc, device=self.device,
+                                         square=self.square, **kw)
+            if cycles:
+                cycles, divergent = artifacts.device_host_refine(
+                    cycles, lambda: cycle_anomalies_cpu(enc, **kw))
+        else:
+            cycles = cycle_anomalies_cpu(enc, **kw)
+        verdict = render_wr_verdict(enc, cycles, self.prohibited)
+        return artifacts.attach(verdict, divergent, test, opts)
+
+    def render_failure(self, test, history, res, opts) -> None:
+        """Per-key artifact hook for batched independent dispatch."""
+        from . import artifacts
+        artifacts.attach(res, res.get("device-host-divergence", {}),
+                         test, opts)
+
+    def check_batch(self, test, histories: list, opts) -> list[dict]:
+        """Batched per-key dispatch: host version-order inference per
+        history, then length-bucketed device cycle dispatches over the
+        packed edge matrices (`kernels.check_edge_batch_bucketed`);
+        flagged histories re-run the host oracle for witnesses."""
+        from ...devices import resolve_backend
+        from . import artifacts
+        backend = resolve_backend(self.backend)
+        encs = [encode_wr_history(h, **self.opts) for h in histories]
+        kw = dict(realtime=self.realtime,
+                  process_order=self.process_order)
+        if backend != "tpu":
+            return [render_wr_verdict(e, cycle_anomalies_cpu(e, **kw),
+                                      self.prohibited) for e in encs]
+        from . import kernels
+        cycles_list = kernels.check_edge_batch_bucketed(
+            [to_edge_dict(e) for e in encs], self.device,
+            square=self.square, **kw)
+        out = []
+        for enc, cycles in zip(encs, cycles_list):
+            divergent: dict = {}
+            if cycles:
+                cycles, divergent = artifacts.device_host_refine(
+                    cycles,
+                    lambda enc=enc: cycle_anomalies_cpu(enc, **kw))
+            verdict = render_wr_verdict(enc, cycles, self.prohibited)
+            if divergent:
+                verdict["device-host-divergence"] = divergent
+            out.append(verdict)
+        return out
+
+
+def rw_register_checker(anomalies: Iterable[str] = ("G2", "G1a", "G1b",
+                                                    "internal"),
+                        backend: str = "auto", **kw) -> Checker:
+    return WrChecker(anomalies, backend, **kw)

@@ -32,6 +32,8 @@ end) CUDA event pair appended around each launch.
 
 from __future__ import annotations
 
+import threading
+
 from dataclasses import dataclass
 
 import numpy as np
@@ -392,7 +394,8 @@ def knossos_dense_scan(regs: torch.Tensor, comp: torch.Tensor,
         raise _build.KernelLaunchError(
             f"knossos_dense_scan launch failed (B={B}, C={C}, S={n_slots}, "
             f"V={n_values}, {plan}, stats={with_stats}): {msg}")
-    knossos_dense_scan.launches += 1
+    with _COUNT_LOCK:   # launches come from several host threads
+        knossos_dense_scan.launches += 1
     if events is not None:
         end = torch.cuda.Event(enable_timing=True)
         end.record(stream)
@@ -402,6 +405,9 @@ def knossos_dense_scan(regs: torch.Tensor, comp: torch.Tensor,
 
 knossos_dense_scan.launches = 0
 knossos_dense_scan.events = None
+#: Guards the read-modify-write of `.launches`: `independent.checker`'s
+#: fan-out and `checker.compose` launch from several threads.
+_COUNT_LOCK = threading.Lock()
 
 
 def check_dense_device(regs: torch.Tensor, comp: torch.Tensor, *,

@@ -1,10 +1,28 @@
 """Command line of the PyTorch port:
 
+    python -m jepsen_tpu_torch.cli analyze [RUN_DIR] [--store DIR] \\
+        [--backend auto|tpu|cpu|race] [--[no-]trace] [--[no-]jax-profile]
     python -m jepsen_tpu_torch.cli analyze-store --store DIR \\
         [--checker append|wr|register|stored] [--name NAME] [--resume] \\
-        [--report] [--[no-]trace] [--[no-]jax-profile] [--device cuda|cpu]
+        [--report] [--backend auto|tpu|cpu|race] [--[no-]trace] \\
+        [--[no-]jax-profile] [--device cuda|cpu]
 
-Counterpart of `jepsen_tpu/cli.py`'s `analyze-store`: every stored run
+Counterpart of `jepsen_tpu/cli.py`. A suite's main calls
+`run_cli(test_fn, ...)`, as the reference's do: `analyze` re-runs the
+test map's checker (`test_fn(stored_test, args)` returns it) on one
+stored run (default: the store's latest) and writes its results, its
+checkers' artifacts and the run's `trace.json`/`metrics.json` into the
+run dir, printing one JSON line. `test` and `test-all` are named but
+refused (exit 254): the harness that runs a test is not ported.
+`python -m jepsen_tpu_torch.cli` is `run_cli` with the stored test map
+as it is (no checker: `valid? true`).
+
+`--backend` exports `JEPSEN_TPU_BACKEND` for the call (restored when
+`run_cli` returns), which every `auto` checker reads
+(`devices.resolve_backend`): `tpu` and `auto` the device path, `cpu`
+the host oracles, `race` both at once for linearizability.
+
+`analyze-store`, the batch path: every stored run
 (with `--name`, every run of that test name) is checked, and each
 verdict lands as the reference writes it — `results.edn`,
 `results.json` (atomic), the `.sweep-<checker>` resume marker, one
@@ -49,10 +67,16 @@ results.json.
 `verdicts.jsonl` line — and counts their recorded validity toward the
 exit code.
 
+`--backend cpu` sweeps append and wr runs through the host oracles
+(`cycle_anomalies_cpu`: witness cycles where the device path records
+flags) and register runs through the CPU WGL engine, with no launch
+and no device; `race` reaches the register sweep's
+`Linearizable.check_batch`.
+
 Exit codes, as the reference's: 0 every run valid, 1 some run invalid,
 2 validity unknown, 254 usage error (or no stored runs), 255 crash or
 no CUDA device. Every checker resolves the device first, `stored`
-included.
+included, unless `--backend cpu` is given.
 
 What goes wrong is quarantined as the reference's supervisor does
 (`supervisor`): the run gets `valid? unknown` with its cause and
@@ -89,8 +113,11 @@ import logging
 import os
 import sys
 import time
+from pathlib import Path
+from typing import Callable
 
 from . import trace
+from .devices import BACKENDS
 from .store import Store, VerdictJournal
 
 log = logging.getLogger(__name__)
@@ -401,7 +428,9 @@ def analyze_store(store: Store, checker: str = "append", device=None,
     bucket (see parallel.check_bucketed), `condense_log` one dict per
     condensed long history (see condense.check_condensed) and
     `register_log` the register sweep's load/split/check seconds, key
-    count and device tiers. Returns the worst exit code.
+    count and device tiers. Returns the worst exit code. With
+    JEPSEN_TPU_BACKEND=cpu (`--backend cpu`) every check runs on the
+    host oracles and no device is resolved.
 
     The sweep runs under a fresh sweep tracer and the flight recorder
     (module doc): at its end `trace.json` and `metrics.json` are written
@@ -416,7 +445,9 @@ def analyze_store(store: Store, checker: str = "append", device=None,
 
     if checker not in CHECKERS:
         raise ValueError(f"unknown checker {checker!r}")
-    dev = resolve_device(device)
+    # the host oracles need no device (`--backend cpu`)
+    dev = None if gates.get("JEPSEN_TPU_BACKEND") == "cpu" \
+        else resolve_device(device)
     if report is None:
         report = gates.get("JEPSEN_TPU_REPORT")
     tr = trace.fresh_run(f"analyze-store:{checker}", scope="sweep")
@@ -522,8 +553,11 @@ def _analyze_store_impl(store: Store, checker: str, dev, name, resume: bool,
     trace.get_current().gauge("runs_total").set(len(run_dirs))
     worst = prior_worst
     # kernel search telemetry: the checks return per-history stats,
-    # recorded under the store-relative dir the journal uses
-    want_stats = search_obs.enabled()
+    # recorded under the store-relative dir the journal uses; the host
+    # oracles of an append or wr sweep run no kernel, so record none
+    host_only = dev is None
+    want_stats = search_obs.enabled() and (
+        checker == "register" or not host_only)
 
     def record_stats(d, stats, anomalies=None) -> None:
         if stats is not None:
@@ -566,7 +600,8 @@ def _analyze_store_impl(store: Store, checker: str, dev, name, resume: bool,
         # card a worker pays even on a one-core host (it parses while
         # the parent waits on the device); on the CPU, ingest decides
         # (more than one core, or JEPSEN_TPU_PIPELINE)
-        procs = max(1, os.cpu_count() or 1) if dev.type == "cuda" else None
+        procs = max(1, os.cpu_count() or 1) \
+            if dev is not None and dev.type == "cuda" else None
         huge, fallback = [], []
         for chunk in _parse_timed(ingest.iter_encode_chunks(
                 run_dirs, checker=checker, processes=procs)):
@@ -595,7 +630,11 @@ def _analyze_store_impl(store: Store, checker: str, dev, name, resume: bool,
             if not good:
                 continue
             souts: list | None = [] if want_stats else None
-            if checker == "wr":
+            if host_only:
+                oracle = wr.cycle_anomalies_cpu if checker == "wr" \
+                    else elle.cycle_anomalies_cpu
+                cycles_per = [oracle(e) for _d, e in good]
+            elif checker == "wr":
                 cycles_per = _wr_chunk_with_backdown(
                     good, kernels, wr, stats_out=souts, device=dev,
                     square=square, bucket_log=bucket_log)
@@ -611,10 +650,11 @@ def _analyze_store_impl(store: Store, checker: str, dev, name, resume: bool,
         for d, enc in huge:
             shuge: list | None = [] if want_stats else None
             try:
-                cycles = parallel.check_long_history(
-                    enc, dev, dense_limit=parallel.DENSE_TXN_LIMIT,
-                    square=square, bucket_log=bucket_log,
-                    condense_log=condense_log, stats_out=shuge)
+                cycles = elle.cycle_anomalies_cpu(enc) if host_only \
+                    else parallel.check_long_history(
+                        enc, dev, dense_limit=parallel.DENSE_TXN_LIMIT,
+                        square=square, bucket_log=bucket_log,
+                        condense_log=condense_log, stats_out=shuge)
             except Exception as e:
                 if supervisor.must_end_sweep(e):
                     raise
@@ -750,9 +790,131 @@ def apply_trace_opts(args: argparse.Namespace) -> None:
         gates.export("JEPSEN_TPU_JAX_PROFILE", args.jax_profile)
 
 
-def main(argv: list[str] | None = None) -> int:
-    p = argparse.ArgumentParser(prog="python -m jepsen_tpu_torch.cli")
-    sub = p.add_subparsers(dest="command", required=True)
+def add_test_opts(p: argparse.ArgumentParser) -> None:
+    """The reference's test option set (cli.clj:55-99), so a suite's
+    `test_fn` sees a complete args namespace; of it the port reads
+    `--store` and `--backend` (and the trace options)."""
+    p.add_argument("--node", "-n", action="append", dest="nodes",
+                   metavar="HOST", help="node to test (repeatable)")
+    p.add_argument("--nodes-file", help="file with one node per line")
+    p.add_argument("--username", default="root")
+    p.add_argument("--password")
+    p.add_argument("--port", type=int, default=22)
+    p.add_argument("--private-key-path")
+    p.add_argument("--dummy", action="store_true",
+                   help="use the no-op dummy remote")
+    p.add_argument("--concurrency", default="1n",
+                   help="worker count; 'Nn' means N per node")
+    p.add_argument("--time-limit", type=float, default=60.0,
+                   help="seconds of main workload")
+    p.add_argument("--test-count", type=int, default=1)
+    p.add_argument("--leave-db-running", action="store_true")
+    p.add_argument("--store", default="store", help="store directory")
+    p.add_argument("--faults", default=None,
+                   help="comma list for the combined nemesis bundle "
+                        "(partition,kill,pause,clock)")
+    p.add_argument("--backend", default="auto", choices=BACKENDS,
+                   help="analysis backend: the device path (tpu, and "
+                        "auto, the default), the host oracles (cpu), or "
+                        "both raced for linearizability (race)")
+    add_trace_opts(p)
+
+
+def _trace_path_of(test: dict) -> str | None:
+    """The run's written trace.json path (None when tracing is off)."""
+    try:
+        p = test["store"].test_dir(test) / "trace.json"
+        return str(p) if p.exists() else None
+    except Exception:
+        return None
+
+
+def _print_result_line(test: dict, line: dict) -> None:
+    """The one-line JSON result every run-style subcommand prints,
+    with the run's written trace.json path attached when one exists."""
+    tp = _trace_path_of(test)
+    if tp:
+        line["trace"] = tp
+    print(json.dumps(line))
+
+
+def test_map_from_args(args: argparse.Namespace) -> dict:
+    nodes = list(args.nodes or [])
+    if args.nodes_file:
+        nodes += [ln.strip() for ln in
+                  Path(args.nodes_file).read_text().splitlines()
+                  if ln.strip()]
+    t: dict = {
+        "backend": getattr(args, "backend", "auto"),
+        "concurrency": args.concurrency,
+        **({"faults": [f.strip() for f in args.faults.split(",")
+                       if f.strip()]}
+           if getattr(args, "faults", None) else {}),
+        "time_limit": args.time_limit,
+        "leave_db_running": args.leave_db_running,
+        "store": Store(args.store),
+        "ssh": {"username": args.username, "password": args.password,
+                "port": args.port, "private_key_path": args.private_key_path,
+                "dummy": args.dummy},
+    }
+    if nodes:
+        t["nodes"] = nodes
+    return t
+
+
+def _analyze(test_fn, args: argparse.Namespace) -> int:
+    """`analyze`: one stored run through the test map's checker
+    (`core.analyze`) under a fresh run-scoped tracer, so `save_2` also
+    writes the run's trace.json and metrics.json."""
+    from . import core, independent
+    store = Store(args.store)
+    run_dir = args.run_dir or store.latest()
+    if run_dir is None:
+        print("no stored runs", file=sys.stderr)
+        return 254
+    stored = store.load_test(run_dir)
+    test = test_fn(stored, args)
+    test.setdefault("name", stored.get("name", "analyze"))
+    # json/edn round trips erase the lifted-tuple type; re-lift so
+    # per-key checkers split the history again
+    test["history"] = independent.relift_history(stored["history"])
+    test["store"] = store
+    trace.fresh_run(test.get("name"))
+    with trace.profile_session(Path(run_dir) / "torch-profile"):
+        test = core.analyze(test)
+    _print_result_line(test, {"valid?": test["results"].get("valid?")})
+    return validity_exit_code(test["results"])
+
+
+def run_cli(test_fn: Callable[[dict, argparse.Namespace], dict],
+            name: str = "jepsen-tpu-torch", opt_fn=None,
+            argv: list[str] | None = None,
+            tests_fn: Callable[[dict, argparse.Namespace], list] | None
+            = None) -> int:
+    """Build and dispatch the CLI (the reference's `run_cli`):
+    `test_fn(base_test, args)` returns the full test map, its checker
+    included; `opt_fn(parser)` may add suite-specific options to
+    `test`, `analyze` and `test-all`. `tests_fn` is accepted for the
+    reference's signature: `test` and `test-all` are refused (254)
+    until the harness that runs a test is ported. Returns the exit
+    code."""
+    parser = argparse.ArgumentParser(prog=name)
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p_test = sub.add_parser("test", help="run a test (not ported)")
+    add_test_opts(p_test)
+    p_an = sub.add_parser("analyze",
+                          help="re-run the checker on a stored history")
+    p_an.add_argument("run_dir", nargs="?",
+                      help="store run dir (default: latest)")
+    add_test_opts(p_an)
+    p_all = sub.add_parser("test-all",
+                           help="run a whole suite of tests (not ported)")
+    add_test_opts(p_all)
+    if opt_fn:
+        for p in (p_test, p_an, p_all):
+            opt_fn(p)
+
     a = sub.add_parser(
         "analyze-store",
         help="batch re-check every stored run on the GPU")
@@ -764,6 +926,10 @@ def main(argv: list[str] | None = None) -> int:
                         "each run's own checker")
     a.add_argument("--name", default=None,
                    help="only runs of this test name")
+    a.add_argument("--backend", default="auto", choices=BACKENDS,
+                   help="cpu: the host oracles, no device; race: the "
+                        "register sweep races the device path against "
+                        "the CPU engine; auto and tpu: the device path")
     a.add_argument("--resume", action="store_true",
                    help="continue an interrupted sweep: skip runs this "
                         "checker already verdicted (its .sweep-* "
@@ -779,28 +945,62 @@ def main(argv: list[str] | None = None) -> int:
                         "when asked)")
     add_trace_opts(a)
     try:
-        args = p.parse_args(argv)
+        args = parser.parse_args(argv)
     except SystemExit as e:
         return 254 if e.code not in (0, None) else 0
     logging.basicConfig(level=logging.WARNING)
-    apply_trace_opts(args)
-    from .devices import DeviceUnavailable
+    from . import gates
+    # every auto-backend checker of this call, and the processes it
+    # starts, resolve per this choice (devices.resolve_backend); the
+    # export ends with the call, so an in-process caller's later
+    # checkers keep their own
+    prior = gates.get_raw("JEPSEN_TPU_BACKEND")
+    if args.backend != "auto":
+        gates.export("JEPSEN_TPU_BACKEND", args.backend)
     try:
+        return _dispatch(test_fn, args)
+    finally:
+        if prior is None:
+            os.environ.pop("JEPSEN_TPU_BACKEND", None)
+        else:
+            os.environ["JEPSEN_TPU_BACKEND"] = prior
+
+
+def _dispatch(test_fn, args: argparse.Namespace) -> int:
+    """Run `run_cli`'s parsed command; returns the exit code."""
+    from .checker import Linearizable
+    from .devices import DeviceUnavailable
+    apply_trace_opts(args)
+    try:
+        if args.command in ("test", "test-all"):
+            print(f"{args.command}: running a test is not ported to "
+                  "jepsen_tpu_torch; use analyze on a stored run",
+                  file=sys.stderr)
+            return 254
+        if args.command == "analyze":
+            return _analyze(test_fn, args)
         t0 = time.perf_counter()
         rc = analyze_store(Store(args.store), checker=args.checker,
                            device=args.device, name=args.name,
                            resume=args.resume, report=args.report or None)
+        Linearizable.settle_races()   # a race's losing device side
         print(f"analyze-store: {time.perf_counter() - t0:.3f}s",
               file=sys.stderr)
         return rc
     except DeviceUnavailable as e:
-        print(f"analyze-store: {e}", file=sys.stderr)
+        print(f"{args.command}: {e}", file=sys.stderr)
         return 255
     except KeyboardInterrupt:
         return 255
     except Exception:
         log.exception("fatal error")
         return 255
+
+
+def main(argv: list[str] | None = None) -> int:
+    """`python -m jepsen_tpu_torch.cli`: `run_cli` over the stored test
+    map as it is."""
+    return run_cli(lambda tmap, args: tmap, argv=argv)
 
 
 if __name__ == "__main__":

@@ -20,7 +20,7 @@ log = logging.getLogger(__name__)
 
 def analyze(test: dict) -> dict:
     """Index the history, run the checker (inside an "analyze" trace
-    span), persist results."""
+    span), settle any race it started, persist results."""
     from . import trace
     log.info("Analyzing...")
     test["history"] = jhistory.index(test.get("history", []))
@@ -28,6 +28,9 @@ def analyze(test: dict) -> dict:
         results = jchecker.check_safe(
             test.get("checker") or jchecker.unbridled_optimism(),
             test, test["history"], {})
+    # a race's losing device side ends before the verdict is written,
+    # so a failure it meets is raised here, not dropped
+    jchecker.Linearizable.settle_races()
     test["results"] = results
     store: Store = test.get("store") or Store()
     test["store"] = store

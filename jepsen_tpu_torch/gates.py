@@ -123,6 +123,10 @@ _g("JEPSEN_TPU_DISPATCH_TIMEOUT_S", "float", None,
 _g("JEPSEN_TPU_FAULT_INJECT", "str", "",
    "self-nemesis spec, e.g. `encode:0.05,oom:first` — deterministic "
    "encode faults / simulated OOMs")
+_g("JEPSEN_TPU_BACKEND", "str", None,
+   "analysis backend override: `tpu` (the device path, on the "
+   "checker's device)|`cpu` (the host oracles)|`race` (the CLI's "
+   "`--backend` exports it; `auto` is the device path)")
 _g("JEPSEN_TPU_FRONTIER", "int", 512,
    "bounded-frontier arena size for the sorted-frontier register "
    "kernel")

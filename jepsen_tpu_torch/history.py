@@ -1,5 +1,5 @@
 """The op model: the part of `jepsen_tpu/history.py` the port's encoders,
-store loader and linearizability checker use.
+store loader and checkers use.
 
 An operation is a plain dict with "type" ("invoke" | "ok" | "fail" |
 "info"), "process", "f", "value", "time" and "index"; a history is a
@@ -15,6 +15,7 @@ from .edn import dumps, loads_all
 Op = dict  # documentation alias
 
 INVOKE, OK, FAIL, INFO = "invoke", "ok", "fail", "info"
+NEMESIS = "nemesis"
 
 
 def is_invoke(o: Op) -> bool:
@@ -128,6 +129,22 @@ def complete(history: list[Op]) -> list[Op]:
     return out
 
 
+def invocations(history: Iterable[Op]) -> list[Op]:
+    return [o for o in history if is_invoke(o)]
+
+
+def completions(history: Iterable[Op]) -> list[Op]:
+    return [o for o in history if not is_invoke(o) and is_client_op(o)]
+
+
+def oks(history: Iterable[Op]) -> list[Op]:
+    return [o for o in history if is_ok(o)]
+
+
+def filter_f(f: Any, history: Iterable[Op]) -> list[Op]:
+    return [o for o in history if o.get("f") == f]
+
+
 def client_ops(history: Iterable[Op]) -> list[Op]:
     return [o for o in history if is_client_op(o)]
 
@@ -141,3 +158,18 @@ def remove_failures(history: list[Op]) -> list[Op]:
             failed.add(id(inv))
             failed.add(id(comp))
     return [o for o in history if id(o) not in failed and not is_fail(o)]
+
+
+def history_latencies(history: list[Op]) -> list[Op]:
+    """Invocations gain "latency" (ns) and "completion" (the completing
+    op); see `util.history_latencies`."""
+    from .util import history_latencies as _hl
+    return _hl(history)
+
+
+def nemesis_intervals(history: list[Op], start_fs: set | None = None,
+                      stop_fs: set | None = None
+                      ) -> list[tuple[Op, Op | None]]:
+    """Nemesis [start, stop] intervals; see `util.nemesis_intervals`."""
+    from .util import nemesis_intervals as _ni
+    return _ni(history, {"start": start_fs, "stop": stop_fs})

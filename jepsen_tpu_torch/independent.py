@@ -1,16 +1,24 @@
-"""Independent keys: op values lifted to `[k v]` tuples, and the per-key
-split of a history.
+"""Independent keys: op values lifted to `[k v]` tuples, the per-key
+split of a history, and the checker that checks each key alone.
 
 The checker-side part of `jepsen_tpu/independent.py` (the reference's
 jepsen.independent): `Tuple` and its helpers, `relift_history` (which
 re-lifts values a JSON round trip turned into plain two-element lists),
-and the per-key split `subhistory` / `subhistories`. The generators,
-the native splitter and the independent checker are not ported.
+the per-key split `subhistory` / `subhistories`, and
+`checker(sub)` — every keyed suite's checker (etcd, consul, zookeeper,
+mongodb). The generators and the native splitter are not ported.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Any
+
+from . import trace
+from .checker import Checker, check_safe, merge_valid
+from .util import bounded_pmap
+
+log = logging.getLogger(__name__)
 
 
 class Tuple(tuple):
@@ -124,3 +132,107 @@ def subhistories(history: list) -> dict:
             for lst in subs.values():
                 lst.append(o)
     return subs
+
+
+class IndependentChecker(Checker):
+    """Check each key's subhistory with the sub-checker
+    (independent.clj:451-502).
+
+    If the sub-checker has `check_batch(test, histories, opts)`, every
+    subhistory goes down in one batched device dispatch; otherwise the
+    keys fan out over a bounded thread pool (`util.bounded_pmap`), as
+    the reference's bounded-pmap does. Each key's results.edn and
+    history.edn land under `independent/<key>/` in the run dir.
+
+    When the batch raises, every key is re-checked alone through
+    `check_safe` — except a failure no verdict may hide
+    (`supervisor.must_end_sweep`: a kernel build or launch failure, a
+    missing device, a CUDA error), which raises. The reference turns
+    those into per-key checks too."""
+
+    def __init__(self, sub: Checker):
+        self.sub = sub
+
+    @staticmethod
+    def _sub_opts(opts: dict, k) -> dict:
+        """Per-key opts: nest artifact output under independent/<key> so
+        store-writing sub-checkers (timeline, linear.svg, elle/) don't
+        clobber each other across keys (independent.clj:474-478)."""
+        base = opts.get("subdirectory")
+        base = ([base] if isinstance(base, str) else list(base or []))
+        return {**opts, "subdirectory": base + ["independent", str(k)],
+                "history-key": k}
+
+    def _persist_key(self, test: dict, opts: dict, k, sub: list,
+                     result: dict) -> None:
+        """Write per-key results.edn + history.edn (independent.clj:480-488)."""
+        store = test.get("store")
+        if store is None:
+            return
+        from . import edn, history as h
+        from .store import _results_to_edn
+        sub_opts = self._sub_opts(opts, k)
+        d = store.path(test, *sub_opts["subdirectory"], "results.edn")
+        d.write_text(edn.dumps(_results_to_edn(result)) + "\n")
+        d.parent.joinpath("history.edn").write_text(h.history_to_edn(sub))
+
+    def check(self, test, history, opts):
+        opts = opts or {}
+        with trace.span("independent.split", ops=len(history)):
+            by_key = subhistories(history)
+        ks = list(by_key)
+        subs = [by_key[k] for k in ks]
+        if hasattr(self.sub, "check_batch"):
+            # Batch checkers get the shared opts (one device dispatch, no
+            # per-key namespacing) and so must not write store artifacts
+            # themselves; per-key results/history are persisted below.
+            try:
+                with trace.span("independent.check_batch", keys=len(ks)):
+                    results = self.sub.check_batch(test, subs, opts)
+            except Exception as e:
+                from .supervisor import must_end_sweep
+                if must_end_sweep(e):
+                    raise
+                results = [check_safe(self.sub, test, s,
+                                      self._sub_opts(opts, k))
+                           for k, s in zip(ks, subs)]
+        else:
+
+            def _one(ks_):
+                k, s = ks_
+                with trace.span("independent.key", key=str(k)):
+                    return check_safe(self.sub, test, s,
+                                      self._sub_opts(opts, k))
+
+            results = bounded_pmap(_one, list(zip(ks, subs)))
+        # Batch-dispatched sub-checkers never see per-key opts, so any
+        # per-failure artifact (e.g. linear.svg) is rendered here, where
+        # the per-key subdirectory is known.
+        render = getattr(self.sub, "render_failure", None)
+        if render is not None:
+            for k, s, r in zip(ks, subs, results):
+                if r.get("valid?") is False:
+                    try:
+                        render(test, s, r, self._sub_opts(opts, k))
+                    except Exception:
+                        log.warning("failure render for key %r failed",
+                                    k, exc_info=True)
+        for k, s, r in zip(ks, subs, results):
+            try:
+                self._persist_key(test, opts, k, s, r)
+            except Exception:
+                log.warning("couldn't persist results for key %r",
+                            k, exc_info=True)
+        result_map = dict(zip(ks, results))
+        failures = [k for k, r in result_map.items()
+                    if r.get("valid?") is False]
+        return {
+            "valid?": merge_valid(
+                [r.get("valid?", True) for r in results] or [True]),
+            "results": result_map,
+            "failures": failures,
+        }
+
+
+def checker(sub: Checker) -> Checker:
+    return IndependentChecker(sub)

@@ -141,13 +141,34 @@ class Store:
         self.path(test, "results.edn").write_text(
             edn.dumps(_results_to_edn(res)) + "\n")
 
+    def write_trace(self, test: dict) -> Path | None:
+        """Persist the current run tracer's `trace.json` (Chrome
+        trace-event format) and `metrics.json` next to the results. No-op
+        (returns None) when tracing is off (JEPSEN_TPU_TRACE=0 /
+        --no-trace), or when the current tracer is sweep-scoped (an
+        analyze-store sweep re-analyzes runs under its own tracer, which
+        only the sweep exports, once)."""
+        from . import trace
+        t = trace.get_current()
+        if not getattr(t, "enabled", False) \
+                or getattr(t, "scope", "run") != "run":
+            return None
+        d = self.test_dir(test)
+        d.mkdir(parents=True, exist_ok=True)
+        p = t.export(d / "trace.json")
+        t.export_metrics(d / "metrics.json")
+        return p
+
     def save_2(self, test: dict) -> dict:
         """Persist results (after analysis): test.json, results.json and
-        .edn, and the links. The reference's `write_trace` is left out:
-        under the sweep-scoped tracer of an analyze-store sweep, the
-        only caller here, it writes nothing."""
+        .edn, the run's trace and metrics (`write_trace`; a failed export
+        is a warning, never a lost verdict), and the links."""
         self.write_test(test)
         self.write_results(test)
+        try:
+            self.write_trace(test)
+        except Exception:
+            log.warning("trace/metrics export failed", exc_info=True)
         self.update_symlinks(test)
         return test
 
@@ -179,6 +200,18 @@ class Store:
                 continue
             for rn in runs:
                 yield base / nm / rn
+
+    def all_run_dirs(self) -> list[Path]:
+        return list(self.iter_run_dirs())
+
+    def latest(self) -> Path | None:
+        """The run `<base>/latest` points at, else the run dir with the
+        greatest name (its start time) across all test names."""
+        link = self.base / "latest"
+        if link.exists():
+            return link.resolve()
+        dirs = self.all_run_dirs()
+        return max(dirs, key=lambda d: d.name) if dirs else None
 
     def load_test(self, run_dir: str | os.PathLike) -> dict:
         """Load a run dir: the port's and the reference's (test.json)

@@ -1,0 +1,151 @@
+"""Small shared utilities: the part of `jepsen_tpu/util.py` the port's
+checkers call.
+
+`real_pmap` (one thread an element; `checker.Compose` runs its
+sub-checkers through it), `bounded_pmap` (a bounded pool;
+`independent.checker` fans per-key checks out through it), `name_of`,
+the interval-set rendering of the set checker, and the latency pairing
+and nemesis intervals under the plot checkers (reference util.clj:548,
+619-700). Standard library only: the ingest pool's workers import the
+checker package.
+"""
+
+from __future__ import annotations
+
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Iterable, Sequence, TypeVar
+
+T = TypeVar("T")
+R = TypeVar("R")
+
+
+def real_pmap(f: Callable[[T], R], coll: Sequence[T]) -> list[R]:
+    """Map f over coll with one thread per element, preserving order.
+    The first exception raised by any element propagates to the caller
+    (all threads are still joined first)."""
+    coll = list(coll)
+    if not coll:
+        return []
+    if len(coll) == 1:
+        return [f(coll[0])]
+    with ThreadPoolExecutor(max_workers=len(coll)) as ex:
+        return list(ex.map(f, coll))
+
+
+def bounded_pmap(f: Callable[[T], R], coll: Sequence[T],
+                 max_workers: int | None = None) -> list[R]:
+    """Parallel map with a bounded pool (one worker a core unless
+    `max_workers`), preserving order; the first exception propagates
+    (reference independent.clj:472-492)."""
+    coll = list(coll)
+    if not coll:
+        return []
+    workers = min(len(coll), max_workers or (os.cpu_count() or 4))
+    with ThreadPoolExecutor(max_workers=workers) as ex:
+        return list(ex.map(f, coll))
+
+
+def integer_interval_set_str(xs: Iterable[int]) -> str:
+    """Render a set of ints as compact intervals: '#{1..3 5 7..9}'
+    (reference util.clj:548 — used in set results)."""
+    xs = sorted(set(xs))
+    if not xs:
+        return "#{}"
+    parts = []
+    lo = hi = xs[0]
+    for x in xs[1:]:
+        if x == hi + 1:
+            hi = x
+        else:
+            parts.append(f"{lo}" if lo == hi else f"{lo}..{hi}")
+            lo = hi = x
+    parts.append(f"{lo}" if lo == hi else f"{lo}..{hi}")
+    return "#{" + " ".join(parts) + "}"
+
+
+def name_of(x: Any) -> str:
+    """Human-readable name for fs/processes in results."""
+    return x if isinstance(x, str) else str(x)
+
+
+def history_latencies(history: Sequence[dict]) -> list[dict]:
+    """Return the history with every invocation annotated with
+
+        "latency"     nanoseconds until its completion
+        "completion"  the completing op itself (also latency-annotated)
+
+    Invocations that never complete get neither key (reference
+    util.clj:619-653)."""
+    out: list[dict] = []
+    invokes: dict = {}  # process -> index into out
+    for op in history:
+        if op.get("type") == "invoke":
+            out.append(op)
+            invokes[op.get("process")] = len(out) - 1
+        elif op.get("process") in invokes:
+            i = invokes.pop(op.get("process"))
+            inv = out[i]
+            lat = (op.get("time") or 0) - (inv.get("time") or 0)
+            op = {**op, "latency": lat}
+            out[i] = {**inv, "latency": lat, "completion": op}
+            out.append(op)
+        else:
+            out.append(op)
+    return out
+
+
+# Nemesis f-names that begin/end a fault window, covering the combined
+# nemesis packages' start-x/stop-x convention (nemesis/combined.clj) as
+# well as the plain start/stop of nemesis.clj.
+DEFAULT_NEMESIS_START_FS = frozenset(
+    {"start", "start-partition", "start-kill", "start-pause",
+     "kill", "pause"})
+DEFAULT_NEMESIS_STOP_FS = frozenset(
+    {"stop", "stop-partition", "stop-kill", "stop-pause",
+     "resume", "heal", "start!", "stop!"})
+
+
+def nemesis_intervals(history: Sequence[dict],
+                      opts: dict | None = None
+                      ) -> list[tuple[dict, dict | None]]:
+    """Pair nemesis start/stop transitions into [start, stop] intervals.
+
+    In runner histories nemesis ops come in invoke/complete pairs with
+    the same :f, so ``s1 s2 e1 e2`` pairs the first with the third and
+    the second with the fourth (reference util.clj:655-700); a
+    transition recorded as a single op forms its own event. Every open
+    start is closed by the next stop; unclosed starts yield (start,
+    None). opts may carry "start"/"stop" f-name sets (defaults cover
+    the combined-nemesis start-x/stop-x names)."""
+    opts = opts or {}
+    start_fs = set(opts.get("start") or DEFAULT_NEMESIS_START_FS)
+    stop_fs = set(opts.get("stop") or DEFAULT_NEMESIS_STOP_FS)
+    nem = [o for o in history if o.get("process") == "nemesis"]
+    events: list[tuple[dict, dict]] = []
+    i = 0
+    while i < len(nem):
+        a = nem[i]
+        if i + 1 < len(nem) and nem[i + 1].get("f") == a.get("f"):
+            events.append((a, nem[i + 1]))
+            i += 2
+        else:
+            events.append((a, a))
+            i += 1
+    intervals: list[tuple[dict, dict | None]] = []
+    starts: list[tuple[dict, dict]] = []
+    for a, b in events:
+        f = a.get("f")
+        if f in start_fs:
+            starts.append((a, b))
+        elif f in stop_fs:
+            for s1, s2 in starts:
+                intervals.append((s1, a))
+                if s1 is not s2 or a is not b:
+                    intervals.append((s2, b))
+            starts = []
+    for s1, s2 in starts:
+        intervals.append((s1, None))
+        if s1 is not s2:
+            intervals.append((s2, None))
+    return intervals

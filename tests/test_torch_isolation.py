@@ -63,6 +63,11 @@ print(" ".join(mods))
     # jax-free core.analyze and fressian codec, never imports of them)
     assert {"jepsen_tpu_torch.core", "jepsen_tpu_torch.fressian",
             "jepsen_tpu_torch.store"} <= mods
+    # the single-run checker stack's modules
+    assert {"jepsen_tpu_torch.util", "jepsen_tpu_torch.checker.perf",
+            "jepsen_tpu_torch.checker.timeline",
+            "jepsen_tpu_torch.checker.linear_svg",
+            "jepsen_tpu_torch.checker.elle.artifacts"} <= mods
 
 
 @pytest.mark.parametrize("path", port_sources(),
@@ -181,6 +186,14 @@ try:
     raise SystemExit("no injected kill")
 except supervisor.InjectedFault as e:
     assert "worker kill" in str(e)
+# the single-run checkers share the worker's import path: their
+# modules, and building them, load no torch either
+from jepsen_tpu_torch import cli, devices, independent, util
+from jepsen_tpu_torch.checker import elle, timeline, linear_svg
+from jepsen_tpu_torch.checker.elle import artifacts, wr
+independent.checker(elle.append_checker(backend="tpu"))
+wr.rw_register_checker()
+assert devices.resolve_backend("auto") == "tpu"
 assert "torch" not in [m.split(".")[0] for m in sys.modules
                        if sys.modules[m] is not None]
 print("ok")
