@@ -191,6 +191,30 @@ failure:
               --backend cpu` on a store written as phase 4's small CLI
               store: the device sweep's verdicts.jsonl and verdicts,
               no launch.
+ 15. costdb   the device cost observatory, the live telemetry and the
+              planner: phase 4's store swept with JEPSEN_TPU_COSTDB=1,
+              JEPSEN_TPU_HEALTH_INTERVAL_S=0.5, JEPSEN_TPU_METRICS_PORT
+              at a free port, JEPSEN_TPU_PLANNER=1 (cold) and
+              --report, /metrics scraped from the
+              sweep's start to its end: verdict files and launches as
+              phase 4's, every costdb record measured (CUDA events) on
+              the card against its peak row, every roofline share at
+              most 1.05, Σ device_secs at least the closure_square
+              event sum (both printed beside the tracer's bucket
+              windows), the allocator's bytes in the residency gauges
+              and health.json, health.json's progress complete; the
+              same for phase 5's wr store, which writes no costdb (its
+              edge batches are not observed, as in the reference); a
+              planner store (8 of phase 4's runs and 8 shorter ones)
+              swept with JEPSEN_TPU_PLANNER=1 cold (buckets as
+              bucket_by_length's at multiple 128; plan.json fitted) and
+              warm (buckets composed at another multiple, from the
+              store's own plan.json, or from one seeded with T_pad²
+              costs when that fit keeps 128): phase 4's runs' verdicts
+              unchanged, warm equal to cold; then
+              `kernels._edges_batched(with_counts=True)` timed apart
+              from its bucket at phase 4's shape against its bytes, and
+              the wr path's edge_batch_to_device at phase 5's.
 
 The sweeps run in this process (phases 4-12) ingest through the same
 pool. Spawn re-imports this script in each worker, so it imports torch
@@ -207,7 +231,8 @@ and so do phase 12's (`native-<path>-cold`, `native-<path>-warm`) and
 phase 13's (`pool-append-cold`, `pool-append-warm`, `pool-wr`,
 `pool-register`, `pool-kill`), counted in the sweep's own process, and
 phase 14's (`analyze-append`, `analyze-wr`, `analyze-register`,
-`analyze-fanout`, `analyze-race`).
+`analyze-fanout`, `analyze-race`), and phase 15's (`costdb-append`,
+`costdb-wr`, `planner-append-cold`, `planner-append-warm`).
 
 The last lines are a `{"kernels": [...]}` record per kernel (with its
 launches and summed device milliseconds per path), the nvidia-smi line,
@@ -340,6 +365,71 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
     return out.splitlines()[0]
+
+
+def child_pids() -> list[int]:
+    """The pids of this process's live (or unreaped) children."""
+    me, out = os.getpid(), []
+    for p in os.listdir("/proc"):
+        if not p.isdigit():
+            continue
+        try:
+            stat = Path(f"/proc/{p}/stat").read_text()
+        except OSError:
+            continue
+        if int(stat[stat.rindex(")") + 2:].split()[1]) == me:
+            out.append(int(p))
+    return out
+
+
+def reap(pid: int, grace: float) -> bool:
+    """Wait up to `grace` seconds for child `pid` to end, then SIGKILL
+    it and wait again; True if it had to be killed."""
+    import signal
+    deadline = time.monotonic() + grace
+    while time.monotonic() < deadline:
+        try:
+            if os.waitpid(pid, os.WNOHANG)[0]:
+                return False
+        except ChildProcessError:
+            return False
+        time.sleep(0.05)
+    with contextlib.suppress(ProcessLookupError):
+        os.kill(pid, signal.SIGKILL)
+    with contextlib.suppress(ChildProcessError):
+        os.waitpid(pid, 0)
+    return True
+
+
+def stop_children() -> list[str]:
+    """Stop every process the phases started that is still there when
+    they end: the in-process sweeps' spawned ingest workers,
+    multiprocessing's resource tracker (which the first spawn starts
+    and which otherwise ends only after this process has, once it sees
+    its pipe close) and any other child. Returns the ones that would
+    not end by themselves and were killed."""
+    import multiprocessing as mp
+    from multiprocessing import resource_tracker
+
+    stuck = []
+    for p in mp.active_children():
+        p.join(5)
+        if p.is_alive():
+            p.kill()
+            p.join(5)
+            stuck.append(f"ingest worker {p.pid}")
+    tracker = resource_tracker._resource_tracker
+    with tracker._lock:
+        fd, pid = tracker._fd, tracker._pid
+        tracker._fd = tracker._pid = None
+    if fd is not None:
+        os.close(fd)            # the tracker ends when this pipe closes
+    if pid is not None and reap(pid, 10.0):
+        stuck.append(f"resource tracker {pid}")
+    for pid in child_pids():
+        if reap(pid, 2.0):
+            stuck.append(f"child {pid}")
+    return stuck
 
 
 def peaks(name: str) -> tuple[float, float]:
@@ -1905,7 +1995,7 @@ def clear_outputs(store: Path) -> None:
         p.unlink()
     for f in ("verdicts.jsonl", "trace.json", "metrics.json",
               "events.jsonl", "report.json", "report.md",
-              "analytics.jsonl"):
+              "analytics.jsonl", "costdb.jsonl", "health.json"):
         (store / f).unlink(missing_ok=True)
     for p in store.glob("trace-*.jsonl"):
         p.unlink()
@@ -2487,6 +2577,361 @@ def phase_analyze(smi: str) -> dict:
     return {"closure_square": cs_paths, "knossos_dense_scan": dense_paths}
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def live_sweep(store: Path, checker: str) -> dict:
+    """One sweep of `store` with all four gates on — the costdb, the
+    health sampler (every 0.5 s), the metrics endpoint (a free port) and
+    the planner (cold: the store has no plan.json) — and --report;
+    /metrics is scraped from the sweep's start to its end. Returns its
+    numbers and files."""
+    import threading
+    import urllib.request
+
+    scrapes: list = []
+    stop = threading.Event()
+    threads: list = []
+
+    def scrape(port: int) -> None:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=5) as r:
+            scrapes.append(r.read().decode())
+
+    def hook(server, sampler):
+        check(server is not None and sampler is not None,
+              "the metrics endpoint or the health sampler did not start")
+        scrape(server.port)
+
+        def loop():
+            while not stop.wait(0.02):
+                try:
+                    scrape(server.port)
+                except OSError:
+                    return          # the endpoint stopped with the sweep
+        threads.append(threading.Thread(target=loop, daemon=True))
+        threads[0].start()
+
+    port = free_port()
+    with gate_env(JEPSEN_TPU_COSTDB=1, JEPSEN_TPU_HEALTH_INTERVAL_S=0.5,
+                  JEPSEN_TPU_METRICS_PORT=port, JEPSEN_TPU_PLANNER=1):
+        try:
+            (rc, log, wall, _), n, ms = counted(lambda: sweep(
+                store, checker, device=DEVICE, report=True, obs_hook=hook))
+        finally:
+            stop.set()
+            for th in threads:
+                th.join(timeout=10)
+    check(bool(scrapes) and all("jepsen_tpu_" in p for p in scrapes),
+          f"{checker}: /metrics answered {len(scrapes)} scrapes")
+    metrics = json.loads((store / "metrics.json").read_text())
+    return {"rc": rc, "log": log, "wall": wall, "launches": n,
+            "square_ms": ms, "scrapes": len(scrapes), "port": port,
+            "metrics": metrics,
+            "health": json.loads((store / "health.json").read_text()),
+            "report": json.loads((store / "report.json").read_text()),
+            "bucket_secs": metrics["histograms"].get("device.bucket",
+                                                     {}).get("sum", 0.0)}
+
+
+def check_costdb(store: Path, name: str, what: str) -> list:
+    """The store's costdb: every record measured on the card against the
+    card's peak row, every roofline share at most 1.05."""
+    from jepsen_tpu_torch.checker.elle import kernels
+    from jepsen_tpu_torch.store import load_costdb
+
+    recs = list(load_costdb(store))
+    check(bool(recs), f"{what}: no costdb.jsonl records")
+    row = kernels.device_peak(name)
+    for r in recs:
+        check(r["provenance"] == "measured" and r["peak"] == row
+              and row["source"] == "table" and r["backend"] == "cuda"
+              and r["formulation"] == "cuda-int8",
+              f"{what}: record {r['geometry']} is {r['provenance']}, "
+              f"{r['formulation']}, peak {r['peak']}")
+        for k, v in r["roofline"].items():
+            check(v is not None and 0 <= v <= 1.05,
+                  f"{what}: {k} {v} for {r['geometry']}")
+    return recs
+
+
+def dispatch_parts(name: str) -> dict:
+    """Row 5's missing cell: `kernels._edges_batched(with_counts=True)`
+    timed apart from its bucket, at phase 4's bucket shape (2 of its
+    histories at T_pad=5120), against the bytes it must move (the
+    append and read tables read once, the three [B,T,T] bool matrices
+    and the counts written once); the wr path's matrix build,
+    `kernels.edge_batch_to_device` (its host-built edge lists copied and
+    scattered), at phase 5's bucket shape; and one whole dispatch of
+    that append bucket alone (`kernels.check_batch_device`): its
+    CUDA-event window, as the cost observatory takes it, beside the
+    device time of the kernels and copies torch.profiler sees in it —
+    what of the window the card spent working."""
+    from jepsen_tpu_torch import ingest
+    from jepsen_tpu_torch.checker.elle import kernels
+    from jepsen_tpu_torch.checker.elle import wr as wr_mod
+
+    _, bw = peaks(name)
+    runs = sorted((WORK / "store" / "synth").iterdir())[:MAIN_B]
+    encs = [ingest.encode_run_dir(d, "append") for d in runs]
+    shape = kernels.BatchShape.plan(encs)
+    batch = kernels.batch_to_device(kernels.pack_batch(encs, shape), DEVICE)
+    args = (batch["appends"], batch["reads"], shape.n_keys, shape.max_pos,
+            shape.n_txns)
+    ms = statistics.median(cuda_ms(
+        lambda: kernels._edges_batched(*args, with_counts=True), 10))
+    B, T = len(encs), shape.n_txns
+    moved = (batch["appends"].nbytes + batch["reads"].nbytes
+             + 3 * B * T * T + 3 * B * 8)
+    wr_runs = sorted((WORK / "wr" / "wr").iterdir())[:WIDE_B]
+    eds = [wr_mod.to_edge_dict(ingest.encode_run_dir(d, "wr"))
+           for d in wr_runs]
+    packed = kernels.pack_edge_matrices(eds)
+    wr_ms = statistics.median(cuda_ms(
+        lambda: kernels.edge_batch_to_device(packed, torch.device(DEVICE)),
+        10, burst=1))
+
+    def one():
+        kernels.check_batch_device(batch, classify=True, fused=True)
+    window = statistics.median(cuda_ms(one, 5, burst=1))
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            one()
+        torch.cuda.synchronize()
+    busy_us = sum(getattr(a, "self_device_time_total", 0)
+                  for a in prof.key_averages())
+    return {"ms": ms, "bound_ms": moved / bw * 1e3, "B": B, "T": T,
+            "bytes": moved, "wr_ms": wr_ms, "wr_B": len(eds),
+            "wr_T": packed["T"], "dispatch_window_ms": window,
+            "dispatch_busy_ms": busy_us / 3e3 if busy_us else None}
+
+
+#: Phase 15's planner store: PLAN_RUNS of phase 4's runs (T=5000) and
+#: one run of each length here, so that the append sweep's buckets
+#: compose differently at pad multiple 512 than at 128 (at 128 the
+#: 3,300-txn bucket takes six histories; at 512, five, and the sixth
+#: joins the shorter ones).
+PLAN_RUNS = 8
+PLAN_MIX = (3300, 2900, 2500, 2500, 2000, 2000, 1500, 1500)
+
+
+def planner_store(base: Path) -> list[str]:
+    """The planner store: phase 4's first PLAN_RUNS runs (with their
+    sidecars) and the PLAN_MIX runs; returns phase 4's run names."""
+    from jepsen_tpu_torch.checker.elle import synth
+
+    src = WORK / "store" / "synth"
+    runs = sorted(p.name for p in src.iterdir())[:PLAN_RUNS]
+    copy_runs(src, base / "synth", runs)
+    for i, t in enumerate(PLAN_MIX):
+        synth.write_synth_run_store(base, B=1, T=t, K=STORE_K,
+                                    bad_every=1 if i % 3 == 0 else 0,
+                                    name=f"mix{i}")
+    for p in list(base.rglob("results.*")) + list(base.rglob(".sweep-*")):
+        p.unlink()
+    return runs
+
+
+def compositions(sizes: list[int], plan: dict | None) -> dict:
+    """(histories, T_pad) of each bucket the append sweep composes for
+    histories of `sizes`: by the planner with `plan`, and by
+    bucket_by_length at each candidate multiple."""
+    from jepsen_tpu_torch import parallel, planner
+    from jepsen_tpu_torch.checker.elle import kernels
+
+    class Sized:
+        def __init__(self, n):
+            self.n = n
+
+    encs = [Sized(n) for n in sizes]
+    budget = (1 << 27) // 2     # check_bucketed's, two buckets in flight
+
+    def sig(buckets):
+        return sorted((len(b), kernels.pad_to(max(sizes[i] for i in b), 128))
+                      for b in buckets)
+    out = {m: sig(parallel.bucket_by_length(encs, multiple=m,
+                                            budget_cells=budget))
+           for m in planner.GEOMETRY_CANDIDATES}
+    with gate_env(JEPSEN_TPU_PLANNER=1):
+        out["planner"] = sig(planner.Planner(plan, "plan").plan_buckets(
+            encs, budget_cells=budget))
+    return out
+
+
+def phase_costdb(launches: dict, verdicts: dict, name: str) -> dict:
+    """Phase 15: the device cost observatory, the live telemetry and the
+    planner on the card. Returns the paths' (launches, device ms) and
+    the numbers PERF.md reads."""
+    from jepsen_tpu_torch import ingest, planner
+    from jepsen_tpu_torch.store import load_costdb, plan_path
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    paths: dict = {}
+    out: dict = {}
+    for kind, store, n_runs in (("append", WORK / "store", STORE_RUNS),
+                                ("wr", WORK / "wr", WR_RUNS)):
+        clear_outputs(store)
+        live = live_sweep(store, kind)
+        what = f"costdb-{kind}"
+        check(live["rc"] == 1, f"{what}: exit {live['rc']}")
+        check(run_files(store) == verdicts[kind],
+              f"{what}: verdict files differ from phase "
+              f"{4 if kind == 'append' else 5}'s")
+        check(live["launches"] == launches[kind],
+              f"{what}: {live['launches']} closure_square launches, phase "
+              f"{4 if kind == 'append' else 5} {launches[kind]}")
+        h = live["health"]
+        check(h["progress"]["runs_verdicted"] == n_runs
+              and h["progress"]["runs_total"] == n_runs,
+              f"{what}: health.json progress {h['progress']}")
+        paths[what] = (live["launches"], live["square_ms"])
+        row = {"wall": live["wall"], "launches": live["launches"],
+               "square_ms": live["square_ms"], "scrapes": live["scrapes"],
+               "bucket_secs": live["bucket_secs"],
+               "health_device": h["device"]}
+        if kind == "wr":
+            # the reference observes no edge-batch dispatch: no costdb
+            check(not (store / "costdb.jsonl").exists(),
+                  f"{what}: a costdb was written for edge batches")
+            out[what] = row
+            say(f"{what}: {live['wall']:.3f}s wall, rc 1, verdicts as "
+                f"phase 5's, {live['launches']} closure_square launches "
+                f"({live['square_ms']} ms); /metrics scraped "
+                f"{live['scrapes']} times on port {live['port']}; "
+                f"health.json {h['progress']}; no costdb (edge batches "
+                f"are not observed dispatches, as in the reference); "
+                f"tracer bucket windows {live['bucket_secs']} s; card {smi}")
+            continue
+        recs = check_costdb(store, name, what)
+        dev_s = sum(r["windows"]["device_secs"] for r in recs)
+        sq_s = live["square_ms"] / 1e3
+        check(dev_s >= sq_s, f"{what}: device_secs {dev_s} under the "
+              f"closure_square event sum {sq_s}")
+        g = live["metrics"]["gauges"]
+        check(g.get("hbm_device_bytes", 0) > 0
+              and (h["device"]["hbm_device_bytes"] or 0) > 0
+              and g.get("resident_executables", 0) >= 1,
+              f"{what}: residency gauges {g}, health {h['device']}")
+        dev = live["report"].get("device") or {}
+        check(dev.get("provenance") == "measured"
+              and len(dev.get("records", [])) == len(recs),
+              f"{what}: report.json device section {dev}")
+        row.update(device_secs=dev_s, records=[{
+            "geometry": r["geometry"], "windows": r["windows"],
+            "cost": r["cost"], "memory": r["memory"],
+            "roofline": r["roofline"]} for r in recs],
+            ratio_bucket_to_device=live["bucket_secs"] / dev_s,
+            ratio_device_to_square=dev_s / sq_s if sq_s else None)
+        out[what] = row
+        say(f"{what}: {live['wall']:.3f}s wall, rc 1, verdicts as phase "
+            f"4's; costdb {len(recs)} record(s), measured against "
+            f"{recs[0]['peak']}; sum device_secs {dev_s} s (CUDA events) "
+            f"against {sq_s} s of closure_square (event pairs, "
+            f"{live['launches']} launches) and {live['bucket_secs']} s of "
+            f"tracer bucket windows (bucket / device_secs "
+            f"{row['ratio_bucket_to_device']}); records "
+            + "; ".join(f"B{r['geometry']['B']}xT{r['geometry']['n_txns']}"
+                        f" x{r['windows']['dispatches']}: "
+                        f"{r['windows']['device_secs']} s, flops util "
+                        f"{r['roofline']['flops_utilization']}, bw util "
+                        f"{r['roofline']['bandwidth_utilization']}, memory "
+                        f"{r['memory']}" for r in recs)
+            + f"; /metrics scraped {live['scrapes']} times; gauges "
+            f"{ {k: g.get(k) for k in ('resident_executables', 'hbm_modeled_bytes', 'hbm_device_bytes')} }; "
+            f"card {smi}")
+
+    # the planner: a cold sweep fits plan.json, a warm one composes
+    plan_base = WORK / "plan"
+    runs = planner_store(plan_base)
+    sizes = [ingest.encode_run_dir(d, "append").n
+             for d in sorted(p for p in plan_base.glob("*/*") if p.is_dir())]
+    cold_want = compositions(sizes, None)
+    sweeps = {}
+    for warmth in ("cold", "warm"):
+        if warmth == "warm":
+            plan = planner.load_plan(plan_path(plan_base))
+            check(plan is not None, "the cold planner sweep fit no plan.json")
+            want = compositions(sizes, plan)
+            seeded = want["planner"] == want[128]
+            if seeded:
+                # the fit from this store's own costdb prices the 128
+                # composition cheapest: seed plan.json from a costdb
+                # whose per-history seconds grow as T_pad², measured at
+                # this store's pads, as the planner's tests do
+                pads = sorted({b for _, b in want[128]})
+                recs = [{"kernel": {"classify": True, "realtime": False,
+                                    "process_order": False, "fused": True},
+                         "formulation": "cuda-int8",
+                         "geometry": {"B": 2, "n_txns": t},
+                         "windows": {"dispatches": 4, "histories": 8,
+                                     "device_secs": 4 * (t / 128) ** 2
+                                     * 1e-5, "min_secs": 1e-6},
+                         "backend": "cuda", "device_kind": name,
+                         "provenance": "measured"} for t in pads]
+                plan = planner.fit_plan(recs, [])
+                planner.save_plan(plan_path(plan_base), plan)
+                want = compositions(sizes, plan)
+            check(want["planner"] != want[128],
+                  f"the warm planner composes as multiple 128: {want}")
+        else:
+            want = cold_want
+        clear_outputs(plan_base)
+        with gate_env(JEPSEN_TPU_PLANNER=1, JEPSEN_TPU_COSTDB=1):
+            (rc, log, wall, _), n, ms = counted(lambda: sweep(
+                plan_base, "append", device=DEVICE, report=True))
+        got = sorted((b["histories"], b["t_pad"]) for b in log)
+        what = f"planner-append-{warmth}"
+        check(rc == 1, f"{what}: exit {rc}")
+        check(got == want["planner"], f"{what}: buckets {got}, planned "
+              f"{want['planner']}")
+        if warmth == "cold":
+            check(got == want[128], f"{what}: buckets {got} are not "
+                  f"bucket_by_length's at 128 {want[128]}")
+        launch_split(log, n)
+        files = run_files(plan_base)
+        for run in runs:
+            for f in ("results.json", "results.edn"):
+                k = f"synth/{run}/{f}"
+                check(files[k] == verdicts["append"][k],
+                      f"{what}: {k} differs from phase 4's")
+        sweeps[warmth] = files
+        rep = json.loads((plan_base / "report.json").read_text())
+        paths[what] = (n, ms)
+        chosen = [m for m in planner.GEOMETRY_CANDIDATES
+                  if want[m] == want["planner"]]
+        out[what] = {"wall": wall, "launches": n, "square_ms": ms,
+                     "buckets": got, "multiples": chosen,
+                     "planner": rep.get("planner"),
+                     "seeded": warmth == "warm" and seeded,
+                     "costdb_records": len(load_costdb(plan_base))}
+        say(f"{what}: {wall:.3f}s wall, rc 1, buckets (histories, T_pad) "
+            f"{got}, composed as multiple(s) {chosen} (128: {want[128]}); "
+            + (f"plan.json seeded (the store's own fit chose 128): "
+               if warmth == "warm" and seeded else "")
+            + f"report planner section {rep.get('planner')}; {n} "
+            f"closure_square launches ({ms} ms); card {smi}")
+    check(sweeps["cold"] == sweeps["warm"],
+          "the warm planner sweep's verdicts differ from the cold one's")
+
+    out["edges"] = e = dispatch_parts(name)
+    say(f"_edges_batched(with_counts=True) at B={e['B']}, T={e['T']}: "
+        f"{e['ms']} ms (median of 10 event-timed samples) against a "
+        f"{e['bound_ms']} ms bound ({e['bytes']} bytes at the card's "
+        f"HBM rate); the wr path's edge_batch_to_device at B={e['wr_B']}, "
+        f"T={e['wr_T']}: {e['wr_ms']} ms; one append dispatch alone: "
+        f"{e['dispatch_window_ms']} ms event window, "
+        f"{e['dispatch_busy_ms'] if e['dispatch_busy_ms'] else 'not measured (the profiler saw no device time)'}"
+        f" ms of kernels and copies in it (torch.profiler); card {smi}")
+    say(f"phase 15 took {time.perf_counter() - t_phase:.1f}s")
+    return {"paths": paths, "numbers": out}
+
+
 def main() -> int:
     global torch
     import torch
@@ -2554,12 +2999,19 @@ def main() -> int:
         single = phase_analyze(smi)
         paths.update(single["closure_square"])
         dense_paths.update(single["knossos_dense_scan"])
+        paths.update(phase_costdb(
+            {"append": paths["append"][0], "wr": paths["wr"][0]},
+            verdicts, name)["paths"])
         for rec, ps in ((record, paths), (dense_record, dense_paths)):
             rec["launches"] = sum(n for n, _ in ps.values())
             rec["paths"] = {k: {"launches": n, "device_ms": ms}
                             for k, (n, ms) in ps.items()}
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
+        killed = stop_children()
+    if killed:
+        say(f"killed what would not end by itself: {killed}")
+    check(not child_pids(), f"children left running: {child_pids()}")
     say(f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": [record, dense_record]}))
     print(nvidia_smi())

@@ -235,6 +235,16 @@ def load(name: str, path: str | os.PathLike | None = None) -> ctypes.CDLL:
         return lib
 
 
+def resident_count() -> int:
+    """How many CUDA kernel libraries (`csrc/*.cu`) this process has
+    loaded: the port's counterpart of the reference's resident AOT
+    executables (the host libraries, wgl and hist_encode, are not
+    kernels and do not count)."""
+    with _lock:
+        keys = list(_loaded)
+    return sum(1 for k in keys if _source(k.split("@", 1)[0])[1])
+
+
 def build_all() -> dict[str, Path]:
     """Build every source, CUDA (`csrc/*.cu`) and host C++
     (`csrc/*.cc`), one compiler per source, all started together;

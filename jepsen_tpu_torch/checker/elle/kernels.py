@@ -105,6 +105,40 @@ def fused_classify_enabled() -> bool:
     return gates.get("JEPSEN_TPU_FUSED_CLASSIFY")
 
 
+#: Peak rates by `torch.cuda.get_device_name()`, lower-cased: dense
+#: bf16 TFLOP/s, int8 TOP/s (the tensor cores'), HBM GB/s and capacity
+#: GiB — the NVIDIA H100 SXM data sheet's row. Every consumer (a costdb
+#: record, the report's device section) shows WHICH row it used
+#: (`source`), so an assumed peak never reads as the card's own.
+DEVICE_PEAKS: dict[str, dict] = {
+    "nvidia h100 80gb hbm3": {"bf16_tflops": 989.0, "int8_tops": 1979.0,
+                              "hbm_gbps": 3350.0, "hbm_gib": 80.0},
+}
+
+#: The row assumed for an unknown device kind (the CPU, another card).
+_PEAK_FALLBACK = "NVIDIA H100 80GB HBM3"
+
+
+def device_peak(device_kind: str | None = None) -> dict:
+    """The peak-rate row for `device_kind` (default: the current CUDA
+    device's name, "unknown" without one), plus `device_kind` (as given)
+    and `source`: `"table"` for a known card, `"fallback (assumed
+    NVIDIA H100 80GB HBM3)"` otherwise — consumers must surface that
+    instead of publishing an assumed peak as measured."""
+    if device_kind is None:
+        try:
+            device_kind = torch.cuda.get_device_name() \
+                if torch.cuda.is_available() else "unknown"
+        except Exception:
+            device_kind = "unknown"
+    row = DEVICE_PEAKS.get(str(device_kind).strip().lower())
+    if row is not None:
+        return {"device_kind": str(device_kind), "source": "table", **row}
+    return {"device_kind": str(device_kind),
+            "source": f"fallback (assumed {_PEAK_FALLBACK})",
+            **DEVICE_PEAKS[_PEAK_FALLBACK.lower()]}
+
+
 def pad_to(x: int, multiple: int) -> int:
     """Round x up to a positive multiple."""
     return max(multiple, ((x + multiple - 1) // multiple) * multiple)

@@ -103,6 +103,17 @@ flight recorder of lifecycle events. `--report` (or
 search-telemetry record per history; `JEPSEN_TPU_JAX_PROFILE=1` wraps
 the sweep in a `torch.profiler` capture (`torch-profile/trace.json`).
 Writing them never sinks a sweep: a failure is a logged warning.
+
+The live telemetry and the planner, each behind the reference's gate:
+`JEPSEN_TPU_COSTDB=1` appends `costdb.jsonl` (one record per kernel
+flags and bucket geometry: the dispatches' counted closure work and
+their CUDA-event device seconds, `obs.device`) and gives `--report` its
+device roofline section and the search section's cost join;
+`JEPSEN_TPU_HEALTH_INTERVAL_S=N` writes `health.json` atomically every
+N seconds; `JEPSEN_TPU_METRICS_PORT=P` serves `/metrics` and `/healthz`
+during the sweep; `JEPSEN_TPU_PLANNER=1` loads `plan.json`, lets the
+planner compose the append sweep's buckets and pick fused or two-pass
+classify, and refits `plan.json` at the end. No gate changes a verdict.
 """
 
 from __future__ import annotations
@@ -415,7 +426,7 @@ def analyze_store(store: Store, checker: str = "append", device=None,
                   square=None, bucket_log: list | None = None,
                   condense_log: list | None = None, dense_scan=None,
                   register_log: dict | None = None,
-                  report: bool | None = None) -> int:
+                  report: bool | None = None, obs_hook=None) -> int:
     """Batch re-check every stored run (with `name`, that test name's
     runs) with `checker` ("append", "wr", "register" or "stored") on
     `device` (default cuda; raises devices.DeviceUnavailable without
@@ -437,11 +448,22 @@ def analyze_store(store: Store, checker: str = "append", device=None,
     (the tracer on), `events.jsonl` always, `report.json` + `report.md`
     with `report` (None defers to JEPSEN_TPU_REPORT; it needs the
     tracer on), and `analytics.jsonl` with JEPSEN_TPU_KERNEL_STATS. The
-    device resolves first: without it nothing is written."""
+    device resolves first: without it nothing is written.
+
+    The live telemetry, as the reference's (module doc):
+    JEPSEN_TPU_COSTDB appends `costdb.jsonl` at the end (and gives
+    `--report` its device section), JEPSEN_TPU_HEALTH_INTERVAL_S
+    writes `health.json` during the sweep, JEPSEN_TPU_METRICS_PORT
+    serves `/metrics` and `/healthz` during it, and JEPSEN_TPU_PLANNER
+    loads `plan.json` at the start and refits it at the end.
+    `obs_hook(server, sampler)`, when given, is called once both are
+    up, before the sweep (a test or a smoke scrapes there)."""
     from . import gates, obs, shm
+    from . import planner as planner_mod
     from .devices import resolve_device
+    from .obs import device as device_obs
     from .obs import search as search_obs
-    from .store import analytics_path
+    from .store import analytics_path, costdb_path
 
     if checker not in CHECKERS:
         raise ValueError(f"unknown checker {checker!r}")
@@ -451,7 +473,13 @@ def analyze_store(store: Store, checker: str = "append", device=None,
     if report is None:
         report = gates.get("JEPSEN_TPU_REPORT")
     tr = trace.fresh_run(f"analyze-store:{checker}", scope="sweep")
+    # the cost observatory, the search ledger and the planner are
+    # per-sweep state like the tracer: a fresh sweep inherits no records
+    # or half-open windows, and loads the store's plan.json (a warm
+    # start) or runs cold — each a no-op with its gate off
+    device_obs.reset()
     search_obs.reset()
+    planner_mod.activate(store.base)
     if tr.enabled and store.base.is_dir():
         # point the worker trace fabric at the store: pool workers
         # spool their spans to <store>/trace-<pid>.jsonl; stale spools
@@ -467,8 +495,14 @@ def analyze_store(store: Store, checker: str = "append", device=None,
     obs.install_events(store.base)
     obs.emit("sweep_start", checker=checker, resume=bool(resume),
              store=str(store.base))
+    sampler = obs.maybe_start_health_sampler(store.base)
+    server = obs.maybe_start_metrics_server(
+        health_fn=(sampler.write_snapshot if sampler is not None
+                   else None))
     rc: int | None = None
     try:
+        if obs_hook is not None:
+            obs_hook(server, sampler)
         with trace.profile_session(store.base / "torch-profile"):
             rc = _analyze_store_impl(
                 store, checker, dev, name, resume, journal, square=square,
@@ -477,9 +511,21 @@ def analyze_store(store: Store, checker: str = "append", device=None,
     finally:
         journal.close()
         obs.emit("sweep_end", exit_code=rc if rc is not None else "crashed")
+        if sampler is not None:
+            sampler.stop()
+        if server is not None:
+            server.stop()
         if store.base.is_dir():
-            # the ledger lands before the recorder is uninstalled, so
-            # its analytics_flush mark reaches events.jsonl
+            # the costdb and the ledger land before the recorder is
+            # uninstalled, so their flush marks reach events.jsonl; the
+            # costdb lands whether or not tracing was on
+            try:
+                n_cost = device_obs.flush(costdb_path(store.base))
+                if n_cost:
+                    print(f"costdb: {n_cost} record(s) appended to "
+                          f"{costdb_path(store.base)}", file=sys.stderr)
+            except Exception:
+                log.warning("costdb flush failed", exc_info=True)
             try:
                 n_stats = search_obs.flush(analytics_path(store.base))
                 if n_stats:
@@ -487,6 +533,21 @@ def analyze_store(store: Store, checker: str = "append", device=None,
                           f"{analytics_path(store.base)}", file=sys.stderr)
             except Exception:
                 log.warning("analytics flush failed", exc_info=True)
+            # the planner refits from the whole on-disk tables (this
+            # sweep's records included): plan.json is what the next
+            # sweep warm-starts from
+            if planner_mod.enabled():
+                try:
+                    from .store import load_analytics, load_costdb
+                    plan = planner_mod.refresh(
+                        store.base, load_costdb(costdb_path(store.base)),
+                        load_analytics(analytics_path(store.base)))
+                    if plan is not None:
+                        print(f"planner: plan.json refit from "
+                              f"{plan['trained_records']} record(s)",
+                              file=sys.stderr)
+                except Exception:
+                    log.warning("planner refresh failed", exc_info=True)
         obs.reset_events()
         if tr.enabled and store.base.is_dir():
             try:
@@ -501,6 +562,8 @@ def analyze_store(store: Store, checker: str = "append", device=None,
                     from .obs import attribution
                     rj, _rmd = attribution.write_report(
                         store.base, evs, tr.metrics_dict(),
+                        device_records=(device_obs.records()
+                                        if device_obs.enabled() else None),
                         search_records=(search_obs.records()
                                         if search_obs.enabled() else None))
                     print(f"report written to {rj}", file=sys.stderr)

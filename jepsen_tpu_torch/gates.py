@@ -95,6 +95,27 @@ _g("JEPSEN_TPU_EVENTS_MAX_BYTES", "int", None,
    "rotate `<store>/events.jsonl` once it exceeds this many bytes "
    "(atomic rename to `events.jsonl.1`, then an `events_rotated` "
    "event opens the fresh log); unset/<=0 = unbounded (the default)")
+_g("JEPSEN_TPU_HEALTH_INTERVAL_S", "float", None,
+   "live telemetry: write `<store>/health.json` atomically every this "
+   "many seconds during a sweep (progress, robustness, throughput, "
+   "heartbeat); unset/<=0 = off")
+_g("JEPSEN_TPU_METRICS_PORT", "int", None,
+   "serve `/metrics` (Prometheus text exposition) + `/healthz` (the "
+   "health snapshot) on this port during a sweep; `0` binds an "
+   "ephemeral port; unset = off")
+_g("JEPSEN_TPU_COSTDB", "bool", False,
+   "set: the device cost observatory — count each bucket dispatch's "
+   "`closure_square` work from its shapes and rounds, time the "
+   "dispatch with CUDA events on the compute stream, publish the "
+   "residency gauges, append one record per (kernel flags, geometry) "
+   "to `<store>/costdb.jsonl` at sweep end, and add the device "
+   "roofline section to `--report`; off (the default) writes zero "
+   "new files and records no event")
+_g("JEPSEN_TPU_RESIDENCY_INTERVAL_S", "float", 5.0,
+   "minimum seconds between `torch.cuda.memory_stats()` polls for the "
+   "`hbm_device_bytes` residency gauge (the cheap gauges still "
+   "publish per dispatch); `<=0` disables the poll; only read when "
+   "`JEPSEN_TPU_COSTDB` is on")
 _g("JEPSEN_TPU_KERNEL_STATS", "bool", False,
    "set: kernel search telemetry — checker dispatches additionally "
    "return a per-history graph/search stats record (edge counts, "
@@ -108,6 +129,18 @@ _g("JEPSEN_TPU_KERNEL_STATS_SAMPLE", "int", 1,
    "(in-memory aggregates and the report still cover every history); "
    "`1` (the default) journals all; only read when "
    "`JEPSEN_TPU_KERNEL_STATS` is on")
+# -- cost-aware planner -----------------------------------------------------
+_g("JEPSEN_TPU_PLANNER", "bool", False,
+   "set: the cost-aware dispatch planner — route bucket geometry and "
+   "the fused-vs-two-pass choice from a cost model fit on "
+   "`costdb.jsonl` x `analytics.jsonl` (persisted as "
+   "`<store>/plan.json`); cold start (no costdb, unseen device kind, "
+   "corrupt plan) degrades to the exact current heuristics — planner "
+   "decisions never change verdicts, only placement")
+_g("JEPSEN_TPU_PLANNER_PATH", "str", None,
+   "explicit `plan.json` path for the planner (load AND save), e.g. "
+   "one shared model across stores; default `<store>/plan.json`; only "
+   "read when `JEPSEN_TPU_PLANNER` is on")
 # -- dispatch and supervision -----------------------------------------------
 _g("JEPSEN_TPU_FUSED_CLASSIFY", "bool", True,
    "`0`: detect-then-classify two-pass instead of the fused kernel")

@@ -20,10 +20,11 @@ sweep's Chrome timeline (parent phases + device dispatch windows —
 
 `analyze-store --report` writes it as `<store>/report.json` +
 `report.md`. Stdlib-only; events come in as plain dicts, so this runs
-on an archived trace.json as well as a live tracer. The reference's
-device roofline section needs its cost observatory, which the port has
-not yet: the sweep passes no device records. The reference's
-per-shard section belongs to its multi-host mesh, not ported.
+on an archived trace.json as well as a live tracer. With the cost
+observatory on (`JEPSEN_TPU_COSTDB`, `obs.device`) the report gains its
+device roofline section, and with the planner on (`JEPSEN_TPU_PLANNER`)
+its planner section. The reference's per-shard section belongs to its
+multi-host mesh, not ported.
 """
 
 from __future__ import annotations
@@ -281,6 +282,10 @@ def render_report_md(rep: dict) -> str:
     if search_sec:
         from . import search as search_mod
         lines += search_mod.render_search_md(search_sec)
+    planner_sec = rep.get("planner") or {}
+    if planner_sec:
+        from .. import planner as planner_mod
+        lines += planner_mod.render_planner_md(planner_sec)
     lines += ["", "## What-if", "", f"- {summary_line(rep)}"]
     if rep.get("counters"):
         keep = ("runs_verdicted", "buckets_dispatched", "cache_hits",
@@ -380,14 +385,16 @@ def write_report(store_base, events: list, metrics: dict | None = None,
                  search_records: list | None = None):
     """Write `<store>/report.json` + `report.md` (atomically — the
     journal discipline) and return their paths.
-    With `device_records` (a cost observatory's finalized records;
-    the port has none yet, so its sweeps pass None) it carries the `device`
-    roofline section: per-(executable, geometry) achieved-vs-peak
-    FLOPs and bandwidth from captured `cost_analysis()` joined with
-    the measured dispatch windows. With `search_records` (the kernel
-    search-telemetry ledger, JEPSEN_TPU_KERNEL_STATS) it carries the
-    `search` section: anomaly-rate and margin distributions plus the
-    edge-density-vs-device-time join against the costdb."""
+    With `device_records` (the cost observatory's finalized records,
+    `obs.device`) it carries the `device` roofline section:
+    per-(kernel flags, geometry) achieved-vs-peak operations and
+    bandwidth from the dispatches' counted work joined with their
+    device windows. With `search_records` (the kernel search-telemetry
+    ledger, JEPSEN_TPU_KERNEL_STATS) it carries the `search` section:
+    anomaly-rate and margin distributions plus the
+    edge-density-vs-device-time join against the costdb. With the
+    planner on (JEPSEN_TPU_PLANNER) it carries the `planner` section,
+    read from the process's active plan and this sweep's counters."""
     base = Path(store_base)
     rep = analyze(events, window_us=window_us,
                   counters=(metrics or {}).get("counters"))
@@ -402,6 +409,12 @@ def write_report(store_base, events: list, metrics: dict | None = None,
                                         cost_records=device_records)
         if sec is not None:
             rep["search"] = sec
+    from .. import planner as planner_mod
+    if planner_mod.enabled():
+        # a cold sweep still reports its fallback tally
+        rep["planner"] = planner_mod.planner_section(
+            planner_mod.current_plan(), cost_records=device_records,
+            metrics=metrics)
     jp = trace.atomic_write_text(base / "report.json",
                                  json.dumps(rep, indent=2))
     mp = trace.atomic_write_text(base / "report.md",

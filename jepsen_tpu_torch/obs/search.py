@@ -177,8 +177,8 @@ def search_section(recs: list[dict],
     """The report's "search" section: anomaly-rate and margin/round
     distributions over the ledger, edge density, and the per-geometry
     edge-density-vs-device-time join against the costdb (device
-    seconds per history at each bucket pad; the port has no costdb
-    yet, so `cost_records` is None and that column stays empty).
+    seconds per history at each bucket pad, from `cost_records`, the
+    cost observatory's records when JEPSEN_TPU_COSTDB is on).
     Register-sweep records
     (WGL counters, no graph margin) aggregate into their own
     `register` subsection so a register-only sweep still reports.

@@ -33,7 +33,17 @@ sweep, a condensed run's SCCs) records only its watchdog, as the
 reference's `check_edge_batch` does. With `with_stats` /
 `stats_out` each bucket's check also computes the kernel-stats matrix
 (`kernels.STAT_FIELDS`), read with the flags when the bucket resolves.
-The reference's cost planner and mesh are not ported.
+
+With `JEPSEN_TPU_COSTDB` the device cost observatory (`obs.device`)
+brackets each bucket dispatch of encoded histories at the reference's
+points — opened at each enqueue of `check_bucketed_async` and
+`_sync_check`, closed when the bucket resolves, discarded when it goes
+to quarantine or the OOM backdown — with two CUDA events on the compute
+stream. With `JEPSEN_TPU_PLANNER` the cost-aware planner (`planner`)
+composes `check_bucketed_async`'s buckets and picks `check_bucketed`'s
+fused or two-pass classify. Neither touches an edge batch or
+`check_long_history`, as in the reference. The reference's mesh is not
+ported.
 """
 
 from __future__ import annotations
@@ -48,9 +58,11 @@ import numpy as np
 import torch
 
 from .. import gates
+from .. import planner as _planner
 from .. import supervisor as sv
 from .. import trace
 from ..checker.elle import kernels as K
+from ..obs import device as obs_device
 from ..obs import events as obs_events
 
 log = logging.getLogger(__name__)
@@ -135,12 +147,13 @@ class _Dispatch:
         return self.done is None or self.done.query()
 
 
-def _done_event(device: torch.device):
+def _done_event(device: torch.device, timing: bool = False):
     """A CUDA event recorded on `device`'s current stream after the work
-    enqueued so far; None on the CPU, where work is done when enqueued."""
+    enqueued so far (`timing`: one `elapsed_time` can read, for the cost
+    observatory); None on the CPU, where work is done when enqueued."""
     if device.type != "cuda":
         return None
-    ev = torch.cuda.Event()
+    ev = torch.cuda.Event(enable_timing=timing)
     ev.record(torch.cuda.current_stream(device))
     return ev
 
@@ -434,22 +447,29 @@ def _h2d_bucket(item: _Staged, device: torch.device,
     return item
 
 
-def _enqueue(sw: _Sweep, item: _Staged,
-             with_stats: bool = False) -> _Dispatch:
+def _enqueue(sw: _Sweep, item: _Staged, with_stats: bool = False,
+             observe: bool = False) -> _Dispatch:
     """Enqueue one copied bucket's check on the device's current stream
     and return without reading anything back (with `with_stats`, the
     check also computes the stats matrix). The stream first waits
     for the bucket's copy, and each input tensor is marked as used on
     it, so the caching allocator cannot hand the inputs' memory to a
     later copy before this check has read them; the inputs are then
-    dropped."""
+    dropped. With `observe` (a bucket dispatch of encoded histories,
+    the reference's observed points) the cost observatory, when its
+    gate is on, opens the dispatch's window: a start event after the
+    wait, and a timing end event (`obs.device`)."""
     batch, item.batch = item.batch, None
+    compute = None
     if item.ready is not None:
         compute = torch.cuda.current_stream(sw.device)
         compute.wait_event(item.ready)
         for v in batch.values():
             if isinstance(v, torch.Tensor):
                 v.record_stream(compute)
+    win = obs_device.open_window(sw.kw, batch, with_stats, sw.device,
+                                 compute) \
+        if observe and not sw.edges else None
     rounds: list = []
     if sw.edges:
         out = K.classify_matrices_device(batch, rounds=rounds,
@@ -460,9 +480,11 @@ def _enqueue(sw: _Sweep, item: _Staged,
                                    with_stats=with_stats, **sw.kw)
         t_pad = batch["shape"].n_txns
     flags, stats = out if with_stats else (out, None)
-    part = _Dispatch(flags, rounds, _done_event(sw.device), t_pad,
-                     item.t0, item.host, stats)
+    part = _Dispatch(flags, rounds,
+                     _done_event(sw.device, timing=win is not None),
+                     t_pad, item.t0, item.host, stats)
     item.host = None
+    obs_device.begin_dispatch(part, win, sw.tr)
     return part
 
 
@@ -479,6 +501,9 @@ def _resolve(sw: _Sweep, idx: list, part: _Dispatch,
     _block_flags(part.done)
     sw.tr.device_complete(window, part.t_disp,
                           **(args or {"histories": len(idx)}))
+    # the observatory's window ends here too (a no-op for a dispatch
+    # it never began): read after the host has seen the end event
+    obs_device.close_dispatch(part, len(idx), sw.tr)
     words = part.flags.tolist()
     if part.stats is not None:
         words = [(w, K.stats_row(r, n_txns=_size_of(sw.encs[i]),
@@ -526,7 +551,12 @@ def _sync_check(sw: _Sweep, idx: list) -> list[int]:
     telemetry."""
     item = _h2d_bucket(_prep_bucket(sw, idx), sw.device)
     sv.maybe_inject_oom()
-    return _resolve(sw, idx, _enqueue(sw, item))
+    part = _enqueue(sw, item, observe=True)
+    try:
+        return _resolve(sw, idx, part)
+    except BaseException:
+        obs_device.discard_dispatch(part, sw.tr)
+        raise
 
 
 def _oom_backdown(sw: _Sweep, idx: list, budget_cells: int, err) -> list:
@@ -573,6 +603,9 @@ def _finish_part(sw: _Sweep, idx: list, part: _Dispatch,
     try:
         return _resolve(sw, idx, part)
     except BaseException as e:
+        # the abandoned dispatch's cost window is discarded: a
+        # recovered bucket's device time is the backdown's own windows
+        obs_device.discard_dispatch(part, sw.tr)
         if isinstance(e, sv.WatchdogTimeout) and not sw.fail_fast():
             return _quarantine_bucket(sw, idx, "watchdog", e)
         if sv.is_oom_error(e) and not sw.fail_fast():
@@ -642,7 +675,15 @@ def check_bucketed_async(encs: Sequence, device: torch.device, *,
     tr = sw.tr
     copies = torch.cuda.Stream(device) if device.type == "cuda" else None
     eff_budget = max(1, budget_cells // depth)
-    buckets = bucket_by_length(encs, budget_cells=eff_budget)
+    pl = None if sw.edges else _planner.get()
+    if pl is not None:
+        # the cost-aware planner races candidate pad multiples on
+        # predicted device seconds and keeps the winner's composition;
+        # without a model it answers bucket_by_length's own (multiple
+        # 128), and composition never changes a verdict
+        buckets = pl.plan_buckets(encs, budget_cells=eff_budget)
+    else:
+        buckets = bucket_by_length(encs, budget_cells=eff_budget)
     # Singleton buckets whose one history alone exceeds the per-slot
     # budget cannot share the envelope: peel them off to dispatch
     # strictly alone after the pipelined buckets drain.
@@ -671,7 +712,7 @@ def check_bucketed_async(encs: Sequence, device: torch.device, *,
         t0 = time.perf_counter()
         try:
             sv.maybe_inject_oom()
-            part = _enqueue(sw, item, with_stats)
+            part = _enqueue(sw, item, with_stats, observe=True)
         except BaseException as e:
             if not sv.is_oom_error(e) or sw.fail_fast():
                 raise
@@ -824,6 +865,15 @@ def check_bucketed(encs: Sequence, device: torch.device, *,
         return []
     if fused is None:
         fused = K.fused_classify_enabled()
+        pl = _planner.get()
+        if pl is not None and classify:
+            # the planner may flip the classify strategy when the
+            # costdb has measured BOTH fused and two-pass (their
+            # verdicts are identical); an explicit fused= or a cold
+            # planner keeps the gate's choice
+            t_pad = K.pad_to(max((_size_of(e) for e in encs), default=1),
+                             128)
+            fused = pl.fused_choice(fused, classify=classify, t_pad=t_pad)
     if two_pass is None:
         two_pass = classify and not fused
     if classify and two_pass:

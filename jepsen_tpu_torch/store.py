@@ -19,6 +19,11 @@ Layout (the reference's `store/<test-name>/<start-time>/`):
     store/report.json, report.md  the attribution report (--report)
     store/analytics.jsonl  per-history search stats
                         (JEPSEN_TPU_KERNEL_STATS)
+    store/costdb.jsonl  per-(kernel flags, geometry) device cost records
+                        (JEPSEN_TPU_COSTDB)
+    store/plan.json     the planner's fitted model (JEPSEN_TPU_PLANNER)
+    store/health.json   the live health snapshot
+                        (JEPSEN_TPU_HEALTH_INTERVAL_S)
     store/<test-name>/<start-time>/encoded.v2.bin (list-append) and
         encoded-wr.v1.bin (rw-register)  the encoded sidecar cache
                         (JEPSEN_TPU_ENCODE_CACHE*, JEPSEN_TPU_SIDECAR_V2)
@@ -335,6 +340,97 @@ class VerdictJournal:
         return out
 
 
+# ---------------------------------------------------------------------------
+# The cost database: costdb.jsonl at the store root.
+#
+# The device cost observatory (obs/device.py, behind JEPSEN_TPU_COSTDB)
+# keeps one record per (kernel flags, bucket geometry): the dispatches'
+# closure_square work counted from their shapes, joined with their
+# device windows, appended here at sweep end, one flushed JSON line
+# each, so a torn tail from a killed flush is skipped on load. Shards
+# of a multi-host sweep would write `costdb-shard<k>.jsonl`, merged by
+# `obs.device.merge_records`. The file is the planner's training data
+# (planner.py): append-only, consumers dedup by record key. The line
+# schema is the reference's, so either package reads the other's file.
+# ---------------------------------------------------------------------------
+
+COSTDB_NAME = "costdb.jsonl"
+
+
+def costdb_path(store_base, shard: int | None = None) -> Path:
+    """The costdb of a store (`costdb-shard<k>.jsonl` for a shard)."""
+    if shard is None:
+        return Path(store_base) / COSTDB_NAME
+    return Path(store_base) / f"costdb-shard{shard}.jsonl"
+
+
+def append_costdb(path, records: list[dict]) -> int:
+    """Append cost records to a costdb (`_append_jsonl`)."""
+    return _append_jsonl(path, records, "costdb")
+
+
+class CostTable(list):
+    """A costdb read: the record dicts plus which path was read and
+    whether that file existed. A list, so a missing or empty costdb is
+    a falsy table, never an exception."""
+
+    __slots__ = ("path", "exists")
+
+    def __init__(self, records=(), *, path=None, exists: bool = False):
+        super().__init__(records)
+        self.path = Path(path) if path is not None else None
+        self.exists = bool(exists)
+
+    @property
+    def empty(self) -> bool:
+        """No records: the planner's cold-start predicate (an absent
+        file and a present but recordless one both count)."""
+        return not self
+
+
+def load_costdb(path) -> CostTable:
+    """Records from a costdb (a file, or a store directory) as a
+    `CostTable`, in file order; unparseable lines (the crash-torn tail)
+    and lines without a geometry are skipped. A missing or unreadable
+    file gives an empty table with `exists=False`."""
+    out: list[dict] = []
+    p = Path(path)
+    if p.is_dir():
+        p = p / COSTDB_NAME
+    if not p.is_file():
+        return CostTable(path=p, exists=False)
+    try:
+        lines = p.read_text().splitlines()
+    except OSError:
+        return CostTable(path=p, exists=False)
+    for ln in lines:
+        ln = ln.strip()
+        if not ln:
+            continue
+        try:
+            rec = json.loads(ln)
+        except json.JSONDecodeError:
+            continue
+        if isinstance(rec, dict) and "geometry" in rec:
+            out.append(rec)
+    return CostTable(out, path=p, exists=True)
+
+
+#: The planner's fitted model (`JEPSEN_TPU_PLANNER`, planner.py),
+#: published whole by temp file and rename.
+PLAN_NAME = "plan.json"
+
+
+def plan_path(store_base) -> Path:
+    """The planner's model snapshot of a store; `JEPSEN_TPU_PLANNER_PATH`
+    overrides it (one plan shared across stores)."""
+    from . import gates
+    override = gates.get("JEPSEN_TPU_PLANNER_PATH")
+    if override:
+        return Path(override)
+    return Path(store_base) / PLAN_NAME
+
+
 #: The analytics ledger's file name (`JEPSEN_TPU_KERNEL_STATS`).
 ANALYTICS_NAME = "analytics.jsonl"
 
@@ -347,11 +443,12 @@ def analytics_path(store_base, shard: int | None = None) -> Path:
     return Path(store_base) / f"analytics-shard{shard}.jsonl"
 
 
-def append_analytics(path, records: list[dict]) -> int:
-    """Append stats records as JSON lines, each flushed as written; a
+def _append_jsonl(path, records: list[dict], what: str) -> int:
+    """Append records as JSON lines, each flushed as written; a
     crash-torn tail from a previous writer is sealed first (the
-    journal's rule). Best-effort: a read-only store returns 0, never
-    raises."""
+    journal's rule: appending after a line that lost its newline would
+    merge two records into one unparseable line). Best-effort: a
+    read-only store returns 0, never raises."""
     p = Path(path)
     n = 0
     try:
@@ -371,8 +468,13 @@ def append_analytics(path, records: list[dict]) -> int:
                 f.flush()
                 n += 1
     except OSError:
-        log.debug("analytics append failed for %s", p, exc_info=True)
+        log.debug("%s append failed for %s", what, p, exc_info=True)
     return n
+
+
+def append_analytics(path, records: list[dict]) -> int:
+    """Append stats records to an analytics ledger (`_append_jsonl`)."""
+    return _append_jsonl(path, records, "analytics")
 
 
 def load_analytics(path) -> list[dict]:

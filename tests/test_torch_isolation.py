@@ -68,6 +68,11 @@ print(" ".join(mods))
             "jepsen_tpu_torch.checker.timeline",
             "jepsen_tpu_torch.checker.linear_svg",
             "jepsen_tpu_torch.checker.elle.artifacts"} <= mods
+    # the device cost observatory, the live telemetry and the planner
+    assert {"jepsen_tpu_torch.obs.device", "jepsen_tpu_torch.obs.health",
+            "jepsen_tpu_torch.obs.prom", "jepsen_tpu_torch.planner",
+            "jepsen_tpu_torch.parallel.residency",
+            "jepsen_tpu_torch.parallel.folding"} <= mods
 
 
 @pytest.mark.parametrize("path", port_sources(),
@@ -194,6 +199,13 @@ from jepsen_tpu_torch.checker.elle import artifacts, wr
 independent.checker(elle.append_checker(backend="tpu"))
 wr.rw_register_checker()
 assert devices.resolve_backend("auto") == "tpu"
+# so do the live telemetry and the planner's model, which a process
+# without a device reads and writes
+from jepsen_tpu_torch import obs, planner
+from jepsen_tpu_torch.obs import device, health, prom
+assert planner.fit_plan([], []) is None
+assert prom.render_prometheus(tr).startswith("# TYPE")
+assert health.health_snapshot(tr)["v"] == 1
 assert "torch" not in [m.split(".")[0] for m in sys.modules
                        if sys.modules[m] is not None]
 print("ok")
