@@ -215,6 +215,35 @@ failure:
               `kernels._edges_batched(with_counts=True)` timed apart
               from its bucket at phase 4's shape against its bytes, and
               the wr path's edge_batch_to_device at phase 5's.
+ 16. serve    the verdict daemon, in process on the card
+              (`serve.VerdictDaemon`, JEPSEN_TPU_METRICS_PORT and a
+              0.5 s health interval), three tenants at once: A (weight
+              2) submits 32 of phase 4's runs by dir, B the other 32,
+              half inline and half through shared memory, C phase 5's
+              32 wr runs by dir. Every ack equals phase 4's or 5's
+              results.json (so exactly the corrupt runs are invalid),
+              every id is journaled once, closure_square launches on
+              `serve-append` and `serve-wr` (each fold's launches and
+              buckets recorded on the dispatch thread; the active
+              launches equal the folds' closure rounds), /metrics has
+              the per-tenant series and health.json's serve section
+              names the three; resending every id on new connections
+              replays each with no launch. Then `python -m
+              jepsen_tpu_torch.cli serve --device cuda`: SIGKILLed
+              after 8 acks of phase 4's 64 runs, restarted, every id
+              resent: the journaled ones replay, every id is journaled
+              once, and SIGTERM drains with exit 0. Prints the fold
+              sizes and buckets, verdicts/s, the serve_request spans'
+              p50 and p99 and the launches and device ms per path.
+ 17. fleet    `python -m jepsen_tpu_torch.cli fleet --daemons 3
+              --device cuda` on the one card, three tenants over phase
+              4's 64 runs by dir; tenant A's affine member is
+              SIGKILLed once it has journaled A's first verdict: every
+              verdict arrives once, equal to phase 4's, every id is
+              journaled once, fleet-reassign.jsonl records A's move,
+              the router's SIGTERM exits 0 and every member is gone.
+              The members are other processes, so their launches are
+              not counted here (phase 16 shows the kernel path).
 
 The sweeps run in this process (phases 4-12) ingest through the same
 pool. Spawn re-imports this script in each worker, so it imports torch
@@ -231,8 +260,9 @@ and so do phase 12's (`native-<path>-cold`, `native-<path>-warm`) and
 phase 13's (`pool-append-cold`, `pool-append-warm`, `pool-wr`,
 `pool-register`, `pool-kill`), counted in the sweep's own process, and
 phase 14's (`analyze-append`, `analyze-wr`, `analyze-register`,
-`analyze-fanout`, `analyze-race`), and phase 15's (`costdb-append`,
-`costdb-wr`, `planner-append-cold`, `planner-append-warm`).
+`analyze-fanout`, `analyze-race`), phase 15's (`costdb-append`,
+`costdb-wr`, `planner-append-cold`, `planner-append-warm`), and phase
+16's (`serve-append`, `serve-wr`: the in-process daemon's folds).
 
 The last lines are a `{"kernels": [...]}` record per kernel (with its
 launches and summed device milliseconds per path), the nvidia-smi line,
@@ -248,6 +278,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -385,7 +416,6 @@ def child_pids() -> list[int]:
 def reap(pid: int, grace: float) -> bool:
     """Wait up to `grace` seconds for child `pid` to end, then SIGKILL
     it and wait again; True if it had to be killed."""
-    import signal
     deadline = time.monotonic() + grace
     while time.monotonic() < deadline:
         try:
@@ -401,13 +431,29 @@ def reap(pid: int, grace: float) -> bool:
     return True
 
 
+#: Processes started by this script's children, not by it (phase 17's
+#: fleet members, spawned by the router): the router reaps them; a
+#: failed phase may leave them orphaned, and stop_children kills them.
+GRANDCHILDREN: list[int] = []
+
+
+def alive(pid: int) -> bool:
+    """Is `pid` a live process (neither gone nor a zombie)?"""
+    try:
+        stat = Path(f"/proc/{pid}/stat").read_text()
+    except OSError:
+        return False
+    return stat[stat.rindex(")") + 2] != "Z"
+
+
 def stop_children() -> list[str]:
     """Stop every process the phases started that is still there when
     they end: the in-process sweeps' spawned ingest workers,
     multiprocessing's resource tracker (which the first spawn starts
     and which otherwise ends only after this process has, once it sees
-    its pipe close) and any other child. Returns the ones that would
-    not end by themselves and were killed."""
+    its pipe close), any other child, and any of GRANDCHILDREN still
+    alive. Returns the ones that would not end by themselves and were
+    killed."""
     import multiprocessing as mp
     from multiprocessing import resource_tracker
 
@@ -429,6 +475,11 @@ def stop_children() -> list[str]:
     for pid in child_pids():
         if reap(pid, 2.0):
             stuck.append(f"child {pid}")
+    for pid in GRANDCHILDREN:
+        if alive(pid):
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signal.SIGKILL)
+            stuck.append(f"grandchild {pid}")
     return stuck
 
 
@@ -2932,6 +2983,449 @@ def phase_costdb(launches: dict, verdicts: dict, name: str) -> dict:
     return {"paths": paths, "numbers": out}
 
 
+#: Phase 16: each tenant's fairness weight, and the acks after which
+#: the subprocess daemon is SIGKILLed.
+SERVE_WEIGHTS = {"A": 2.0, "B": 1.0, "C": 1.0}
+SERVE_KILL_AFTER = 8
+#: Phase 17: the fleet's size.
+FLEET_DAEMONS = 3
+
+
+class FoldMeter:
+    """Stands in for a daemon's FoldDispatcher: forwards each fold to it
+    and records, on the dispatch thread, the fold's checker and size,
+    its buckets (the dispatcher's `bucket_log`) and the closure_square
+    launches and event pairs the fold added. Only the dispatch thread
+    launches kernels while the daemon serves, so the deltas are the
+    fold's own."""
+
+    def __init__(self, inner, kernel):
+        self.inner, self.kernel = inner, kernel
+        inner.bucket_log = []
+        self.folds: list = []
+
+    def verdicts(self, encs, checker, **kw):
+        log, k = self.inner.bucket_log, self.kernel
+        n0, e0, b0 = k.launches, len(k.events), len(log)
+        out = self.inner.verdicts(encs, checker, **kw)
+        self.folds.append({"checker": checker, "histories": len(encs),
+                           "launches": k.launches - n0,
+                           "events": k.events[e0:], "buckets": log[b0:]})
+        return out
+
+
+def history_ops(run: Path) -> list:
+    return [json.loads(ln) for ln in
+            (run / "history.jsonl").read_text().splitlines() if ln]
+
+
+def phase_result(verdicts: dict, checker: str, run: Path) -> dict:
+    """Phase 4's (append) or phase 5's (wr) results.json of `run`."""
+    kind = "wr" if checker == "wr" else "synth"
+    return json.loads(verdicts[checker][f"{kind}/{run.name}/results.json"])
+
+
+def same_as_phase(verdicts: dict, checker: str, run: Path, res: dict,
+                  what: str) -> None:
+    want = phase_result(verdicts, checker, run)
+    check(json.dumps(res) == json.dumps(want),
+          f"{what}: the verdict of {run.name} ({checker}) differs from "
+          f"phase {4 if checker == 'append' else 5}'s: {res} vs {want}")
+    h = int(run.name.split("-")[1])
+    bad = BAD_EVERY if checker == "append" else WR_BAD_EVERY
+    check(res["valid?"] is (h % bad != bad - 1),
+          f"{what}: {run.name} ({checker}) valid? {res['valid?']}")
+
+
+def serve_tenants(sock: str, plan: dict, resend: bool = False) -> tuple:
+    """Every tenant of `plan` ({tenant: [(how, checker, run)]}) on its
+    own thread and connection: submit its runs (by dir, inline or shm;
+    with `resend`, every one by dir under the same ids) and collect.
+    Returns ({tenant: {id: result}}, {tenant: client}, wall seconds)."""
+    import threading
+    from jepsen_tpu_torch import ingest
+    from jepsen_tpu_torch.serve.client import ServeClient
+
+    results, clients, errors = {}, {}, []
+
+    def run(tenant: str, items: list) -> None:
+        try:
+            c = ServeClient(socket_path=sock, tenant=tenant,
+                            weight=SERVE_WEIGHTS[tenant], timeout=600)
+            c.connect()
+            for how, checker, d in items:
+                rid = f"{checker}/{d.name}"
+                if how == "dir" or resend:
+                    c.check_dir(d, checker=checker, rid=rid)
+                elif how == "inline":
+                    c.check_history(history_ops(d), rid, checker)
+                else:
+                    c.check_encoded(ingest.encode_run_dir(d, checker), rid,
+                                    checker)
+            results[tenant] = c.collect(timeout=600)
+            clients[tenant] = c
+            c.close()
+        except Exception as e:        # noqa: BLE001 (reported below)
+            errors.append(f"tenant {tenant}: {e!r}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(t, items))
+               for t, items in plan.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    check(not errors and len(results) == len(plan),
+          f"serve tenants failed: {errors}")
+    return results, clients, wall
+
+
+def journal_counts(store: Path, tenant: str) -> dict:
+    """{id: parsed lines} of a tenant's journal (a torn line skipped)."""
+    from jepsen_tpu_torch.store import tenant_journal_path
+    counts: dict = {}
+    p = tenant_journal_path(store, tenant)
+    for ln in (p.read_text().splitlines() if p.exists() else []):
+        try:
+            e = json.loads(ln)
+        except json.JSONDecodeError:
+            continue
+        counts[e["dir"]] = counts.get(e["dir"], 0) + 1
+    return counts
+
+
+def start_proc(argv: list, key: str, log: Path, procs: list) -> tuple:
+    """Start `argv` (its stderr to `log`) and read its stdout up to the
+    JSON ready line holding `key`; returns (proc, that record)."""
+    proc = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=open(log, "w"), text=True)
+    procs.append(proc)
+    deadline = time.monotonic() + 300
+    while time.monotonic() < deadline:
+        line = proc.stdout.readline()
+        if not line:
+            break
+        with contextlib.suppress(json.JSONDecodeError):
+            rec = json.loads(line)
+            if isinstance(rec, dict) and key in rec:
+                return proc, rec[key]
+    proc.kill()
+    proc.wait()
+    raise SmokeFailure(f"{argv[3]} gave no ready line: "
+                       f"{log.read_text()[-3000:]}")
+
+
+def end_procs(procs: list) -> None:
+    """End the daemons and routers a phase started: SIGTERM first (a
+    router stops and reaps its members), SIGKILL after 60 s."""
+    for p in procs:
+        if p.poll() is None:
+            p.terminate()
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+        p.wait()
+        p.stdout.close()
+
+
+def phase_serve(verdicts: dict) -> dict:
+    """Phase 16: the verdict daemon on the card. Returns the paths'
+    (launches, device ms) and the numbers PERF.md reads."""
+    import urllib.request
+    from jepsen_tpu_torch import trace
+    from jepsen_tpu_torch.checker.elle import closure_square as cs
+    from jepsen_tpu_torch.serve.client import ServeClient
+    from jepsen_tpu_torch.serve.daemon import VerdictDaemon
+    from jepsen_tpu_torch.store import Store, VerdictJournal, \
+        tenant_journal_path
+
+    t_phase = time.perf_counter()
+    append_runs = sorted(p for p in (WORK / "store" / "synth").iterdir()
+                         if p.is_dir())
+    wr_runs = sorted(p for p in (WORK / "wr" / "wr").iterdir() if p.is_dir())
+    half = len(append_runs) // 2
+    plan = {"A": [("dir", "append", d) for d in append_runs[:half]],
+            "B": [("inline" if i % 2 == 0 else "shm", "append", d)
+                  for i, d in enumerate(append_runs[half:])],
+            "C": [("dir", "wr", d) for d in wr_runs]}
+    runs_of = {t: {f"{c}/{d.name}": (c, d) for _h, c, d in items}
+               for t, items in plan.items()}
+    base = WORK / "serve"
+    base.mkdir()
+    prev = trace.get_current()
+    kernel = cs.closure_square
+    out: dict = {}
+    try:
+        with gate_env(JEPSEN_TPU_METRICS_PORT=0,
+                      JEPSEN_TPU_HEALTH_INTERVAL_S=0.5):
+            d = VerdictDaemon(Store(base), device=DEVICE).start()
+        try:
+            meter = FoldMeter(d._dispatcher, kernel)
+            d._dispatcher = meter
+            info = d.ready_info()["serve"]
+            (got, _c, wall), launches, square_ms = counted(
+                lambda: serve_tenants(info["socket"], plan))
+            torch.cuda.synchronize()
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{info['metrics_port']}/metrics",
+                    timeout=60) as r:
+                page = r.read().decode()
+            (again, clients, _w), relaunched, _ = counted(
+                lambda: serve_tenants(info["socket"], plan, resend=True))
+            spans = [e["dur"] / 1e3 for e in trace.get_current()
+                     .chrome_events() if e.get("name") == "serve_request"]
+        finally:
+            rc = d.stop()
+    finally:
+        trace.set_current(prev)
+    check(rc == 0, f"the daemon's drain returned {rc}")
+    for t, res in got.items():
+        check(set(res) == set(runs_of[t]), f"tenant {t}: ids {sorted(res)}")
+        for rid, r in res.items():
+            checker, run = runs_of[t][rid]
+            same_as_phase(verdicts, checker, run, r, f"serve tenant {t}")
+        check({k: json.dumps(v) for k, v in again[t].items()}
+              == {k: json.dumps(v) for k, v in res.items()},
+              f"tenant {t}: replayed verdicts differ")
+        check(clients[t].replays == len(res),
+              f"tenant {t}: {clients[t].replays} of {len(res)} replayed")
+        counts = journal_counts(base, t)
+        check(counts == {rid: 1 for rid in res},
+              f"tenant {t}: journal lines per id {counts}")
+    check(relaunched == 0, f"the resend launched {relaunched} kernels")
+    check(len(spans) == sum(len(r) for r in got.values()),
+          f"{len(spans)} serve_request spans")
+    for t in plan:
+        check(f"jepsen_tpu_serve_{t}_verdicts" in page,
+              f"/metrics has no serve.{t}.* series")
+    health = json.loads((base / "health.json").read_text())
+    check(set(health.get("serve", {}).get("tenants", {})) == set(plan),
+          f"health.json serve section: {health.get('serve')}")
+
+    paths, folds = {}, meter.folds
+    check(sum(f["launches"] for f in folds) == launches,
+          f"{launches} launches, {sum(f['launches'] for f in folds)} in folds")
+    for checker in ("append", "wr"):
+        mine = [f for f in folds if f["checker"] == checker]
+        n = sum(f["launches"] for f in mine)
+        check(n > 0, f"serve-{checker}: closure_square never launched")
+        active, skipped = launch_split(
+            [b for f in mine for b in f["buckets"]], n)
+        ms = sum(a.elapsed_time(b) for f in mine for a, b in f["events"])
+        paths[f"serve-{checker}"] = (n, ms)
+        out[f"serve-{checker}"] = {
+            "folds": [f["histories"] for f in mine],
+            "buckets": [[b["histories"] for b in f["buckets"]]
+                        for f in mine],
+            "t_pad": sorted({b["t_pad"] for f in mine
+                             for b in f["buckets"]}),
+            "launches": n, "active": active, "skipped": skipped,
+            "device_ms": ms}
+        say(f"serve-{checker}: {len(mine)} folds of "
+            f"{out[f'serve-{checker}']['folds']} histories, buckets "
+            f"{out[f'serve-{checker}']['buckets']} at T_pad "
+            f"{out[f'serve-{checker}']['t_pad']}; {n} closure_square "
+            f"launches ({active} active, {skipped} skipped) taking "
+            f"{ms} ms of device time (CUDA event pairs)")
+    n_verdicts = sum(len(r) for r in got.values())
+    spans.sort()
+    out["verdicts"] = n_verdicts
+    out["wall"] = wall
+    out["verdicts_per_s"] = n_verdicts / wall
+    out["latency_ms"] = {"p50": spans[len(spans) // 2],
+                         "p99": spans[min(len(spans) - 1,
+                                          int(0.99 * len(spans)))]}
+    say(f"serve: 3 tenants (A weight 2: {half} by dir; B: "
+        f"{len(append_runs) - half} inline and shm; C: {len(wr_runs)} wr "
+        f"by dir), {n_verdicts} verdicts in {wall:.3f}s wall "
+        f"({out['verdicts_per_s']:.3f} verdicts/s), serve_latency_ms "
+        f"(serve_request spans) p50 {out['latency_ms']['p50']} p99 "
+        f"{out['latency_ms']['p99']}; every ack equal to phase 4's or "
+        "5's results.json, exactly the corrupt runs invalid; /metrics "
+        "per-tenant series and health.json's serve section present; "
+        f"the resend replayed all {n_verdicts} with 0 launches")
+
+    # the CLI daemon: SIGKILL after SERVE_KILL_AFTER acks, restart, resend
+    pbase = WORK / "serve-proc"
+    pbase.mkdir()
+    argv = [sys.executable, "-m", "jepsen_tpu_torch.cli", "serve",
+            "--store", str(pbase), "--device", DEVICE]
+    procs: list = []
+    ids = {d.name: d for d in append_runs}
+    try:
+        t0 = time.perf_counter()
+        proc, ready = start_proc(argv, "serve", WORK / "serve-1.log", procs)
+        t_ready = time.perf_counter() - t0
+        c = ServeClient(socket_path=ready["socket"], tenant="K", timeout=600)
+        c.connect()
+        for d in append_runs:
+            c.check_dir(d, rid=d.name)
+        acks = 0
+        while acks < SERVE_KILL_AFTER:
+            f = c.recv()
+            check(f is not None, "the CLI daemon closed the connection")
+            acks += f.get("op") == "verdict"
+        proc.kill()
+        proc.wait()
+        c.sock.close()
+        jp = tenant_journal_path(pbase, "K")
+        journaled = len(VerdictJournal.load(jp))
+        check(journaled >= SERVE_KILL_AFTER,
+              f"{journaled} journaled after {acks} acks")
+        proc2, ready2 = start_proc(argv, "serve", WORK / "serve-2.log",
+                                   procs)
+        c2 = ServeClient(socket_path=ready2["socket"], tenant="K",
+                         timeout=600)
+        c2.connect()
+        check(c2.welcome["journaled"] == journaled,
+              f"the restart saw {c2.welcome['journaled']} journaled, "
+              f"not {journaled}")
+        for d in append_runs:
+            c2.check_dir(d, rid=d.name)
+        res = c2.collect(timeout=600)
+        c2.close()
+        check(c2.replays == journaled,
+              f"{c2.replays} replays of {journaled} journaled")
+        for rid, r in res.items():
+            same_as_phase(verdicts, "append", ids[rid], r, "serve CLI")
+        counts = journal_counts(pbase, "K")
+        check(counts == {d.name: 1 for d in append_runs},
+              f"serve CLI: journal lines per id {counts}")
+        proc2.send_signal(signal.SIGTERM)
+        rc2 = proc2.wait(timeout=300)
+        check(rc2 == 0, f"the CLI daemon's SIGTERM drain exited {rc2}")
+    finally:
+        end_procs(procs)
+    say(f"serve CLI (--device {DEVICE}): ready in {t_ready:.1f}s, "
+        f"SIGKILLed after {acks} acks with {journaled} journaled, the "
+        f"restart replayed {journaled} and checked "
+        f"{len(append_runs) - journaled}, every id journaled once, "
+        f"verdicts as phase 4's; SIGTERM drained with exit 0")
+    say(f"phase 16 in {time.perf_counter() - t_phase:.1f}s")
+    return {"paths": paths, **out}
+
+
+def phase_fleet(verdicts: dict) -> dict:
+    """Phase 17: `python -m jepsen_tpu_torch.cli fleet` with
+    FLEET_DAEMONS members on the one card and three tenants over phase
+    4's runs by dir; tenant A's affine member is SIGKILLed once it has
+    journaled A's first verdict. The members are other processes, so
+    their closure_square launches are not counted here (as phase 4's
+    CLI run); phase 16 shows the kernel path."""
+    import threading
+    from jepsen_tpu_torch.obs import events
+    from jepsen_tpu_torch.serve.client import ServeClient
+    from jepsen_tpu_torch.serve.fleet import load_reassignments
+    from jepsen_tpu_torch.store import fleet_socket_path, shard_of, \
+        tenant_journal_path
+
+    class CountingClient(ServeClient):
+        """Counts every verdict frame per id (a duplicate would show)."""
+
+        def recv(self):
+            f = super().recv()
+            if f is not None and f.get("op") == "verdict":
+                self.frames[f["id"]] = self.frames.get(f["id"], 0) + 1
+            return f
+
+    t_phase = time.perf_counter()
+    runs = sorted(p for p in (WORK / "store" / "synth").iterdir()
+                  if p.is_dir())
+    third = -(-len(runs) // 3)
+    shares = {"A": runs[:third], "B": runs[third:2 * third],
+              "C": runs[2 * third:]}
+    base = WORK / "fleet"
+    base.mkdir()
+    argv = [sys.executable, "-m", "jepsen_tpu_torch.cli", "fleet",
+            "--store", str(base), "--daemons", str(FLEET_DAEMONS),
+            "--device", DEVICE]
+    procs: list = []
+    results, errors, clients = {}, [], {}
+    try:
+        t0 = time.perf_counter()
+        router, ready = start_proc(argv, "fleet", WORK / "fleet.log", procs)
+        t_ready = time.perf_counter() - t0
+        members = {int(k): m["pid"] for k, m in ready["members"].items()}
+        GRANDCHILDREN.extend(members.values())
+        check(len(members) == FLEET_DAEMONS and all(members.values()),
+              f"fleet members {ready['members']}")
+        victim = sorted(members)[shard_of("A", len(members))]
+
+        def run(tenant: str, share: list) -> None:
+            try:
+                c = CountingClient(socket_path=fleet_socket_path(base),
+                                   tenant=tenant, timeout=600)
+                c.frames = {}
+                c.connect(retry=True)
+                for d in share:
+                    c.check_dir(d, rid=d.name)
+                results[tenant] = c.collect(timeout=600, reconnect=True)
+                clients[tenant] = c
+                c.close()
+            except Exception as e:    # noqa: BLE001 (reported below)
+                errors.append(f"tenant {tenant}: {e!r}")
+
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=run, args=(t, s))
+                   for t, s in shares.items()]
+        for t in threads:
+            t.start()
+        ja = tenant_journal_path(base, "A")
+        deadline = time.monotonic() + 300
+        while not (ja.exists() and ja.read_text().count("\n") >= 1):
+            check(time.monotonic() < deadline,
+                  "tenant A's member journaled nothing")
+            time.sleep(0.005)
+        os.kill(members[victim], signal.SIGKILL)
+        t_kill = time.perf_counter() - t1
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t1
+        check(not errors and len(results) == len(shares),
+              f"fleet tenants failed: {errors}")
+        router.send_signal(signal.SIGTERM)
+        rc = router.wait(timeout=300)
+    finally:
+        end_procs(procs)
+    check(rc == 0, f"the router's SIGTERM exit {rc}")
+    for t, share in shares.items():
+        ids = {d.name for d in share}
+        check(set(results[t]) == ids, f"fleet tenant {t}: ids")
+        check(clients[t].frames == {i: 1 for i in ids},
+              f"fleet tenant {t}: verdict frames per id "
+              f"{clients[t].frames}")
+        for d in share:
+            same_as_phase(verdicts, "append", d, results[t][d.name],
+                          f"fleet tenant {t}")
+        counts = journal_counts(base, t)
+        check(counts == {i: 1 for i in ids},
+              f"fleet tenant {t}: journal lines per id {counts}")
+    moves = load_reassignments(base)
+    check(any(m["dead"] == victim and m["tenant"] == "A" for m in moves),
+          f"fleet-reassign.jsonl does not record A's move: {moves}")
+    deadline = time.monotonic() + 10
+    while any(alive(p) for p in members.values()):
+        check(time.monotonic() < deadline,
+              f"fleet members left running: {members}")
+        time.sleep(0.05)
+    failover = [e for e in events.load_events(base)
+                if e.get("event") == "fleet_failover"]
+    n = sum(len(r) for r in results.values())
+    say(f"fleet: {FLEET_DAEMONS} members ready in {t_ready:.1f}s; tenant "
+        f"A's member d{victim} SIGKILLed {t_kill:.3f}s into the stream; "
+        f"{n} verdicts in {wall:.3f}s ({n / wall:.3f} verdicts/s), each "
+        f"once and equal to phase 4's; reassign {moves}; failover "
+        f"{[e.get('ms') for e in failover]} ms; the router's SIGTERM "
+        f"exit 0, every member reaped (launches not counted here: the "
+        f"members are other processes)")
+    say(f"phase 17 in {time.perf_counter() - t_phase:.1f}s")
+    return {"wall": wall, "verdicts": n, "verdicts_per_s": n / wall,
+            "moves": moves, "victim": victim, "t_kill": t_kill,
+            "failover_ms": [e.get("ms") for e in failover]}
+
+
 def main() -> int:
     global torch
     import torch
@@ -3002,6 +3496,8 @@ def main() -> int:
         paths.update(phase_costdb(
             {"append": paths["append"][0], "wr": paths["wr"][0]},
             verdicts, name)["paths"])
+        paths.update(phase_serve(verdicts)["paths"])
+        phase_fleet(verdicts)
         for rec, ps in ((record, paths), (dense_record, dense_paths)):
             rec["launches"] = sum(n for n, _ in ps.values())
             rec["paths"] = {k: {"launches": n, "device_ms": ms}
@@ -3012,6 +3508,11 @@ def main() -> int:
     if killed:
         say(f"killed what would not end by itself: {killed}")
     check(not child_pids(), f"children left running: {child_pids()}")
+    deadline = time.monotonic() + 10
+    while any(alive(p) for p in GRANDCHILDREN):
+        check(time.monotonic() < deadline, "grandchildren left running: "
+              f"{[p for p in GRANDCHILDREN if alive(p)]}")
+        time.sleep(0.05)
     say(f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": [record, dense_record]}))
     print(nvidia_smi())

@@ -6,6 +6,11 @@
         [--checker append|wr|register|stored] [--name NAME] [--resume] \\
         [--report] [--backend auto|tpu|cpu|race] [--[no-]trace] \\
         [--[no-]jax-profile] [--device cuda|cpu]
+    python -m jepsen_tpu_torch.cli serve --store DIR [--socket PATH] \\
+        [--port P] [--host H] [--drain-timeout S] [--fleet-instance K] \\
+        [--fleet-epoch E] [--[no-]trace] [--device cuda|cpu]
+    python -m jepsen_tpu_torch.cli fleet --store DIR [--daemons N] \\
+        [--socket PATH] [--no-stonith] [--[no-]trace] [--device cuda|cpu]
 
 Counterpart of `jepsen_tpu/cli.py`. A suite's main calls
 `run_cli(test_fn, ...)`, as the reference's do: `analyze` re-runs the
@@ -21,6 +26,15 @@ as it is (no checker: `valid? true`).
 `run_cli` returns), which every `auto` checker reads
 (`devices.resolve_backend`): `tpu` and `auto` the device path, `cpu`
 the host oracles, `race` both at once for linearizability.
+
+`serve` runs the verdict daemon (`serve.daemon`): tenants stream
+histories over `<store>/serve.sock` (or TCP with `--port`) and get
+verdicts back, journaled per tenant; it prints one ready line and exits
+0 when SIGTERM's drain ends. `fleet` runs N such daemons behind a router
+(`serve.fleet`). Both run on `--device` (default cuda) and exit 255
+without it; `serve` also exits 255 when a fold meets a device or kernel
+failure. `serve --web` (the reference's store browser) is named and
+refused (exit 254): the harness it belongs to is not ported.
 
 `analyze-store`, the batch path: every stored run
 (with `--name`, every run of that test name) is checked, and each
@@ -1007,6 +1021,68 @@ def run_cli(test_fn: Callable[[dict, argparse.Namespace], dict],
                    help="where the kernels run (default cuda; cpu only "
                         "when asked)")
     add_trace_opts(a)
+
+    p_serve = sub.add_parser(
+        "serve",
+        help="run the multi-tenant verdict daemon: tenants stream "
+             "histories over a local socket and get verdicts back "
+             "(continuous batching, per-tenant fairness, journaled "
+             "verdicts; analyze-store remains the batch path)")
+    p_serve.add_argument("--port", type=int, default=None,
+                         help="TCP port for the daemon (default: unix "
+                              "socket <store>/serve.sock)")
+    p_serve.add_argument("--host", default=None,
+                         help="bind address (default 127.0.0.1)")
+    p_serve.add_argument("--store", default="store")
+    p_serve.add_argument("--socket", default=None,
+                         help="unix-socket path the daemon listens on "
+                              "(default <store>/serve.sock; "
+                              "JEPSEN_TPU_SERVE_SOCKET is the env "
+                              "equivalent)")
+    p_serve.add_argument("--drain-timeout", type=float, default=None,
+                         help="seconds to drain admitted work on "
+                              "SIGTERM (default "
+                              "JEPSEN_TPU_SERVE_DRAIN_S)")
+    p_serve.add_argument("--web", action="store_true",
+                         help="the reference's HTTP store browser "
+                              "(not ported: exits 254)")
+    p_serve.add_argument("--fleet-instance", type=int, default=None,
+                         help="run as member <k> of a serve fleet "
+                              "(the `fleet` subcommand spawns these): "
+                              "bind fleet-d<k>.sock, heartbeat the "
+                              "fleet-d<k>.json beacon, honor the "
+                              "epoch fence")
+    p_serve.add_argument("--fleet-epoch", type=int, default=None,
+                         help="the membership epoch this member was "
+                              "started under (the fleet router sets "
+                              "it)")
+    p_serve.add_argument("--device", default="cuda",
+                         choices=["cuda", "cpu"],
+                         help="where the folds run (default cuda; cpu "
+                              "only when asked)")
+    add_trace_opts(p_serve)
+
+    p_fleet = sub.add_parser(
+        "fleet",
+        help="run N verdict daemons behind a fault-tolerant router: "
+             "tenants connect to one fleet socket; the router "
+             "hash-affines them to daemons, spills on backpressure, "
+             "and on a daemon death replays its tenants' journals on "
+             "a successor")
+    p_fleet.add_argument("--store", default="store")
+    p_fleet.add_argument("--daemons", type=int, default=3,
+                         help="fleet size (default 3)")
+    p_fleet.add_argument("--socket", default=None,
+                         help="router socket path (default "
+                              "<store>/fleet.sock)")
+    p_fleet.add_argument("--no-stonith", action="store_true",
+                         help="skip the router's best-effort SIGKILL "
+                              "of a daemon it declares dead")
+    p_fleet.add_argument("--device", default="cuda",
+                         choices=["cuda", "cpu"],
+                         help="where every member's folds run (default "
+                              "cuda; cpu only when asked)")
+    add_trace_opts(p_fleet)
     try:
         args = parser.parse_args(argv)
     except SystemExit as e:
@@ -1018,7 +1094,7 @@ def run_cli(test_fn: Callable[[dict, argparse.Namespace], dict],
     # export ends with the call, so an in-process caller's later
     # checkers keep their own
     prior = gates.get_raw("JEPSEN_TPU_BACKEND")
-    if args.backend != "auto":
+    if getattr(args, "backend", "auto") != "auto":
         gates.export("JEPSEN_TPU_BACKEND", args.backend)
     try:
         return _dispatch(test_fn, args)
@@ -1042,6 +1118,25 @@ def _dispatch(test_fn, args: argparse.Namespace) -> int:
             return 254
         if args.command == "analyze":
             return _analyze(test_fn, args)
+        if args.command == "serve":
+            if args.web:
+                print("serve --web: the store browser is not ported to "
+                      "jepsen_tpu_torch", file=sys.stderr)
+                return 254
+            from .serve import run_daemon
+            return run_daemon(Store(args.store),
+                              socket_path=args.socket, port=args.port,
+                              host=args.host or "127.0.0.1",
+                              drain_s=args.drain_timeout,
+                              fleet_instance=args.fleet_instance,
+                              fleet_epoch=args.fleet_epoch,
+                              device=args.device)
+        if args.command == "fleet":
+            from .serve.fleet import run_fleet
+            return run_fleet(Store(args.store), daemons=args.daemons,
+                             socket_path=args.socket,
+                             stonith=not args.no_stonith,
+                             device=args.device)
         t0 = time.perf_counter()
         rc = analyze_store(Store(args.store), checker=args.checker,
                            device=args.device, name=args.name,

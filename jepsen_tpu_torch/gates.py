@@ -129,6 +129,48 @@ _g("JEPSEN_TPU_KERNEL_STATS_SAMPLE", "int", 1,
    "(in-memory aggregates and the report still cover every history); "
    "`1` (the default) journals all; only read when "
    "`JEPSEN_TPU_KERNEL_STATS` is on")
+# -- verdict service --------------------------------------------------------
+_g("JEPSEN_TPU_SERVE_SOCKET", "str", None,
+   "unix-socket path the `serve` verdict daemon listens on (default "
+   "`<store>/serve.sock`); tenants stream length-prefixed frames over "
+   "it and get verdicts back")
+_g("JEPSEN_TPU_SERVE_PORT", "int", None,
+   "TCP port for the `serve` daemon instead of the unix socket "
+   "(`0` binds an ephemeral port, printed in the ready line); unset = "
+   "unix socket")
+_g("JEPSEN_TPU_SERVE_MAX_QUEUE", "int", 256,
+   "per-tenant admission-queue depth of the `serve` daemon; a CHECK "
+   "past the cap gets an explicit `retry-after` frame (never a "
+   "silent drop)")
+_g("JEPSEN_TPU_SERVE_WEIGHTS", "str", "",
+   "per-tenant fairness weights for the `serve` daemon's continuous "
+   "batcher, e.g. `fleetA=3,fleetB=1` (unlisted tenants weigh 1); "
+   "fold shares follow weighted deficit round-robin")
+_g("JEPSEN_TPU_SERVE_DRAIN_S", "float", 30.0,
+   "seconds the `serve` daemon spends draining admitted work on "
+   "SIGTERM before closing; work never admitted (or past the "
+   "deadline) is left for the tenant to resend — never half-acked")
+_g("JEPSEN_TPU_SERVE_RETRY_S", "float", 60.0,
+   "client-side retry budget: `ServeClient` stops retrying a "
+   "backpressured or unreachable endpoint this many seconds after "
+   "its last progress (verdict or successful send) and raises "
+   "`ServeUnavailable` — the terminal error fleet failover bounds "
+   "tenants to; `0` fails on the first retryable condition")
+# -- serve fleet ------------------------------------------------------------
+_g("JEPSEN_TPU_FLEET_HEARTBEAT_S", "float", 1.0,
+   "seconds between a fleet daemon's beacon rewrites "
+   "(`fleet-d<k>.json`: pid, epoch, load) — the router's liveness "
+   "evidence; lower = faster death detection, more beacon churn")
+_g("JEPSEN_TPU_FLEET_FAILOVER_S", "float", 5.0,
+   "beacon staleness (kernel mtime age, immune to daemon clock skew) "
+   "past which the fleet router declares a daemon dead, fences it "
+   "out of the membership epoch, and replays its tenants' journals "
+   "on a successor")
+_g("JEPSEN_TPU_FLEET_SPILL_DEPTH", "int", 32,
+   "queued histories on a tenant's affine daemon past which the "
+   "fleet router spills new checks to the least-loaded live daemon "
+   "(by beacon queue depth, tie-broken on modeled HBM bytes) "
+   "instead of queueing deeper")
 # -- cost-aware planner -----------------------------------------------------
 _g("JEPSEN_TPU_PLANNER", "bool", False,
    "set: the cost-aware dispatch planner — route bucket geometry and "

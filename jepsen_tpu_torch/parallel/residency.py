@@ -6,6 +6,13 @@ port has: the reference's executable residency (its AOT executable
 cache) and donated-buffer slots have no torch counterpart beyond
 `_build`'s keyed cache of loaded kernel libraries and PyTorch's caching
 allocator, and the port donates nothing.
+
+So `ExecutableResidency` and `DeviceSlots` have no port. What keeps a
+warm serve daemon warm across folds (`serve.daemon`) is the same pair:
+`_build`'s keyed cache of loaded kernel libraries (each `.so` built and
+loaded once per process, keyed by its source and flags) and PyTorch's
+caching allocator, which hands a fold's buckets the device memory the
+previous fold returned instead of allocating it anew.
 """
 
 from __future__ import annotations

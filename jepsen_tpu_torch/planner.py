@@ -23,8 +23,8 @@ coefficients) and steers four levers with it:
     for the native per-key splitter (no sweep of either package calls
     it: the register sweeps split in Python);
   * **admission pricing** — `admission_cost`, the model's prediction in
-    `folding.fold_cost`'s cell unit (no caller yet: the serve daemon is
-    not ported).
+    `folding.fold_cost`'s cell unit (the serve daemon prices each
+    admitted request with it).
 
 THE INVARIANT: decisions never change verdicts, only placement. Every
 lever routes between strategies already pinned as verdict-identical,

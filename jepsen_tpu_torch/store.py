@@ -27,6 +27,14 @@ Layout (the reference's `store/<test-name>/<start-time>/`):
     store/<test-name>/<start-time>/encoded.v2.bin (list-append) and
         encoded-wr.v1.bin (rw-register)  the encoded sidecar cache
                         (JEPSEN_TPU_ENCODE_CACHE*, JEPSEN_TPU_SIDECAR_V2)
+    store/serve.sock, serve.pid, serve-<tenant>.verdicts.jsonl,
+        serve-requests.jsonl  the verdict daemon's socket, pidfile,
+                        per-tenant journals and admission spool
+    store/fleet.sock, fleet-d<k>.sock, fleet-d<k>.json,
+        fleet-epoch.json, fleet-reassign.jsonl  the serve fleet's
+                        router socket, member sockets and beacons, the
+                        membership epoch (the fence) and the
+                        reassignment journal
 """
 
 from __future__ import annotations
@@ -279,13 +287,19 @@ class VerdictJournal:
                 pass
         return str(run_dir)
 
-    def record(self, run_dir, checker: str, res: dict) -> bool:
-        """Append one verdict line; True when it landed."""
+    def record(self, run_dir, checker: str, res: dict,
+               full: bool = False) -> bool:
+        """Append one verdict line; True when it landed. With `full`
+        the whole result rides the line (`"result"`): the serve
+        daemon's replay record, from which a reconnecting tenant gets
+        its verdict back byte for byte. Sweep journals stay lean."""
         entry = {"dir": self.rel(run_dir), "checker": checker,
                  "valid?": res.get("valid?")}
         for k in ("quarantined", "error"):
             if k in res:
                 entry[k] = res[k]
+        if full:
+            entry["result"] = res
         try:
             if self._f is None:
                 self.path.parent.mkdir(parents=True, exist_ok=True)
@@ -338,6 +352,102 @@ class VerdictJournal:
             if isinstance(e, dict) and "dir" in e and "checker" in e:
                 out[(str(e["dir"]), str(e["checker"]))] = e
         return out
+
+
+# ---------------------------------------------------------------------------
+# The verdict service's files, flat at the store root (the reference's
+# names, so either package's daemon serves and replays the other's
+# journals):
+#
+#   serve.sock                     the tenant socket (unix mode)
+#   serve.pid                      the daemon's pidfile (atomic marker)
+#   serve-<tenant>.verdicts.jsonl  per-tenant verdict journal, one FULL
+#                                  verdict per line (the replay record)
+#   serve-requests.jsonl           admitted-request spool (triage for a
+#                                  crashed daemon; cleared at start)
+#
+# and the fleet's (all N daemons share one store, so a successor
+# replays a dead peer's journals directly):
+#
+#   fleet.sock            the router's tenant-facing socket
+#   fleet-d<k>.sock       daemon k's own socket (router-facing)
+#   fleet-d<k>.json       daemon k's beacon, atomically replaced every
+#                         heartbeat: liveness from its mtime, load from
+#                         its payload
+#   fleet-epoch.json      the membership epoch marker (the fence)
+#   fleet-reassign.jsonl  one line per failover move
+# ---------------------------------------------------------------------------
+
+def safe_tenant(name: str) -> str:
+    """A tenant id as a filesystem-safe slug: the journal path embeds
+    it, so a tenant must not name itself `../../etc`, nor collide with
+    another after mangling (hence the hash suffix whenever anything was
+    replaced). Dots are mangled too, so no `..` survives."""
+    cleaned = "".join(c if c.isalnum() or c in "-_" else "_"
+                      for c in str(name))[:64] or "tenant"
+    if cleaned != str(name):
+        h = xxh64(str(name).encode()) & 0xffffffff
+        cleaned = f"{cleaned}-{h:08x}"
+    return cleaned
+
+
+def serve_socket_path(store_base) -> Path:
+    """The daemon's unix socket (JEPSEN_TPU_SERVE_SOCKET overrides)."""
+    return Path(store_base) / "serve.sock"
+
+
+def serve_pid_path(store_base) -> Path:
+    return Path(store_base) / "serve.pid"
+
+
+def tenant_journal_path(store_base, tenant: str) -> Path:
+    """One tenant's verdict journal: the daemon's crash evidence and
+    the tenant's resume evidence (a reconnect replays from it without
+    re-checking)."""
+    return Path(store_base) / f"serve-{safe_tenant(tenant)}.verdicts.jsonl"
+
+
+def request_spool_path(store_base) -> Path:
+    """The admitted-request spool: one line per admission, so a
+    post-mortem on a killed daemon can tell admitted-but-unverdicted
+    work from never-admitted work."""
+    return Path(store_base) / "serve-requests.jsonl"
+
+
+def fleet_socket_path(store_base) -> Path:
+    """The fleet router's tenant-facing unix socket."""
+    return Path(store_base) / "fleet.sock"
+
+
+def fleet_daemon_socket_path(store_base, instance: int) -> Path:
+    """Fleet daemon `instance`'s own listening socket."""
+    return Path(store_base) / f"fleet-d{int(instance)}.sock"
+
+
+def fleet_member_path(store_base, instance: int) -> Path:
+    """Fleet daemon `instance`'s beacon file."""
+    return Path(store_base) / f"fleet-d{int(instance)}.json"
+
+
+def fleet_epoch_path(store_base) -> Path:
+    """The fleet membership epoch marker: the zombie fence."""
+    return Path(store_base) / "fleet-epoch.json"
+
+
+def fleet_reassign_path(store_base) -> Path:
+    """The router's tenant-reassignment journal (failover evidence)."""
+    return Path(store_base) / "fleet-reassign.jsonl"
+
+
+def shard_of(key: str, n_shards: int) -> int:
+    """Deterministic shard of a key (a fleet tenant, a mesh run key):
+    xxh64 of its UTF-8 bytes modulo `n_shards`, independent of
+    PYTHONHASHSEED, so a tenant hashes to the same member in both
+    packages. Computed in Python (`xxh64`): a key is short, and the
+    router runs without the native library."""
+    if n_shards <= 1:
+        return 0
+    return xxh64(str(key).encode()) % n_shards
 
 
 # ---------------------------------------------------------------------------

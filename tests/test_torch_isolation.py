@@ -73,6 +73,10 @@ print(" ".join(mods))
             "jepsen_tpu_torch.obs.prom", "jepsen_tpu_torch.planner",
             "jepsen_tpu_torch.parallel.residency",
             "jepsen_tpu_torch.parallel.folding"} <= mods
+    # the verdict service: the daemon, the fleet and their wire
+    assert {f"jepsen_tpu_torch.serve.{m}"
+            for m in ("protocol", "scheduler", "client", "daemon",
+                      "fleet")} | {"jepsen_tpu_torch.serve"} <= mods
 
 
 @pytest.mark.parametrize("path", port_sources(),
@@ -221,3 +225,26 @@ def test_port_shm_module_is_scanned():
     names = {str(p.relative_to(REPO)) for p in port_sources()}
     assert {"jepsen_tpu_torch/shm.py", "jepsen_tpu_torch/ingest.py",
             "jepsen_tpu_torch/trace.py"} <= names
+
+
+def test_serve_modules_import_no_torch():
+    """The verdict service's host side — the wire, the admission
+    scheduler, the client, the daemon and the fleet router, and the
+    store's serve and fleet paths — imports neither torch nor jax nor
+    jepsen_tpu: a tenant or a router needs no torch, and the daemon
+    imports it only where it resolves its device and dispatches."""
+    code = f"""
+import sys
+for name in ("torch",) + {FORBIDDEN!r}:
+    sys.modules[name] = None          # any import of them now fails
+sys.path.insert(0, {str(REPO)!r})
+from jepsen_tpu_torch.serve import client, daemon, fleet, protocol, scheduler
+from jepsen_tpu_torch import store
+assert store.shard_of("tA", 3) in (0, 1, 2)
+assert store.safe_tenant("../x") != "../x"
+print("ok")
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "ok"
