@@ -244,6 +244,30 @@ failure:
               the router's SIGTERM exits 0 and every member is gone.
               The members are other processes, so their launches are
               not counted here (phase 16 shows the kernel path).
+ 18. mesh     `analyze-store --mesh --device cuda`, two shard processes
+              at once on the one card over a cold copy of phase 4's 64
+              runs (JEPSEN_TPU_MESH_SHARDS=2): (a) both shards with
+              JEPSEN_TPU_COSTDB=1 and --report: each shard verdicts its
+              own `shard_of` slice (its journal holds it), shard 1 exits
+              its own worst and the coordinator the merged 1, the
+              summary line reads 64 verdicted and 8 invalid, every
+              results.json/.edn byte-identical to phase 4's, each
+              shard's costdb holds closure_square dispatches and the
+              merged costdb.jsonl their sum, report.json has per_shard
+              "0" and "1"; the two-shard wall printed beside phase 4's;
+              (b) on a warm copy, shard 1's process group SIGKILLed
+              after its first journal line (nothing of it left 2 s on),
+              shard 0 alone with JEPSEN_TPU_MESH_WAIT_S=0 exits 2 with
+              shard 1 lost, shard 1 --resume (its per-run markers
+              stripped: journal-only evidence) re-checks exactly its
+              un-journaled runs, with fewer closure_square launches than
+              the whole shard and at most as many buckets, and shard 0
+              --resume --report merges the complete fleet, exit 1; (c)
+              the pair of (a) again from a copy of jepsen_tpu_torch/
+              with an empty _build/ (PYTHONPATH), so the shards' first
+              builds race: one closure_square .so left, no temporary
+              file, results as phase 4's. Each shard runs the CLI's own
+              __main__ under RESUME_CMD, which reports its launches.
 
 The sweeps run in this process (phases 4-12) ingest through the same
 pool. Spawn re-imports this script in each worker, so it imports torch
@@ -261,8 +285,11 @@ phase 13's (`pool-append-cold`, `pool-append-warm`, `pool-wr`,
 `pool-register`, `pool-kill`), counted in the sweep's own process, and
 phase 14's (`analyze-append`, `analyze-wr`, `analyze-register`,
 `analyze-fanout`, `analyze-race`), phase 15's (`costdb-append`,
-`costdb-wr`, `planner-append-cold`, `planner-append-warm`), and phase
-16's (`serve-append`, `serve-wr`: the in-process daemon's folds).
+`costdb-wr`, `planner-append-cold`, `planner-append-warm`), phase
+16's (`serve-append`, `serve-wr`: the in-process daemon's folds), and
+phase 18's (`mesh-shard0`, `mesh-shard1`, `mesh-lost-shard0`,
+`mesh-resume-shard1`, `mesh-fresh-shard0`, `mesh-fresh-shard1`: each
+counted in its shard's own process).
 
 The last lines are a `{"kernels": [...]}` record per kernel (with its
 launches and summed device milliseconds per path), the nvidia-smi line,
@@ -358,8 +385,14 @@ SMALL_LONG_T, SMALL_LONG_K, SMALL_LONG_GAP, SMALL_LONG_LIMIT = \
 #: device) at phase 4's width, and the kill nemesis's rate.
 POOL_RUNS = 256
 POOL_KILL = "kill:0.05"
-#: The resumed append sweep: the CLI's own __main__, run as a subprocess
-#: with closure_square's count and event pairs reported on stderr at exit.
+#: Phase 18's two shards and the coordinator's wait in its full fleet.
+MESH_SHARDS, MESH_WAIT_S = 2, 300
+#: Phase 4's one-process wall, kept for phase 18 to print beside its
+#: two-shard wall.
+MAIN_WALL: dict = {}
+#: The CLI's own __main__ run as a subprocess (phase 9's resumed append
+#: sweep, phase 18's shards) with closure_square's count and event pairs
+#: reported on stderr at exit.
 RESUME_CMD = """\
 import atexit, json, runpy, sys, torch
 from jepsen_tpu_torch.checker.elle import closure_square as cs
@@ -769,6 +802,7 @@ def phase_main() -> tuple[int, float]:
 
     (rc, log, wall, out), launches, square_ms = counted(
         lambda: sweep(store, device=DEVICE))
+    MAIN_WALL["wall"] = wall
     square_s = square_ms / 1e3
     check(rc == 1, f"analyze-store exited {rc}, expected 1 (invalid runs)")
     check(len(out.splitlines()) == STORE_RUNS,
@@ -3426,6 +3460,313 @@ def phase_fleet(verdicts: dict) -> dict:
             "failover_ms": [e.get("ms") for e in failover]}
 
 
+
+def mesh_store(src: Path, dst: Path, sidecars: bool) -> None:
+    """A copy of a synth store's histories (with their encoded sidecars
+    when `sidecars`): no results, markers, journals or telemetry."""
+    for run in sorted((src / "synth").iterdir()):
+        d = dst / "synth" / run.name
+        d.mkdir(parents=True)
+        for f in run.iterdir():
+            if f.name == "history.jsonl" or (
+                    sidecars and f.name.startswith(".encoded")):
+                shutil.copy2(f, d / f.name)
+
+
+def start_shard(store: Path, k: int, log: Path, *args, cwd: Path = ROOT,
+                **env) -> subprocess.Popen:
+    """Shard k of a MESH_SHARDS-shard `analyze-store --mesh --device
+    cuda` (the CLI's own __main__ under RESUME_CMD, which reports its
+    closure_square launches on stderr at exit), in a process group of
+    its own: killing the group kills its ingest workers too, as a
+    host's death would. Its pid goes to GRANDCHILDREN."""
+    e = {**os.environ, "JEPSEN_TPU_MESH_SHARDS": str(MESH_SHARDS),
+         "JEPSEN_TPU_MESH_SHARD": str(k),
+         **{g: str(v) for g, v in env.items()}}
+    for v in ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS"):
+        e.pop(v, None)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", RESUME_CMD, "analyze-store", "--store",
+         str(store), "--mesh", "--device", DEVICE, *args],
+        cwd=cwd, env=e, stdout=subprocess.PIPE, stderr=open(log, "w"),
+        text=True, start_new_session=True)
+    GRANDCHILDREN.append(proc.pid)
+    return proc
+
+
+def end_shard(proc: subprocess.Popen, log: Path, what: str) -> dict:
+    """Wait for a shard; returns its exit code, stdout JSON lines, the
+    CLI's own sweep seconds and its closure_square launches and device
+    milliseconds."""
+    out, _ = proc.communicate(timeout=600)
+    err = log.read_text()
+    rep = [ln for ln in err.splitlines()
+           if ln.startswith("chip_smoke-launches ")]
+    check(len(rep) == 1, f"{what} reported no launches (exit "
+                         f"{proc.returncode}): {err[-3000:]}")
+    swept = [float(ln.split()[1].rstrip("s")) for ln in err.splitlines()
+             if ln.startswith("analyze-store: ")]
+    return {"rc": proc.returncode, "err": err,
+            "lines": [json.loads(ln) for ln in out.splitlines()
+                      if ln.startswith("{")],
+            "swept": swept[-1] if swept else None,
+            **json.loads(rep[0].split(" ", 1)[1])}
+
+
+def kill_group(proc: subprocess.Popen) -> None:
+    """SIGKILL a shard's process group; check none of it is left 2 s on."""
+    with contextlib.suppress(ProcessLookupError):
+        os.killpg(proc.pid, signal.SIGKILL)
+    proc.communicate(timeout=60)
+    deadline = time.monotonic() + 2
+    while group_alive(proc.pid):
+        check(time.monotonic() < deadline,
+              f"shard {proc.pid}'s group outlived it: "
+              f"{group_alive(proc.pid)}")
+        time.sleep(0.05)
+
+
+def group_alive(pgid: int) -> list[int]:
+    """The live (not zombie) processes of process group `pgid`."""
+    out = []
+    for p in os.listdir("/proc"):
+        if not p.isdigit():
+            continue
+        try:
+            stat = Path(f"/proc/{p}/stat").read_text()
+        except OSError:
+            continue
+        state, _ppid, pgrp = stat[stat.rindex(")") + 2:].split()[:3]
+        if int(pgrp) == pgid and state != "Z":
+            out.append(int(p))
+    return out
+
+
+def mesh_summary(res: dict, what: str) -> dict:
+    got = [e for e in res["lines"] if e.get("mesh") is True]
+    check(len(got) == 1, f"{what}: no mesh summary line: "
+                         f"{res['err'][-3000:]}")
+    return got[0]
+
+
+def own_worst(lines: list) -> int:
+    """A shard's own exit code: the worst validity of its verdict lines."""
+    return max((0 if e["valid?"] is True else 1 if e["valid?"] is False
+                else 2) for e in lines if "dir" in e)
+
+
+def shard_keys(lines: list) -> list[str]:
+    """The run keys (`synth/run-NNNNN`) of a shard's verdict lines."""
+    return sorted("/".join(Path(e["dir"]).parts[-2:]) for e in lines
+                  if "dir" in e)
+
+
+def journal_keys(store: Path, k: int) -> list[str]:
+    """The runs of shard k's journal's whole lines (a torn tail skipped)."""
+    from jepsen_tpu_torch.mesh import shard_journal_path
+    keys = []
+    for ln in shard_journal_path(store, k).read_text().splitlines():
+        with contextlib.suppress(json.JSONDecodeError):
+            keys.append(json.loads(ln)["dir"])
+    return keys
+
+
+def same_results(store: Path, verdicts: dict, what: str) -> None:
+    """Every run's results.json/.edn byte-identical to phase 4's."""
+    got = run_files(store)
+    check(got.keys() == verdicts["append"].keys(),
+          f"{what}: results files {sorted(set(got) ^ set(verdicts['append']))}")
+    for f, b in got.items():
+        check(b == verdicts["append"][f], f"{what}: {f} differs from "
+                                          "phase 4's")
+
+
+def phase_mesh(verdicts: dict, name: str, smi: str) -> dict:
+    """Phase 18: `analyze-store --mesh`, two shard processes sharing the
+    card over a copy of phase 4's store. Returns the paths' closure_square
+    (launches, device ms) and the numbers PERF.md reads."""
+    from jepsen_tpu_torch import supervisor
+    from jepsen_tpu_torch.mesh import shard_journal_path
+    from jepsen_tpu_torch.store import load_costdb, shard_of
+
+    t_phase = time.perf_counter()
+    runs = sorted(f"synth/{p.name}"
+                  for p in (WORK / "store" / "synth").iterdir())
+    mine = {k: [r for r in runs if shard_of(r, MESH_SHARDS) == k]
+            for k in range(MESH_SHARDS)}
+    check(all(mine.values()), f"degenerate split {mine}")
+    base = WORK / "mesh"
+    paths, out = {}, {}
+
+    # (a) both shards at once, cold, from this checkout
+    store = base / "a"
+    mesh_store(WORK / "store", store, sidecars=False)
+    gates = {"JEPSEN_TPU_COSTDB": 1, "JEPSEN_TPU_MESH_WAIT_S": MESH_WAIT_S}
+    t0 = time.perf_counter()
+    procs = [start_shard(store, k, base / f"a{k}.log", "--report", **gates)
+             for k in range(MESH_SHARDS)]
+    res = [end_shard(p, base / f"a{k}.log", f"shard {k}")
+           for k, p in enumerate(procs)]
+    wall = time.perf_counter() - t0
+    for k, r in enumerate(res):
+        own = own_worst(r["lines"])
+        check(shard_keys(r["lines"]) == mine[k],
+              f"shard {k} verdicted {shard_keys(r['lines'])}")
+        check(r["launches"] > 0, f"shard {k} launched no closure_square")
+        # the coordinator's is the merged code: 8 runs carry G1c
+        check(r["rc"] == (1 if k == 0 else own),
+              f"shard {k} exited {r['rc']} (its own worst {own})")
+        check(sorted(journal_keys(store, k)) == mine[k],
+              f"shard {k}'s journal holds other runs than its own")
+        paths[f"mesh-shard{k}"] = (r["launches"], r["device_ms"])
+    s = mesh_summary(res[0], "the coordinator")
+    check(s["runs_verdicted"] == STORE_RUNS
+          and s["invalid"] == STORE_RUNS // BAD_EVERY
+          and s["unaccounted"] == 0 and not s["lost_shards"],
+          f"mesh summary {s}")
+    same_results(store, verdicts, "mesh (a)")
+    for k in range(MESH_SHARDS):
+        recs = load_costdb(store / f"costdb-shard{k}.jsonl")
+        check(any(r["formulation"] == "cuda-int8"
+                  and r["windows"]["dispatches"] > 0 for r in recs),
+              f"shard {k}'s costdb holds no closure_square dispatch")
+    merged = check_costdb(store, name, "mesh (a)")
+    per_shard = sum(r["windows"]["dispatches"] for k in range(MESH_SHARDS)
+                    for r in load_costdb(store / f"costdb-shard{k}.jsonl"))
+    check(sum(r["windows"]["dispatches"] for r in merged) == per_shard,
+          "the merged costdb lost dispatches of a shard")
+    rep = json.loads((store / "report.json").read_text())
+    check(sorted(rep.get("per_shard", {})) == ["0", "1"],
+          f"report.json per_shard {sorted(rep.get('per_shard', {}))}")
+    buckets = [json.loads((store / f"metrics-shard{k}.json").read_text())[
+        "counters"]["buckets_dispatched"] for k in range(MESH_SHARDS)]
+    buckets_a1 = buckets[1]
+    say(f"mesh (a): 2 shards at once on the card ({smi}): {wall:.3f}s "
+        f"wall from both starts to both exits (phase 4's one process, in "
+        f"process: {MAIN_WALL.get('wall', float('nan')):.3f}s); each "
+        f"shard's own sweep {[r['swept'] for r in res]}s; runs "
+        f"{[len(m) for m in mine.values()]}; closure_square launches "
+        f"{[r['launches'] for r in res]}, device ms "
+        f"{[round(r['device_ms'], 3) for r in res]}; buckets {buckets}; "
+        f"summary {s}; results byte-identical to phase 4's; merged "
+        f"costdb {len(merged)} record(s), {per_shard} dispatches")
+    out["a"] = {"wall": wall, "swept": [r["swept"] for r in res],
+                "launches": [r["launches"] for r in res],
+                "device_ms": [r["device_ms"] for r in res],
+                "runs": [len(m) for m in mine.values()],
+                "buckets": buckets,
+                "per_shard": {k: v.get("shares")
+                              for k, v in rep["per_shard"].items()}}
+
+    # (b) shard 1 killed after its first journal line; shard 0 alone
+    # finds it lost; shard 1 re-assigned with --resume; shard 0 resumes
+    # and merges the complete fleet
+    store = base / "b"
+    mesh_store(base / "a", store, sidecars=True)
+    jp = shard_journal_path(store, 1)
+    p1 = start_shard(store, 1, base / "b1.log")
+    deadline = time.monotonic() + 300
+    while not (jp.exists() and jp.stat().st_size) and p1.poll() is None:
+        check(time.monotonic() < deadline, "shard 1 journaled nothing")
+        time.sleep(0.001)
+    kill_group(p1)
+    cut = journal_keys(store, 1)
+    check(0 < len(cut) < len(mine[1])
+          and not supervisor.shard_done_path(store, 1).exists(),
+          f"the kill did not cut shard 1 ({len(cut)} of {len(mine[1])} "
+          "journaled)")
+    r0 = end_shard(start_shard(store, 0, base / "b0.log",
+                               JEPSEN_TPU_MESH_WAIT_S=0),
+                   base / "b0.log", "shard 0 alone")
+    s = mesh_summary(r0, "shard 0 alone")
+    check(r0["rc"] == 2 and s["lost_shards"] == [1] and r0["launches"] > 0,
+          f"shard 0 alone exited {r0['rc']}: {s}")
+    paths["mesh-lost-shard0"] = (r0["launches"], r0["device_ms"])
+    # journal-only evidence: the kill may land between a run's marker
+    # and its journal line
+    for key in mine[1]:
+        for f in ("results.json", ".sweep-append"):
+            (store / key / f).unlink(missing_ok=True)
+    r1 = end_shard(start_shard(store, 1, base / "b1r.log", "--resume"),
+                   base / "b1r.log", "shard 1 --resume")
+    buckets_r1 = json.loads((store / "metrics-shard1.json").read_text())[
+        "counters"]["buckets_dispatched"]
+    check(shard_keys(r1["lines"]) == sorted(set(mine[1]) - set(cut))
+          and r1["rc"] in (0, 1) and 0 < r1["launches"] < res[1]["launches"]
+          and buckets_r1 <= buckets_a1,
+          f"shard 1 --resume re-checked {len(r1['lines'])} runs with "
+          f"{r1['launches']} launches and {buckets_r1} buckets "
+          f"(the whole shard: {len(mine[1])}, {res[1]['launches']}, "
+          f"{buckets_a1}; journaled at the kill: {len(cut)})")
+    paths["mesh-resume-shard1"] = (r1["launches"], r1["device_ms"])
+    rc = end_shard(start_shard(store, 0, base / "b0r.log", "--resume",
+                               "--report", JEPSEN_TPU_MESH_WAIT_S=0),
+                   base / "b0r.log", "shard 0 --resume")
+    s = mesh_summary(rc, "shard 0 --resume")
+    check(rc["rc"] == 1 and s["runs_verdicted"] == STORE_RUNS
+          and s["unaccounted"] == 0 and not s["lost_shards"]
+          and not s["incomplete_shards"] and rc["launches"] == 0,
+          f"shard 0 --resume exited {rc['rc']}: {s}")
+    for k in range(MESH_SHARDS):
+        got = journal_keys(store, k)
+        check(sorted(got) == mine[k], f"shard {k}'s journal after the "
+                                      f"resume: {len(got)} lines")
+    check(sorted(json.loads((store / "report.json").read_text())[
+        "per_shard"]) == ["0", "1"], "(b) report.json per_shard")
+    say(f"mesh (b): shard 1 killed with {len(cut)} of {len(mine[1])} runs "
+        f"journaled; shard 0 alone exit 2, shard 1 lost "
+        f"({r0['launches']} launches); shard 1 --resume re-checked "
+        f"{len(r1['lines'])} runs, {r1['launches']} launches "
+        f"({r1['device_ms']:.3f} ms), {buckets_r1} buckets (the whole "
+        f"shard: {res[1]['launches']}, {buckets_a1}); shard 0 --resume "
+        f"merged {s['runs_verdicted']} runs, exit 1")
+    out["b"] = {"journaled_at_kill": len(cut),
+                "resume_runs": len(r1["lines"]),
+                "resume_launches": r1["launches"],
+                "resume_buckets": buckets_r1, "whole_buckets": buckets_a1}
+
+    # (c) the pair again from a copy of the package with nothing built:
+    # both shards' first builds race, and each must load a working .so
+    fresh = base / "fresh"
+    shutil.copytree(ROOT / "jepsen_tpu_torch", fresh / "jepsen_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    built = fresh / "jepsen_tpu_torch" / "_build"
+    store = base / "c"
+    mesh_store(base / "a", store, sidecars=True)
+    t0 = time.perf_counter()
+    procs = [start_shard(store, k, base / f"c{k}.log", cwd=fresh,
+                         PYTHONPATH=fresh,
+                         JEPSEN_TPU_MESH_WAIT_S=MESH_WAIT_S)
+             for k in range(MESH_SHARDS)]
+    res_c = [end_shard(p, base / f"c{k}.log", f"fresh shard {k}")
+             for k, p in enumerate(procs)]
+    wall_c = time.perf_counter() - t0
+    for k, r in enumerate(res_c):
+        check(r["launches"] > 0
+              and r["rc"] == (1 if k == 0 else own_worst(r["lines"]))
+              and shard_keys(r["lines"]) == mine[k],
+              f"fresh shard {k} exited {r['rc']}, {r['launches']} launches")
+        paths[f"mesh-fresh-shard{k}"] = (r["launches"], r["device_ms"])
+    same_results(store, verdicts, "mesh (c)")
+    libs = sorted(p.name for p in built.iterdir())
+    check(len([n for n in libs if n.startswith("closure_square-")
+               and n.endswith(".so")]) == 1
+          and not any(".tmp." in n for n in libs),
+          f"the fresh build dir holds {libs}")
+    say(f"mesh (c): the pair from a copy with an empty _build/: "
+        f"{wall_c:.3f}s wall, the first builds raced and left {libs}; "
+        f"launches {[r['launches'] for r in res_c]}, results as phase 4's")
+    out["c"] = {"wall": wall_c, "libs": libs}
+    shutil.rmtree(fresh, ignore_errors=True)
+    deadline = time.monotonic() + 2
+    while any(alive(p) for p in GRANDCHILDREN):
+        check(time.monotonic() < deadline, "mesh shards left running: "
+              f"{[p for p in GRANDCHILDREN if alive(p)]}")
+        time.sleep(0.05)
+    say(f"phase 18 in {time.perf_counter() - t_phase:.1f}s")
+    return {"paths": paths, **out}
+
+
 def main() -> int:
     global torch
     import torch
@@ -3498,6 +3839,7 @@ def main() -> int:
             verdicts, name)["paths"])
         paths.update(phase_serve(verdicts)["paths"])
         phase_fleet(verdicts)
+        paths.update(phase_mesh(verdicts, name, smi)["paths"])
         for rec, ps in ((record, paths), (dense_record, dense_paths)):
             rec["launches"] = sum(n for n, _ in ps.values())
             rec["paths"] = {k: {"launches": n, "device_ms": ms}

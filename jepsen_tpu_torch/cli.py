@@ -4,7 +4,7 @@
         [--backend auto|tpu|cpu|race] [--[no-]trace] [--[no-]jax-profile]
     python -m jepsen_tpu_torch.cli analyze-store --store DIR \\
         [--checker append|wr|register|stored] [--name NAME] [--resume] \\
-        [--report] [--backend auto|tpu|cpu|race] [--[no-]trace] \\
+        [--report] [--mesh] [--backend auto|tpu|cpu|race] [--[no-]trace] \\
         [--[no-]jax-profile] [--device cuda|cpu]
     python -m jepsen_tpu_torch.cli serve --store DIR [--socket PATH] \\
         [--port P] [--host H] [--drain-timeout S] [--fleet-instance K] \\
@@ -80,6 +80,17 @@ results.json.
 `.sweep-<checker>` marker, a results.json naming the checker, or a
 `verdicts.jsonl` line — and counts their recorded validity toward the
 exit code.
+
+`--mesh` (or `JEPSEN_TPU_MESH=1`) sweeps one shard of a mesh sweep
+(`mesh`): the shard `JEPSEN_TPU_MESH_SHARD` of `JEPSEN_TPU_MESH_SHARDS`,
+journaled to `verdicts-<shard>.jsonl`, with the shard's telemetry in
+per-shard files and `.shard-<k>.done` last; shard 0 then merges the
+fleet and prints one `{"mesh": true, ...}` summary line. Shards may run
+at once on one card, each in its own process. A lost, crashed or
+incompletely journaled shard makes the merged exit code at least 2.
+A coordinator address (`JAX_COORDINATOR_ADDRESS`) without
+`JEPSEN_TPU_MESH_SHARDS` is refused (exit 255): the port joins no
+`jax.distributed` job.
 
 `--backend cpu` sweeps append and wr runs through the host oracles
 (`cycle_anomalies_cpu`: witness cycles where the device path records
@@ -440,7 +451,8 @@ def analyze_store(store: Store, checker: str = "append", device=None,
                   square=None, bucket_log: list | None = None,
                   condense_log: list | None = None, dense_scan=None,
                   register_log: dict | None = None,
-                  report: bool | None = None, obs_hook=None) -> int:
+                  report: bool | None = None, obs_hook=None,
+                  mesh: bool | None = None) -> int:
     """Batch re-check every stored run (with `name`, that test name's
     runs) with `checker` ("append", "wr", "register" or "stored") on
     `device` (default cuda; raises devices.DeviceUnavailable without
@@ -471,9 +483,23 @@ def analyze_store(store: Store, checker: str = "append", device=None,
     serves `/metrics` and `/healthz` during it, and JEPSEN_TPU_PLANNER
     loads `plan.json` at the start and refits it at the end.
     `obs_hook(server, sampler)`, when given, is called once both are
-    up, before the sweep (a test or a smoke scrapes there)."""
+    up, before the sweep (a test or a smoke scrapes there).
+
+    With `mesh` (`--mesh`; None defers to JEPSEN_TPU_MESH) this process
+    sweeps ONE SHARD of a mesh sweep (`mesh`): the run dirs
+    `store.shard_of` assigns it, journaled to `verdicts-<shard>.jsonl`
+    (resume reads that journal alone), its worker spools in
+    `spool-shard<k>/`, its telemetry in `trace-shard<k>.json`,
+    `metrics-shard<k>.json`, `costdb-shard<k>.jsonl` and
+    `analytics-shard<k>.jsonl` (the planner refit is the coordinator's),
+    and `.shard-<k>.done` last. Shard 0, the coordinator, then merges
+    the fleet (`mesh.coordinator_merge`): a shard that never reports is
+    lost (exit at least 2) and re-assignable with
+    `JEPSEN_TPU_MESH_SHARD=<k> --mesh --resume`."""
     from . import gates, obs, shm
+    from . import mesh as meshmod
     from . import planner as planner_mod
+    from . import supervisor as sv
     from .devices import resolve_device
     from .obs import device as device_obs
     from .obs import search as search_obs
@@ -486,7 +512,16 @@ def analyze_store(store: Store, checker: str = "append", device=None,
         else resolve_device(device)
     if report is None:
         report = gates.get("JEPSEN_TPU_REPORT")
-    tr = trace.fresh_run(f"analyze-store:{checker}", scope="sweep")
+    if mesh is None:
+        mesh = meshmod.mesh_enabled()
+    shard = n_shards = None
+    run_name = f"analyze-store:{checker}"
+    if mesh:
+        shard, n_shards = meshmod.resolve_shard()
+        # the shard rides the run name, so every process track of this
+        # shard's trace carries it after the merge
+        run_name = f"{run_name}@shard{shard}/{n_shards}"
+    tr = trace.fresh_run(run_name, scope="sweep")
     # the cost observatory, the search ledger and the planner are
     # per-sweep state like the tracer: a fresh sweep inherits no records
     # or half-open windows, and loads the store's plan.json (a warm
@@ -496,19 +531,29 @@ def analyze_store(store: Store, checker: str = "append", device=None,
     planner_mod.activate(store.base)
     if tr.enabled and store.base.is_dir():
         # point the worker trace fabric at the store: pool workers
-        # spool their spans to <store>/trace-<pid>.jsonl; stale spools
-        # of an earlier sweep are cleared, so the store holds exactly
-        # this sweep's set
-        trace.clean_spools(store.base)
-        tr.spool_dir = store.base
+        # spool their spans to <spool dir>/trace-<pid>.jsonl; stale
+        # spools of an earlier sweep are cleared, so the dir holds
+        # exactly this sweep's set. Mesh shards share the store at
+        # once and two hosts' workers may share a pid, so each shard
+        # spools into a subdirectory of its own
+        sd = store.base if not mesh \
+            else trace.shard_spool_dir(store.base, shard)
+        sd.mkdir(exist_ok=True)
+        trace.clean_spools(sd)
+        tr.spool_dir = sd
     elif report:
         print("attribution report needs tracing on "
               "(JEPSEN_TPU_TRACE=0 set); skipping", file=sys.stderr)
     tr.counter("shm_stale_reclaimed").inc(shm.reclaim_stale())
-    journal = VerdictJournal(store.base / "verdicts.jsonl", base=store.base)
+    journal = VerdictJournal(
+        meshmod.shard_journal_path(store.base, shard) if mesh
+        else store.base / "verdicts.jsonl", base=store.base)
+    if mesh and store.base.is_dir():
+        sv.mark_shard_start(store.base, shard)
     obs.install_events(store.base)
     obs.emit("sweep_start", checker=checker, resume=bool(resume),
-             store=str(store.base))
+             store=str(store.base),
+             **({"shard": shard, "shards": n_shards} if mesh else {}))
     sampler = obs.maybe_start_health_sampler(store.base)
     server = obs.maybe_start_metrics_server(
         health_fn=(sampler.write_snapshot if sampler is not None
@@ -517,11 +562,15 @@ def analyze_store(store: Store, checker: str = "append", device=None,
     try:
         if obs_hook is not None:
             obs_hook(server, sampler)
-        with trace.profile_session(store.base / "torch-profile"):
+        # two shards with the profiler gate on must not share one dir
+        with trace.profile_session(
+                store.base / ("torch-profile" if not mesh
+                              else f"torch-profile-shard{shard}")):
             rc = _analyze_store_impl(
                 store, checker, dev, name, resume, journal, square=square,
                 bucket_log=bucket_log, condense_log=condense_log,
-                dense_scan=dense_scan, register_log=register_log)
+                dense_scan=dense_scan, register_log=register_log,
+                shard=shard, n_shards=n_shards)
     finally:
         journal.close()
         obs.emit("sweep_end", exit_code=rc if rc is not None else "crashed")
@@ -534,23 +583,26 @@ def analyze_store(store: Store, checker: str = "append", device=None,
             # uninstalled, so their flush marks reach events.jsonl; the
             # costdb lands whether or not tracing was on
             try:
-                n_cost = device_obs.flush(costdb_path(store.base))
+                n_cost = device_obs.flush(costdb_path(store.base, shard))
                 if n_cost:
                     print(f"costdb: {n_cost} record(s) appended to "
-                          f"{costdb_path(store.base)}", file=sys.stderr)
+                          f"{costdb_path(store.base, shard)}",
+                          file=sys.stderr)
             except Exception:
                 log.warning("costdb flush failed", exc_info=True)
             try:
-                n_stats = search_obs.flush(analytics_path(store.base))
+                n_stats = search_obs.flush(analytics_path(store.base, shard))
                 if n_stats:
                     print(f"analytics: {n_stats} record(s) appended to "
-                          f"{analytics_path(store.base)}", file=sys.stderr)
+                          f"{analytics_path(store.base, shard)}",
+                          file=sys.stderr)
             except Exception:
                 log.warning("analytics flush failed", exc_info=True)
             # the planner refits from the whole on-disk tables (this
             # sweep's records included): plan.json is what the next
-            # sweep warm-starts from
-            if planner_mod.enabled():
+            # sweep warm-starts from. Mesh shards skip it: the
+            # coordinator refits once over the fleet's merged tables
+            if not mesh and planner_mod.enabled():
                 try:
                     from .store import load_analytics, load_costdb
                     plan = planner_mod.refresh(
@@ -566,13 +618,31 @@ def analyze_store(store: Store, checker: str = "append", device=None,
         if tr.enabled and store.base.is_dir():
             try:
                 evs = trace.merge_traces(tr)
-                p = trace.atomic_write_text(
-                    store.base / "trace.json",
-                    json.dumps({"traceEvents": evs,
-                                "displayTimeUnit": "ms"}))
-                tr.export_metrics(store.base / "metrics.json")
-                print(f"trace written to {p}", file=sys.stderr)
-                if report:
+                if mesh:
+                    # a resume that checked nothing records no timed
+                    # event: the previous shard trace stays, the
+                    # evidence of how this shard's journaled verdicts
+                    # were made, which the per-shard report reads
+                    timed = any(e.get("ph") != "M" for e in evs)
+                    sp = trace.shard_trace_path(store.base, shard)
+                    if timed or not sp.exists():
+                        p = trace.export_shard_trace(
+                            tr, store.base, shard, n_shards, evs)
+                        tr.export_metrics(
+                            store.base / f"metrics-shard{shard}.json")
+                        print(f"shard trace written to {p}",
+                              file=sys.stderr)
+                    else:
+                        print(f"shard {shard}: no new events; "
+                              f"keeping {sp}", file=sys.stderr)
+                else:
+                    p = trace.atomic_write_text(
+                        store.base / "trace.json",
+                        json.dumps({"traceEvents": evs,
+                                    "displayTimeUnit": "ms"}))
+                    tr.export_metrics(store.base / "metrics.json")
+                    print(f"trace written to {p}", file=sys.stderr)
+                if report and not mesh:
                     from .obs import attribution
                     rj, _rmd = attribution.write_report(
                         store.base, evs, tr.metrics_dict(),
@@ -583,6 +653,16 @@ def analyze_store(store: Store, checker: str = "append", device=None,
                     print(f"report written to {rj}", file=sys.stderr)
             except Exception:
                 log.warning("sweep trace export failed", exc_info=True)
+        if mesh and store.base.is_dir():
+            # the done marker is the last artifact: a coordinator that
+            # sees it may merge this shard's journal and trace at once
+            sv.mark_shard_done(store.base, shard, {
+                "shard": shard, "shards": n_shards, "checker": checker,
+                "exit_code": rc if rc is not None else "crashed"})
+    if mesh:
+        return meshmod.coordinator_merge(store, checker, shard, n_shards,
+                                         rc, report=report, tracer=tr,
+                                         name=name)
     return rc
 
 
@@ -590,16 +670,23 @@ def _analyze_store_impl(store: Store, checker: str, dev, name, resume: bool,
                         journal: VerdictJournal, *, square=None,
                         bucket_log: list | None = None,
                         condense_log: list | None = None, dense_scan=None,
-                        register_log: dict | None = None) -> int:
+                        register_log: dict | None = None,
+                        shard: int | None = None,
+                        n_shards: int | None = None) -> int:
     """The sweep itself (`analyze_store` without its telemetry
-    wrapper), verdicts journaled to `journal`."""
+    wrapper), verdicts journaled to `journal`. With `shard`/`n_shards`
+    (a mesh sweep) only this shard's slice of the run dirs is walked:
+    the store walk applies the split as it lists, so no shard builds
+    another's run list."""
     from . import core, ingest, parallel, supervisor
     from .checker import elle
     from .checker.elle import kernels, wr
     from .obs import events
     from .obs import search as search_obs
 
-    run_dirs = list(store.iter_run_dirs(name=name))
+    run_dirs = list(store.iter_run_dirs(
+        name=name, shard=shard,
+        n_shards=n_shards if n_shards is not None else 1))
     prior_worst = 0
     if resume:
         # skip runs a sweep of THIS checker already verdicted: its
@@ -625,6 +712,14 @@ def _analyze_store_impl(store: Store, checker: str, dev, name, resume: bool,
             return prior_worst
         run_dirs = pending
     if not run_dirs:
+        if shard is not None \
+                and next(store.iter_run_dirs(name=name), None) is not None:
+            # a mesh assignment the split left empty (a small store,
+            # many shards), not a usage error: the shard completes
+            # empty so that the coordinator can merge the fleet
+            print(f"shard {shard}/{n_shards}: no runs assigned",
+                  file=sys.stderr)
+            return prior_worst
         print("no stored runs", file=sys.stderr)
         return 254
     trace.get_current().gauge("runs_total").set(len(run_dirs))
@@ -1017,6 +1112,14 @@ def run_cli(test_fn: Callable[[dict, argparse.Namespace], dict],
                         "(<store>/report.json + report.md) from the "
                         "sweep's timeline at exit (JEPSEN_TPU_REPORT=1 "
                         "is the env equivalent; needs tracing on)")
+    a.add_argument("--mesh", action="store_true",
+                   help="run as ONE SHARD of a mesh sweep "
+                        "(JEPSEN_TPU_MESH=1 is the env equivalent): "
+                        "deterministic shard of the run dirs, per-shard "
+                        "verdicts-<shard>.jsonl journal and "
+                        "trace-shard<k>.json artifacts, coordinator merge "
+                        "on shard 0; shard identity from "
+                        "JEPSEN_TPU_MESH_SHARD/_SHARDS")
     a.add_argument("--device", default=None, choices=["cuda", "cpu"],
                    help="where the kernels run (default cuda; cpu only "
                         "when asked)")
@@ -1090,19 +1193,25 @@ def run_cli(test_fn: Callable[[dict, argparse.Namespace], dict],
     logging.basicConfig(level=logging.WARNING)
     from . import gates
     # every auto-backend checker of this call, and the processes it
-    # starts, resolve per this choice (devices.resolve_backend); the
-    # export ends with the call, so an in-process caller's later
-    # checkers keep their own
-    prior = gates.get_raw("JEPSEN_TPU_BACKEND")
+    # starts, resolve per this choice (devices.resolve_backend), and
+    # see `--mesh` as JEPSEN_TPU_MESH; the exports end with the call,
+    # so an in-process caller's later sweeps keep their own
+    exports = {}
     if getattr(args, "backend", "auto") != "auto":
-        gates.export("JEPSEN_TPU_BACKEND", args.backend)
+        exports["JEPSEN_TPU_BACKEND"] = args.backend
+    if getattr(args, "mesh", False):
+        exports["JEPSEN_TPU_MESH"] = True
+    prior = {k: gates.get_raw(k) for k in exports}
+    for k, v in exports.items():
+        gates.export(k, v)
     try:
         return _dispatch(test_fn, args)
     finally:
-        if prior is None:
-            os.environ.pop("JEPSEN_TPU_BACKEND", None)
-        else:
-            os.environ["JEPSEN_TPU_BACKEND"] = prior
+        for k, v in prior.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def _dispatch(test_fn, args: argparse.Namespace) -> int:
@@ -1140,7 +1249,8 @@ def _dispatch(test_fn, args: argparse.Namespace) -> int:
         t0 = time.perf_counter()
         rc = analyze_store(Store(args.store), checker=args.checker,
                            device=args.device, name=args.name,
-                           resume=args.resume, report=args.report or None)
+                           resume=args.resume, report=args.report or None,
+                           mesh=args.mesh or None)
         Linearizable.settle_races()   # a race's losing device side
         print(f"analyze-store: {time.perf_counter() - t0:.3f}s",
               file=sys.stderr)

@@ -183,6 +183,23 @@ _g("JEPSEN_TPU_PLANNER_PATH", "str", None,
    "explicit `plan.json` path for the planner (load AND save), e.g. "
    "one shared model across stores; default `<store>/plan.json`; only "
    "read when `JEPSEN_TPU_PLANNER` is on")
+# -- mesh (sharded sweep) ---------------------------------------------------
+_g("JEPSEN_TPU_MESH", "bool", False,
+   "set: `analyze-store` runs as ONE SHARD of a multi-host mesh sweep "
+   "(the `--mesh` flag exports it): deterministic shard of the run "
+   "dirs, per-shard `verdicts-<shard>.jsonl` journal and "
+   "`trace-shard<k>.json` artifacts, coordinator merge on shard 0")
+_g("JEPSEN_TPU_MESH_SHARD", "int", None,
+   "mesh shard index override (re-assign a dead host's shard to "
+   "another host); default 0 — requires `JEPSEN_TPU_MESH_SHARDS`")
+_g("JEPSEN_TPU_MESH_SHARDS", "int", None,
+   "mesh shard count — set on every host to shard a store without a "
+   "coordinator; default 1 (a distributed job's coordinator address "
+   "without it is refused)")
+_g("JEPSEN_TPU_MESH_WAIT_S", "float", 600.0,
+   "seconds the mesh coordinator (shard 0) waits for the other "
+   "shards' done markers before declaring them lost (re-assignable, "
+   "exit code ≥2) and merging what exists; `0` merges immediately")
 # -- dispatch and supervision -----------------------------------------------
 _g("JEPSEN_TPU_FUSED_CLASSIFY", "bool", True,
    "`0`: detect-then-classify two-pass instead of the fused kernel")

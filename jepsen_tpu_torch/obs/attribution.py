@@ -23,8 +23,8 @@ sweep's Chrome timeline (parent phases + device dispatch windows —
 on an archived trace.json as well as a live tracer. With the cost
 observatory on (`JEPSEN_TPU_COSTDB`, `obs.device`) the report gains its
 device roofline section, and with the planner on (`JEPSEN_TPU_PLANNER`)
-its planner section. The reference's per-shard section belongs to its
-multi-host mesh, not ported.
+its planner section. A mesh sweep's coordinator adds `per_shard`, each
+shard's own decomposition (`analyze_shards`).
 """
 
 from __future__ import annotations
@@ -275,6 +275,23 @@ def render_report_md(rep: dict) -> str:
                   f"pack-bound {st.get('pack_bound_secs', 0.0):.3f} s "
                   f"· other {st.get('other_secs', 0.0):.3f} s "
                   f"across {st.get('gaps', 0)} gap(s)"]
+    per_shard = rep.get("per_shard") or {}
+    if per_shard:
+        lines += ["", "## Per-shard decomposition (mesh sweep)", "",
+                  "| shard | wall s | bound | device | encode | idle |",
+                  "|---|---|---|---|---|---|"]
+        # numeric order: '10' after '2'
+        for k in sorted(per_shard,
+                        key=lambda s: (0, int(s)) if str(s).isdigit()
+                        else (1, str(s))):
+            sr = per_shard[k]
+            ss = sr.get("shares", {})
+            lines.append(
+                f"| {k} | {sr.get('wall_secs', 0.0):.3f} | "
+                f"{sr.get('bound') or '—'} | "
+                f"{ss.get('device', 0.0):.1%} | "
+                f"{ss.get('encode', 0.0):.1%} | "
+                f"{ss.get('idle', 0.0):.1%} |")
     dev = rep.get("device") or {}
     if dev:
         lines += render_device_md(dev)
@@ -380,11 +397,23 @@ def render_device_md(dev: dict) -> list[str]:
     return lines
 
 
+def analyze_shards(per_shard_events: dict) -> dict:
+    """A mesh sweep's per-shard attribution: each shard's report over
+    its own event list (its own timeline: clock alignment across shards
+    never touches the shares), so each shard's shares sum to 1.0 as the
+    merged report's do."""
+    return {str(k): analyze(evs)
+            for k, evs in sorted(per_shard_events.items())}
+
+
 def write_report(store_base, events: list, metrics: dict | None = None,
-                 window_us=None, device_records: list | None = None,
+                 window_us=None, per_shard_events: dict | None = None,
+                 device_records: list | None = None,
                  search_records: list | None = None):
     """Write `<store>/report.json` + `report.md` (atomically — the
-    journal discipline) and return their paths.
+    journal discipline) and return their paths. With
+    `per_shard_events` ({shard: event list}, a mesh coordinator's
+    merge) it carries `per_shard`, each shard's own stage shares.
     With `device_records` (the cost observatory's finalized records,
     `obs.device`) it carries the `device` roofline section:
     per-(kernel flags, geometry) achieved-vs-peak operations and
@@ -399,6 +428,8 @@ def write_report(store_base, events: list, metrics: dict | None = None,
     rep = analyze(events, window_us=window_us,
                   counters=(metrics or {}).get("counters"))
     rep = {"v": 1, **rep}
+    if per_shard_events:
+        rep["per_shard"] = analyze_shards(per_shard_events)
     if device_records:
         dev = device_section(device_records)
         if dev is not None:

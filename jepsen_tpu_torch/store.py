@@ -187,11 +187,15 @@ class Store:
 
     # -- reads ------------------------------------------------------------
 
-    def iter_run_dirs(self, name: str | None = None):
+    def iter_run_dirs(self, name: str | None = None,
+                      shard: int | None = None, n_shards: int = 1):
         """Run dirs `<base>/<name>/<run>` in sorted order, one
         `os.scandir` per directory; with `name`, only that test name's
         runs. The `latest`/`current` links are skipped by name, as the
-        reference's walk does."""
+        reference's walk does. With `shard`/`n_shards`, only the dirs
+        whose key `<name>/<run>` lands on `shard` under `shard_of`: the
+        mesh sweep's partition, the reference's to the byte, which
+        every host derives from its own listing."""
         base = self.base
         try:
             with os.scandir(base) as it:
@@ -212,6 +216,9 @@ class Store:
             except OSError:
                 continue
             for rn in runs:
+                if shard is not None \
+                        and shard_of(f"{nm}/{rn}", n_shards) != shard:
+                    continue
                 yield base / nm / rn
 
     def all_run_dirs(self) -> list[Path]:
@@ -458,9 +465,10 @@ def shard_of(key: str, n_shards: int) -> int:
 # closure_square work counted from their shapes, joined with their
 # device windows, appended here at sweep end, one flushed JSON line
 # each, so a torn tail from a killed flush is skipped on load. Shards
-# of a multi-host sweep would write `costdb-shard<k>.jsonl`, merged by
-# `obs.device.merge_records`. The file is the planner's training data
-# (planner.py): append-only, consumers dedup by record key. The line
+# of a mesh sweep write `costdb-shard<k>.jsonl`, which the coordinator
+# merges (`mesh.merge_costdbs`, through `obs.device.merge_records`).
+# The file is the planner's training data (planner.py): append-only,
+# consumers dedup by record key. The line
 # schema is the reference's, so either package reads the other's file.
 # ---------------------------------------------------------------------------
 

@@ -29,9 +29,14 @@ What must end a sweep is never quarantined (`must_end_sweep`): a
 kernel that cannot be built or launched, a missing device, a CUDA
 error other than an OOM (it poisons the context), and interrupts.
 
+Mesh shards (`analyze-store --mesh`) leave a done marker each,
+`.shard-<k>.done`, which the coordinator polls with a bounded wait
+(`wait_for_shards`): a shard with none is lost and re-assignable, never
+a dead sweep.
+
 Left out: the reference's device-slot ledger and donation gate (a
 bucket's inputs go back to PyTorch's caching allocator, in stream
-order, when they are dropped) and its mesh shard markers.
+order, when they are dropped).
 
 The module imports no torch at load time (only `is_oom_error` and
 `must_end_sweep` need it): `ingest.encode_run_dir` calls the
@@ -134,6 +139,77 @@ def must_end_sweep(e: BaseException) -> bool:
     import torch
     return isinstance(e, getattr(torch, "AcceleratorError", ())) \
         or "CUDA error" in str(e)
+
+
+# ---------------------------------------------------------------------------
+# Mesh shards' done markers (analyze-store --mesh).
+#
+# Each shard writes `.shard-<k>.done` atomically (its exit code and the
+# shard geometry) once its journal and trace artifacts are final; the
+# coordinator polls the markers up to JEPSEN_TPU_MESH_WAIT_S and counts
+# the shards still missing as lost: their runs are unverdicted and the
+# operator re-runs that shard anywhere with
+# `JEPSEN_TPU_MESH_SHARD=<k> ... --resume` (its journal is the resume
+# evidence).
+# ---------------------------------------------------------------------------
+
+def shard_done_path(store_base, shard: int):
+    from pathlib import Path
+    return Path(store_base) / f".shard-{shard}.done"
+
+
+def mark_shard_start(store_base, shard: int) -> None:
+    """Clear this shard's done marker of an earlier sweep, so the
+    coordinator cannot merge against that sweep's completion."""
+    try:
+        shard_done_path(store_base, shard).unlink(missing_ok=True)
+    except OSError:
+        pass
+
+
+def mark_shard_done(store_base, shard: int, payload: dict) -> None:
+    """Write this shard's done marker atomically (best-effort: a
+    read-only store must not turn a finished shard into a crash)."""
+    import json
+
+    from . import trace
+    try:
+        trace.atomic_write_text(shard_done_path(store_base, shard),
+                                json.dumps(payload))
+    except OSError:
+        pass
+
+
+def load_shard_done(store_base, shard: int) -> dict | None:
+    import json
+    try:
+        v = json.loads(shard_done_path(store_base, shard).read_text())
+        return v if isinstance(v, dict) else None
+    except (OSError, json.JSONDecodeError):
+        return None
+
+
+def wait_for_shards(store_base, shards, timeout_s: float,
+                    poll_s: float = 0.25):
+    """Poll the done markers of `shards` until all have landed or
+    `timeout_s` has passed. Returns (done: {shard: marker payload},
+    lost: [shard, ...]); a lost shard is re-assignable, not fatal."""
+    import time
+
+    shards = list(shards)
+    deadline = time.monotonic() + max(0.0, float(timeout_s or 0.0))
+    done: dict[int, dict] = {}
+    while True:
+        for k in shards:
+            if k not in done:
+                p = load_shard_done(store_base, k)
+                if p is not None:
+                    done[k] = p
+        missing = [k for k in shards if k not in done]
+        if not missing or time.monotonic() >= deadline:
+            return done, missing
+        time.sleep(min(poll_s, max(0.01,
+                                   deadline - time.monotonic())))
 
 
 # ---------------------------------------------------------------------------

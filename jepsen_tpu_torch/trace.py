@@ -23,7 +23,10 @@ walks):
     worker records its spans into its own tracer and spools them to
     `<store>/trace-<pid>.jsonl` (`ensure_worker_tracer`,
     `flush_worker_spool`), and `merge_traces` folds every spool of the
-    sweep into `trace.json` as that worker's own pid track.
+    sweep into `trace.json` as that worker's own pid track;
+  * the mesh sweep's per-shard exports (`export_shard_trace`:
+    `<store>/trace-shard<k>.json`) and the coordinator's cross-shard
+    merge (`merge_shard_traces`).
 
 `JEPSEN_TPU_TRACE=0` swaps in the `NullTracer`: no file is written and
 a disabled span costs one call.
@@ -850,6 +853,112 @@ def merge_traces(tracer, spool_dir=None) -> list[dict]:
             x_evs.append(e)
     x_evs.sort(key=lambda e: e["ts"])
     return meta_evs + x_evs
+
+
+# ---------------------------------------------------------------------------
+# The mesh sweep's cross-shard trace merge (analyze-store --mesh).
+#
+# Shards sweep one store at once from several processes (or hosts),
+# which cannot share a spool directory's lifecycle and whose pids may
+# collide. Each shard exports its own merged Chrome event list (parent
+# and its workers) as `<store>/trace-shard<k>.json`, stamped with the
+# tracer's CLOCK_MONOTONIC origin; the coordinator folds the shard files
+# into one trace.json, shifting each shard's timestamps to the earliest
+# origin and remapping pids into per-shard strides so that tracks never
+# collide. On one machine monotonic is system-wide and the merged
+# timeline is exact; across hosts the residual error is their clocks'
+# skew, which the per-shard shares (each on its own timeline) never see.
+# ---------------------------------------------------------------------------
+
+#: Per-shard merged-trace artifact naming (`.json`, not a `.jsonl` spool).
+SHARD_TRACE_PREFIX = "trace-shard"
+
+#: pid stride separating shard tracks in the merged trace: real pids
+#: stay readable modulo the stride, and two hosts' equal pids cannot
+#: fold into one track.
+_SHARD_PID_STRIDE = 1 << 24
+
+
+def shard_trace_path(store_base, shard: int) -> Path:
+    return Path(store_base) / f"{SHARD_TRACE_PREFIX}{shard}.json"
+
+
+def shard_spool_dir(store_base, shard: int) -> Path:
+    """The worker-spool subdirectory of ONE mesh shard. Spools are
+    keyed by pid and two hosts' workers can share one, so each shard
+    spools into (and cleans, at its own sweep start) a directory of its
+    own; the coordinator removes them after a fully covered merge."""
+    return Path(store_base) / f"spool-shard{shard}"
+
+
+def export_shard_trace(tracer, store_base, shard: int, n_shards: int,
+                       events: list | None = None) -> Path:
+    """Write one shard's merged Chrome events (its own spans and its
+    worker spools) as `trace-shard<k>.json`, with the shard geometry
+    and the tracer's monotonic origin for the cross-shard merge."""
+    if events is None:
+        events = merge_traces(tracer, store_base)
+    return atomic_write_text(
+        shard_trace_path(store_base, shard),
+        json.dumps({"traceEvents": events, "displayTimeUnit": "ms",
+                    "shard": shard, "shards": n_shards,
+                    "origin_mono": tracer.origin_mono()}))
+
+
+def load_shard_trace(path) -> dict | None:
+    """One shard trace file as a dict, or None when it is missing or
+    does not parse (a lost shard's file never landed)."""
+    try:
+        v = json.loads(Path(path).read_text())
+    except (OSError, json.JSONDecodeError):
+        return None
+    return v if isinstance(v, dict) and "traceEvents" in v else None
+
+
+def merge_shard_traces(store_base, shards):
+    """Fold every present `trace-shard<k>.json` under `store_base` into
+    one Chrome event list. Returns (merged events, {shard: that shard's
+    own unshifted events}); the second feeds the report's per-shard
+    stage shares, each computed on its shard's own timeline. Every
+    process track of shard k is renamed `shard<k>:<name>`."""
+    per_shard: dict[int, list] = {}
+    loads = []
+    for k in shards:
+        d = load_shard_trace(shard_trace_path(store_base, k))
+        if d is None:
+            continue
+        per_shard[k] = d["traceEvents"]
+        loads.append((k, d))
+    if not loads:
+        return [], per_shard
+    origins = [d["origin_mono"] for _k, d in loads
+               if isinstance(d.get("origin_mono"), (int, float))]
+    o0 = min(origins) if origins else 0.0
+    meta_evs: list[dict] = []
+    x_evs: list[dict] = []
+    for k, d in loads:
+        om = d.get("origin_mono")
+        shift_us = (om - o0) * 1e6 \
+            if isinstance(om, (int, float)) else 0.0
+        for e in d["traceEvents"]:
+            if not isinstance(e, dict):
+                continue
+            e = dict(e)
+            try:
+                e["pid"] = k * _SHARD_PID_STRIDE + int(e.get("pid", 0))
+            except (TypeError, ValueError):
+                e["pid"] = k * _SHARD_PID_STRIDE
+            if e.get("ph") == "M":
+                if e.get("name") == "process_name":
+                    args = dict(e.get("args") or {})
+                    args["name"] = f"shard{k}:{args.get('name', '')}"
+                    e["args"] = args
+                meta_evs.append(e)
+            else:
+                e["ts"] = float(e.get("ts", 0.0)) + shift_us
+                x_evs.append(e)
+    x_evs.sort(key=lambda e: e["ts"])
+    return meta_evs + x_evs, per_shard
 
 
 # ---------------------------------------------------------------------------

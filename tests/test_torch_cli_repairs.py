@@ -61,7 +61,11 @@ def env(reference_env, monkeypatch):  # noqa: F811
     monkeypatch.setenv("JEPSEN_TPU_BACKEND", "tpu")
     for g in ("JEPSEN_TPU_TRACE", "JEPSEN_TPU_JAX_PROFILE",
               "JEPSEN_TPU_KERNEL_STATS", "JEPSEN_TPU_FRONTIER"):
-        monkeypatch.delenv(g, raising=False)
+        # set, then unset: monkeypatch records the gate either way, so
+        # what `--trace`/`--jax-profile` export is undone after the
+        # test and never reaches a later test's subprocesses
+        monkeypatch.setenv(g, "")
+        monkeypatch.delenv(g)
     trace.reset()
     yield monkeypatch
     trace.reset()

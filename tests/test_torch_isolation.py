@@ -77,6 +77,8 @@ print(" ".join(mods))
     assert {f"jepsen_tpu_torch.serve.{m}"
             for m in ("protocol", "scheduler", "client", "daemon",
                       "fleet")} | {"jepsen_tpu_torch.serve"} <= mods
+    # the sharded sweep's coordination
+    assert "jepsen_tpu_torch.mesh" in mods
 
 
 @pytest.mark.parametrize("path", port_sources(),
