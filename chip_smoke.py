@@ -268,6 +268,26 @@ failure:
               builds race: one closure_square .so left, no temporary
               file, results as phase 4's. Each shard runs the CLI's own
               __main__ under RESUME_CMD, which reports its launches.
+ 19. test     `run_cli(test_fn, argv=["test", "--dummy", ...])` as a
+              suite's main calls it, in this process at concurrency 10:
+              the generator, the interpreter's worker threads, the dummy
+              remote, the store's save_1 and save_2, and the checker on
+              the card. (a) BASELINE config #2: append.test() at its
+              defaults under gen.limit(10,000) against a serializable
+              in-process list store: valid, closure_square launched at
+              T_pad 10,240, and the stored history re-checked by
+              `analyze` with the plain squaring gives a byte-identical
+              results.json; (b) 2,000 txns against a list store whose
+              reads see a stale snapshot: invalid, with the anomaly
+              types of the host oracle (`analyze --backend cpu` on the
+              same stored history); (c) BASELINE config #1:
+              register.test() at its defaults (1,000 ops over 10 keys)
+              against CAS registers one a key: valid, knossos_dense_scan
+              launched, every key's verdict as the CPU WGL's; (d)
+              `test-all` over the three: exit 1, a line each. Each
+              test's generator.run and analyze spans (its trace.json)
+              are printed beside its launches and device time; no
+              interpreter worker thread outlives its test.
 
 The sweeps run in this process (phases 4-12) ingest through the same
 pool. Spawn re-imports this script in each worker, so it imports torch
@@ -289,7 +309,8 @@ phase 14's (`analyze-append`, `analyze-wr`, `analyze-register`,
 16's (`serve-append`, `serve-wr`: the in-process daemon's folds), and
 phase 18's (`mesh-shard0`, `mesh-shard1`, `mesh-lost-shard0`,
 `mesh-resume-shard1`, `mesh-fresh-shard0`, `mesh-fresh-shard1`: each
-counted in its shard's own process).
+counted in its shard's own process), and phase 19's (`test-append`,
+`test-append-broken`, `test-register`, `test-all`).
 
 The last lines are a `{"kernels": [...]}` record per kernel (with its
 launches and summed device milliseconds per path), the nvidia-smi line,
@@ -3766,6 +3787,262 @@ def phase_mesh(verdicts: dict, name: str, smi: str) -> dict:
     say(f"phase 18 in {time.perf_counter() - t_phase:.1f}s")
     return {"paths": paths, **out}
 
+#: Phase 19: BASELINE config #2 (one list-append history of 10,000 txns
+#: at the suites' append defaults) and config #1 (register.test() at its
+#: defaults: 2 threads a key, 10 keys, 100 ops a key), run by `test` at
+#: concurrency 10; the broken list store's history is 2,000 txns, its
+#: reads seeing a snapshot of the lists taken every TEST_STALE_EVERY
+#: txns.
+TEST_TXNS, TEST_BROKEN_TXNS, TEST_CONC, TEST_STALE_EVERY = \
+    10_000, 2_000, 10, 10
+
+
+def harness_clients():
+    """The in-process stores phase 19's tests run against: a list store
+    (serializable, or with stale snapshot reads) and CAS registers one a
+    key (workloads.AtomRegister, nil at first as the model's register
+    is, with AtomClient's 1 ms window)."""
+    import threading
+    from jepsen_tpu_torch import client as jclient, independent, workloads
+
+    def list_client(stale_every: int = 0):
+        lists: dict = {}
+        snap: dict = {}
+        lock = threading.Lock()
+        count = [0]
+
+        class ListClient(jclient.Client):
+            def invoke(self, test, op):
+                out = []
+                with lock:
+                    count[0] += 1
+                    if stale_every and count[0] % stale_every == 1:
+                        snap.clear()
+                        snap.update({k: list(v) for k, v in lists.items()})
+                    view = snap if stale_every else lists
+                    for mf, k, v in op["value"]:
+                        if mf == "append":
+                            lists.setdefault(k, []).append(v)
+                            out.append([mf, k, v])
+                        else:
+                            out.append(["r", k, list(view.get(k, []))])
+                return {**op, "type": "ok", "value": out}
+
+        return ListClient()
+
+    def register_client():
+        regs: dict = {}
+        lock = threading.Lock()
+
+        def reg(k):
+            with lock:
+                return regs.setdefault(k, workloads.AtomRegister(None))
+
+        class KeyedAtomClient(jclient.Client):
+            def invoke(self, test, op):
+                time.sleep(0.001)
+                k, v = op["value"]
+                r = reg(k)
+                if op["f"] == "read":
+                    return {**op, "type": "ok",
+                            "value": independent.tuple_(k, r.read())}
+                if op["f"] == "write":
+                    r.write(v)
+                    return {**op, "type": "ok"}
+                return {**op, "type": "ok" if r.cas(*v) else "fail"}
+
+        return KeyedAtomClient()
+
+    return list_client, register_client
+
+
+def span_secs(run: Path) -> dict:
+    """Seconds of the run's "generator.run" and "analyze" trace spans
+    (its trace.json)."""
+    evs = json.loads((run / "trace.json").read_text())["traceEvents"]
+    out = {}
+    for e in evs:
+        if e.get("ph") == "X" and e["name"] in ("generator.run", "analyze"):
+            out[e["name"]] = out.get(e["name"], 0.0) + e["dur"] / 1e6
+    check(set(out) == {"generator.run", "analyze"},
+          f"{run}: trace.json lacks a span: {sorted(out)}")
+    return out
+
+
+def phase_test(smi: str) -> dict:
+    """Phase 19: `test` and `test-all` through `run_cli`, as a suite's
+    main calls it: the generator, the interpreter's worker threads, the
+    dummy remote, the nemesis, the store, then the checker on the card.
+    Returns per kernel, per path (launches, device ms)."""
+    import threading
+    from jepsen_tpu_torch import cli, generator as gen, net
+    from jepsen_tpu_torch.checker.elle import closure_square as cs
+    from jepsen_tpu_torch.workloads import append, register
+
+    t_phase = time.perf_counter()
+    base = WORK / "test"
+    list_client, register_client = harness_clients()
+    cs_paths, dense_paths = {}, {}
+
+    def append_fn(name: str, n: int, stale: int = 0, log=None):
+        def test_fn(t, args):
+            wl = append.test(device=DEVICE, bucket_log=log)
+            return {**t, "name": name, "net": net.noop(),
+                    "client": list_client(stale),
+                    "generator": gen.limit(n, wl["generator"]),
+                    "checker": wl["checker"]}
+        return test_fn
+
+    def register_fn(t, args):
+        wl = register.test(device=DEVICE)
+        return {**t, "name": "test-register", "net": net.noop(),
+                "client": register_client(), "generator": wl["generator"],
+                "checker": wl["checker"]}
+
+    def run(test_fn, store: Path, command: str = "test", **kw):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.run_cli(test_fn, argv=[
+                command, "--dummy", "--store", str(store),
+                "--concurrency", str(TEST_CONC)], **kw)
+        torch.cuda.synchronize()
+        lines = [json.loads(ln) for ln in buf.getvalue().splitlines()
+                 if ln.startswith("{")]
+        return rc, lines
+
+    def recheck(line: dict, dst: str, checker, argv=()) -> dict:
+        """`analyze` of a copy of the test's run dir with `checker`;
+        returns the copy's results.json bytes and parse."""
+        run = Path(line["dir"])
+        store = base / dst
+        copy = store / run.parent.name / run.name
+        shutil.copytree(run, copy)
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.run_cli(lambda t, a: {**t, "checker": checker},
+                             argv=["analyze", str(copy), "--store",
+                                   str(store), *argv])
+        torch.cuda.synchronize()
+        raw = (copy / "results.json").read_bytes()
+        return {"rc": rc, "raw": raw, "res": json.loads(raw)}
+
+    def workers_ended(what: str) -> None:
+        left = [t.name for t in threading.enumerate()
+                if t.name.startswith("jepsen-worker-")]
+        check(not left, f"{what}: interpreter workers left: {left}")
+
+    # (a) config #2: one list-append history of 10,000 txns
+    log: list = []
+    (rc, lines), n, ms = counted(lambda: run(
+        append_fn("test-append", TEST_TXNS, log=log), base / "a"))
+    workers_ended("test-append")
+    check(rc == 0 and len(lines) == 1 and lines[0]["valid?"] is True,
+          f"test-append: rc {rc}, {lines}")
+    run_a = Path(lines[0]["dir"])
+    hist = (run_a / "history.jsonl").read_text().splitlines()
+    txns = sum(1 for ln in hist if '"type": "invoke"' in ln)
+    check(txns == TEST_TXNS, f"test-append: {txns} txns in the history")
+    active, skipped = launch_split(log, n)
+    t_pads = sorted({b["t_pad"] for b in log})
+    check(n > 0, "test-append launched no closure_square")
+    res_a = json.loads((run_a / "results.json").read_text())
+    plain = {}
+    _, relaunched, _ = counted(lambda: plain.update(recheck(
+        lines[0], "a-plain", append.checker(
+            device=DEVICE, square=cs.closure_square_ref))))
+    check(relaunched == 0 and plain["rc"] == 0,
+          f"the plain re-check: rc {plain['rc']}, {relaunched} launches")
+    check(plain["raw"] == (run_a / "results.json").read_bytes(),
+          "test-append: the plain squaring's results.json differs")
+    secs = span_secs(run_a)
+    cs_paths["test-append"] = (n, ms)
+    say(f"test-append (BASELINE config #2: {TEST_TXNS} txns at "
+        f"concurrency {TEST_CONC}, {len(hist)} ops): valid, "
+        f"generator.run {secs['generator.run']:.3f}s, analyze "
+        f"{secs['analyze']:.3f}s; {n} closure_square launches ({active} "
+        f"active, {skipped} skipped; T_pad {t_pads}) taking {ms} ms of "
+        f"device time ({smi}); results.json byte-identical to the plain "
+        f"squaring's; txn-count {res_a.get('txn-count')}")
+
+    # (b) the broken list store: stale snapshot reads
+    (rc, lines), n, ms = counted(lambda: run(
+        append_fn("test-append-broken", TEST_BROKEN_TXNS,
+                  stale=TEST_STALE_EVERY), base / "b"))
+    workers_ended("test-append-broken")
+    check(rc == 1 and len(lines) == 1 and lines[0]["valid?"] is False,
+          f"test-append-broken: rc {rc}, {lines}")
+    run_b = Path(lines[0]["dir"])
+    res_b = json.loads((run_b / "results.json").read_text())
+    host = {}
+    _, relaunched, _ = counted(lambda: host.update(recheck(
+        lines[0], "b-host", append.checker(), argv=["--backend", "cpu"])))
+    check(relaunched == 0 and host["rc"] == 1,
+          f"the host oracle: rc {host['rc']}, {relaunched} launches")
+    check(res_b["anomaly-types"] == host["res"]["anomaly-types"],
+          f"test-append-broken: {res_b['anomaly-types']} on the card, "
+          f"{host['res']['anomaly-types']} from the host oracle")
+    check(n > 0, "test-append-broken launched no closure_square")
+    secs_b = span_secs(run_b)
+    cs_paths["test-append-broken"] = (n, ms)
+    say(f"test-append-broken ({TEST_BROKEN_TXNS} txns, reads of a "
+        f"snapshot every {TEST_STALE_EVERY} txns): invalid with "
+        f"{res_b['anomaly-types']}, as the host oracle's; generator.run "
+        f"{secs_b['generator.run']:.3f}s, analyze {secs_b['analyze']:.3f}s;"
+        f" {n} closure_square launches taking {ms} ms of device time")
+
+    # (c) config #1: register.test() at its defaults
+    (rc, lines), n, ms = counted_dense(lambda: run(register_fn, base / "c"))
+    workers_ended("test-register")
+    check(rc == 0 and len(lines) == 1 and lines[0]["valid?"] is True,
+          f"test-register: rc {rc}, {lines}")
+    run_c = Path(lines[0]["dir"])
+    res_c = json.loads((run_c / "results.json").read_text())
+    ops = sum(1 for ln in (run_c / "history.jsonl").read_text().splitlines()
+              if '"type": "invoke"' in ln)
+    check(ops == 1000, f"test-register: {ops} ops, not config #1's 1,000")
+    check(n > 0, "test-register launched no knossos_dense_scan")
+    wgl = {}
+    _, relaunched, _ = counted_dense(lambda: wgl.update(recheck(
+        lines[0], "c-host", register.checker(), argv=["--backend", "cpu"])))
+    check(relaunched == 0, "the CPU WGL re-check launched")
+
+    def per_key(res):
+        return {str(k): r["valid?"] for k, r in res["results"].items()}
+    check(per_key(res_c) == per_key(wgl["res"]) and len(per_key(res_c))
+          == 10, f"test-register: per-key verdicts {per_key(res_c)} vs "
+          f"the CPU WGL's {per_key(wgl['res'])}")
+    secs_c = span_secs(run_c)
+    dense_paths["test-register"] = (n, ms)
+    say(f"test-register (BASELINE config #1: 10 keys x 100 ops, 2 threads "
+        f"a key, concurrency {TEST_CONC}): valid, every key's verdict as "
+        f"the CPU WGL's; generator.run "
+        f"{secs_c['generator.run']:.3f}s, analyze {secs_c['analyze']:.3f}s;"
+        f" {n} knossos_dense_scan launches taking {ms} ms of device time "
+        f"({smi})")
+
+    # (d) test-all over the three tests: the worst code, a line each
+    def tests_fn(t, args):
+        return [append_fn("test-append", TEST_TXNS)(dict(t), args),
+                append_fn("test-append-broken", TEST_BROKEN_TXNS,
+                          stale=TEST_STALE_EVERY)(dict(t), args),
+                register_fn(dict(t), args)]
+    ((rc, lines), n_d, ms_d), n, ms = counted(lambda: counted_dense(
+        lambda: run(None, base / "d", "test-all", tests_fn=tests_fn)))
+    workers_ended("test-all")
+    check(rc == 1 and [ln.get("name") for ln in lines] == [
+        "test-append", "test-append-broken", "test-register"],
+        f"test-all: rc {rc}, {lines}")
+    check([ln["valid?"] for ln in lines] == [True, False, True],
+          f"test-all verdicts: {lines}")
+    check(n > 0 and n_d > 0, f"test-all: {n} closure_square and {n_d} "
+          "knossos_dense_scan launches")
+    cs_paths["test-all"] = (n, ms)
+    dense_paths["test-all"] = (n_d, ms_d)
+    say(f"test-all over the three tests: exit 1, one line each; {n} "
+        f"closure_square launches ({ms} ms) and {n_d} knossos_dense_scan "
+        f"launches ({ms_d} ms) of device time ({smi})")
+    say(f"phase 19 in {time.perf_counter() - t_phase:.1f}s")
+    return {"closure_square": cs_paths, "knossos_dense_scan": dense_paths}
+
 
 def main() -> int:
     global torch
@@ -3840,6 +4117,9 @@ def main() -> int:
         paths.update(phase_serve(verdicts)["paths"])
         phase_fleet(verdicts)
         paths.update(phase_mesh(verdicts, name, smi)["paths"])
+        tested = phase_test(smi)
+        paths.update(tested["closure_square"])
+        dense_paths.update(tested["knossos_dense_scan"])
         for rec, ps in ((record, paths), (dense_record, dense_paths)):
             rec["launches"] = sum(n for n, _ in ps.values())
             rec["paths"] = {k: {"launches": n, "device_ms": ms}

@@ -1,4 +1,4 @@
-"""jepsen_tpu_torch: the PyTorch/CUDA port of jepsen_tpu's analysis path.
+"""jepsen_tpu_torch: the PyTorch/CUDA port of jepsen_tpu.
 
 The JAX package `jepsen_tpu` checks stored histories with JAX kernels on
 a TPU; this package runs the same batch checks with PyTorch on an NVIDIA
@@ -13,9 +13,17 @@ past the dense limit by SCC condensation) and rw-register, per-key
 CAS-register linearizability, the stored checker — and the single-run
 checker stack that `analyze` runs on one stored run (`checker`'s
 compose, stats and friends, `Linearizable`, `checker.elle`'s
-`AppendChecker` and `WrChecker`, `independent.checker`):
+`AppendChecker` and `WrChecker`, `independent.checker`), and the test
+runner that makes a history and checks it (`test`, `test-all`):
 
-    cli            run_cli (analyze); analyze-store
+    cli            run_cli (test, test-all, analyze); analyze-store
+    core           run (a test end to end) and analyze (one run)
+    generator      the generator DSL and its threaded interpreter
+    client, control, os_setup, db, net, nemesis
+                   the harness: clients, the remote control plane, the
+                   OS and DB lifecycles, partitions and faults
+    workloads      noop_test, the atom DB; append, wr, register, bank,
+                   long_fork
     store          run-dir walk, verdict journal, results.edn rendering
     ingest         history -> encoding (append or wr) in a spawned pool
     shm            the pool's shared-memory transport
@@ -34,7 +42,8 @@ compose, stats and friends, `Linearizable`, `checker.elle`'s
     _build         compiles csrc/*.cu with nvcc at first use
     devices        the torch.device every entry point runs on, and
                    the checkers' backend (auto|tpu: the device path)
-    independent    per-key split and checker; util: the thread maps
+    independent    per-key generators, split and checker; util: the
+                   thread maps, relative time, retries
 
 Entry points run on `cuda` unless the caller asks for `cpu`.
 """

@@ -1,5 +1,8 @@
 """Command line of the PyTorch port:
 
+    python -m jepsen_tpu_torch.cli test|test-all [--dummy] [--store DIR] \\
+        [--concurrency N|Nn] [--test-count N] [--node HOST ...] \\
+        [--backend auto|tpu|cpu|race] [--[no-]trace] [--[no-]jax-profile]
     python -m jepsen_tpu_torch.cli analyze [RUN_DIR] [--store DIR] \\
         [--backend auto|tpu|cpu|race] [--[no-]trace] [--[no-]jax-profile]
     python -m jepsen_tpu_torch.cli analyze-store --store DIR \\
@@ -13,14 +16,22 @@
         [--socket PATH] [--no-stonith] [--[no-]trace] [--device cuda|cpu]
 
 Counterpart of `jepsen_tpu/cli.py`. A suite's main calls
-`run_cli(test_fn, ...)`, as the reference's do: `analyze` re-runs the
-test map's checker (`test_fn(stored_test, args)` returns it) on one
+`run_cli(test_fn, ...)`, as the reference's do. `test` runs
+`--test-count` tests, each `core.run(test_fn(base_test, args))`: the
+generator drives the clients and the nemesis through the interpreter,
+the history is stored (`Store.save_1`), then checked by the test map's
+checker and the verdict stored, one JSON result line a run, stopping
+at the first run that is not valid. `test-all` runs every test map of
+`tests_fn(base_test, args)` (default: the one `test_fn` gives), one
+line each, a crashed test printed as `{"name", "error"}` with 255; it
+exits the worst code. `analyze` re-runs the test map's checker on one
 stored run (default: the store's latest) and writes its results, its
 checkers' artifacts and the run's `trace.json`/`metrics.json` into the
-run dir, printing one JSON line. `test` and `test-all` are named but
-refused (exit 254): the harness that runs a test is not ported.
-`python -m jepsen_tpu_torch.cli` is `run_cli` with the stored test map
-as it is (no checker: `valid? true`).
+run dir, printing one JSON line. `python -m jepsen_tpu_torch.cli` is
+`run_cli` with the base test map as it is: `test` runs the noop test
+(no generator, `unbridled_optimism`), `analyze` a stored test map (no
+checker: `valid? true`). A test map's checker built without a device
+runs on the card: without one, `test` exits 255.
 
 `--backend` exports `JEPSEN_TPU_BACKEND` for the call (restored when
 `run_cli` returns), which every `auto` checker reads
@@ -34,7 +45,7 @@ verdicts back, journaled per tenant; it prints one ready line and exits
 (`serve.fleet`). Both run on `--device` (default cuda) and exit 255
 without it; `serve` also exits 255 when a fold meets a device or kernel
 failure. `serve --web` (the reference's store browser) is named and
-refused (exit 254): the harness it belongs to is not ported.
+refused (exit 254): `web.py` is not ported.
 
 `analyze-store`, the batch path: every stored run
 (with `--name`, every run of that test name) is checked, and each
@@ -944,10 +955,11 @@ def add_trace_opts(p: argparse.ArgumentParser) -> None:
     p.add_argument("--jax-profile",
                    action=argparse.BooleanOptionalAction, default=None,
                    help="additionally capture a torch.profiler session "
-                        "of the sweep (sets JEPSEN_TPU_JAX_PROFILE, the "
-                        "reference's name; lands in "
-                        "<store>/torch-profile; --no-jax-profile "
-                        "overrides an inherited env)")
+                        "(sets JEPSEN_TPU_JAX_PROFILE, the reference's "
+                        "name; lands in <store>/torch-profile for a "
+                        "sweep, <run-dir>/torch-profile for test and "
+                        "analyze; --no-jax-profile overrides an "
+                        "inherited env)")
 
 
 def apply_trace_opts(args: argparse.Namespace) -> None:
@@ -964,8 +976,8 @@ def apply_trace_opts(args: argparse.Namespace) -> None:
 
 def add_test_opts(p: argparse.ArgumentParser) -> None:
     """The reference's test option set (cli.clj:55-99), so a suite's
-    `test_fn` sees a complete args namespace; of it the port reads
-    `--store` and `--backend` (and the trace options)."""
+    `test_fn` sees a complete args namespace (`test_map_from_args`
+    turns it into the base test map)."""
     p.add_argument("--node", "-n", action="append", dest="nodes",
                    metavar="HOST", help="node to test (repeatable)")
     p.add_argument("--nodes-file", help="file with one node per line")
@@ -1066,22 +1078,22 @@ def run_cli(test_fn: Callable[[dict, argparse.Namespace], dict],
     """Build and dispatch the CLI (the reference's `run_cli`):
     `test_fn(base_test, args)` returns the full test map, its checker
     included; `opt_fn(parser)` may add suite-specific options to
-    `test`, `analyze` and `test-all`. `tests_fn` is accepted for the
-    reference's signature: `test` and `test-all` are refused (254)
-    until the harness that runs a test is ported. Returns the exit
-    code."""
+    `test`, `analyze` and `test-all`; `tests_fn(base_test, args)`
+    returns the test maps `test-all` runs (default: the single
+    `test_fn` test). Returns the exit code."""
     parser = argparse.ArgumentParser(prog=name)
     sub = parser.add_subparsers(dest="command", required=True)
 
-    p_test = sub.add_parser("test", help="run a test (not ported)")
+    p_test = sub.add_parser("test", help="run a test")
     add_test_opts(p_test)
     p_an = sub.add_parser("analyze",
                           help="re-run the checker on a stored history")
     p_an.add_argument("run_dir", nargs="?",
                       help="store run dir (default: latest)")
     add_test_opts(p_an)
-    p_all = sub.add_parser("test-all",
-                           help="run a whole suite of tests (not ported)")
+    p_all = sub.add_parser(
+        "test-all",
+        help="run a whole suite of tests (cli.clj:413-491's test-all)")
     add_test_opts(p_all)
     if opt_fn:
         for p in (p_test, p_an, p_all):
@@ -1205,7 +1217,7 @@ def run_cli(test_fn: Callable[[dict, argparse.Namespace], dict],
     for k, v in exports.items():
         gates.export(k, v)
     try:
-        return _dispatch(test_fn, args)
+        return _dispatch(test_fn, args, tests_fn)
     finally:
         for k, v in prior.items():
             if v is None:
@@ -1214,17 +1226,57 @@ def run_cli(test_fn: Callable[[dict, argparse.Namespace], dict],
                 os.environ[k] = v
 
 
-def _dispatch(test_fn, args: argparse.Namespace) -> int:
+def _test(test_fn, args: argparse.Namespace) -> int:
+    """`test`: `--test-count` runs, one result line each, stopping at
+    the first that is not valid (cli.clj:328-352)."""
+    from . import core
+    code = 0
+    for _ in range(args.test_count):
+        test = core.run(test_fn(test_map_from_args(args), args))
+        _print_result_line(test, {
+            "valid?": test["results"].get("valid?"),
+            "dir": str(test["store"].test_dir(test))})
+        code = max(code, validity_exit_code(test.get("results")))
+        if code:
+            break
+    return code
+
+
+def _test_all(test_fn, tests_fn, args: argparse.Namespace) -> int:
+    """`test-all`: every test map in turn, one line each; a test that
+    raises prints `{"name", "error"}` and counts 255; returns the worst
+    code (cli.clj:413-491)."""
+    from . import core
+    tests = (tests_fn(test_map_from_args(args), args)
+             if tests_fn is not None
+             else [test_fn(test_map_from_args(args), args)])
+    worst = 0
+    for test in tests:
+        try:
+            test = core.run(test)
+            code = validity_exit_code(test.get("results"))
+            _print_result_line(test, {
+                "name": test.get("name"),
+                "valid?": test["results"].get("valid?"),
+                "dir": str(test["store"].test_dir(test))})
+        except Exception as e:
+            log.exception("test %s crashed", test.get("name"))
+            print(json.dumps({"name": test.get("name"), "error": str(e)}))
+            code = 255
+        worst = max(worst, code)
+    return worst
+
+
+def _dispatch(test_fn, args: argparse.Namespace, tests_fn=None) -> int:
     """Run `run_cli`'s parsed command; returns the exit code."""
     from .checker import Linearizable
     from .devices import DeviceUnavailable
     apply_trace_opts(args)
     try:
-        if args.command in ("test", "test-all"):
-            print(f"{args.command}: running a test is not ported to "
-                  "jepsen_tpu_torch; use analyze on a stored run",
-                  file=sys.stderr)
-            return 254
+        if args.command == "test":
+            return _test(test_fn, args)
+        if args.command == "test-all":
+            return _test_all(test_fn, tests_fn, args)
         if args.command == "analyze":
             return _analyze(test_fn, args)
         if args.command == "serve":
@@ -1266,8 +1318,9 @@ def _dispatch(test_fn, args: argparse.Namespace) -> int:
 
 
 def main(argv: list[str] | None = None) -> int:
-    """`python -m jepsen_tpu_torch.cli`: `run_cli` over the stored test
-    map as it is."""
+    """`python -m jepsen_tpu_torch.cli`: `run_cli` over the base test
+    map as it is (`test` runs the noop test, `analyze` a stored test
+    map)."""
     return run_cli(lambda tmap, args: tmap, argv=argv)
 
 

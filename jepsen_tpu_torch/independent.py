@@ -1,19 +1,24 @@
-"""Independent keys: op values lifted to `[k v]` tuples, the per-key
-split of a history, and the checker that checks each key alone.
+"""Independent keys: op values lifted to `[k v]` tuples, the generators
+that lift them, the per-key split of a history, and the checker that
+checks each key alone.
 
-The checker-side part of `jepsen_tpu/independent.py` (the reference's
+The part of `jepsen_tpu/independent.py` (the reference's
 jepsen.independent): `Tuple` and its helpers, `relift_history` (which
 re-lifts values a JSON round trip turned into plain two-element lists),
 the per-key split `subhistory` / `subhistories`, and
 `checker(sub)` — every keyed suite's checker (etcd, consul, zookeeper,
-mongodb). The generators and the native splitter are not ported.
+mongodb) — and the generators that lift a single-key generator over
+many keys: `sequential_generator` (one key at a time) and
+`concurrent_generator` (thread groups each owning a key;
+independent.clj:32-268). The native splitter is not ported.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Any
+from typing import Any, Callable, Iterable
 
+from . import generator as gen
 from . import trace
 from .checker import Checker, check_safe, merge_valid
 from .util import bounded_pmap
@@ -84,6 +89,161 @@ def relift_history(history: list) -> list:
              and len(o["value"]) == 2 else o)
             for o in history]
 
+
+def _wrap(k, res):
+    """Wrap a sub-generator op result's value into a [k v] tuple.
+    Only client invocations are lifted: interpreter pseudo-ops
+    (sleep/log) carry scalar payloads the event loop consumes directly
+    — a lifted sleep duration would crash the worker."""
+    o, g2 = res
+    if isinstance(o, dict) and o.get("type") in (None, "invoke"):
+        o = {**o, "value": Tuple(k, o.get("value"))}
+    return o, g2
+
+
+def _unwrap_event(event: dict) -> dict:
+    v = event.get("value")
+    if is_tuple(v):
+        return {**event, "value": v.value}
+    return event
+
+
+class SequentialGenerator(gen.Generator):
+    """One key at a time: run gen_fn(k) to exhaustion, then the next key
+    (independent.clj:32-66)."""
+
+    def __init__(self, keys: Iterable, gen_fn: Callable,
+                 _state=None):
+        if _state is None:
+            keys = list(keys)
+            _state = (keys, 0, gen_fn(keys[0]) if keys else None)
+        self.gen_fn = gen_fn
+        self.keys, self.i, self.cur = _state
+
+    def _with(self, i, cur):
+        return SequentialGenerator(
+            self.keys, self.gen_fn, _state=(self.keys, i, cur))
+
+    def op(self, test, ctx):
+        i, cur = self.i, self.cur
+        while i < len(self.keys):
+            if cur is None:
+                cur = self.gen_fn(self.keys[i])
+            res = gen.op(cur, test, ctx)
+            if res is not None:
+                o, g2 = _wrap(self.keys[i], res)
+                return o, self._with(i, g2)
+            i, cur = i + 1, None
+        return None
+
+    def update(self, test, ctx, event):
+        if self.cur is None or self.i >= len(self.keys):
+            return self
+        v = event.get("value")
+        if is_tuple(v) and v.key == self.keys[self.i]:
+            return self._with(
+                self.i,
+                gen.update(self.cur, test, ctx, _unwrap_event(event)))
+        return self
+
+
+def sequential_generator(keys: Iterable, gen_fn: Callable):
+    return SequentialGenerator(keys, gen_fn)
+
+
+class ConcurrentGenerator(gen.Generator):
+    """Thread groups of size n, each owning one key at a time
+    (independent.clj:138-268, the pure PureConcurrentGenerator).
+
+    Client threads are partitioned by `thread // n`; each group runs
+    gen_fn(k) restricted to its own threads and claims the next
+    unclaimed key when its current generator is exhausted. Requires
+    integer client threads; the nemesis is untouched (wrap with
+    gen.clients as usual)."""
+
+    def __init__(self, n: int, keys: Iterable, gen_fn: Callable,
+                 _state=None):
+        self.n = n
+        self.gen_fn = gen_fn
+        if _state is None:
+            _state = (list(keys), 0, {}, {})
+        # groups: group-id -> (key, sub-generator); done groups absent
+        # but recorded in exhausted so they don't re-claim.
+        self.keys, self.next_key, self.groups, self.key_group = _state
+
+    def _with(self, next_key, groups, key_group):
+        return ConcurrentGenerator(
+            self.n, self.keys, self.gen_fn,
+            _state=(self.keys, next_key, groups, key_group))
+
+    def _group_threads(self, ctx, g):
+        lo, hi = g * self.n, (g + 1) * self.n
+        return lambda t: isinstance(t, int) and lo <= t < hi
+
+    def _probe(self, g, test, ctx):
+        """Try to produce an op from group g against a private copy of
+        the state; only the winning probe's state is kept, so key
+        claims by losing probes simply re-happen next call (gen.op is
+        pure). Returns (op, successor-ConcurrentGenerator) or None."""
+        groups = dict(self.groups)
+        key_group = dict(self.key_group)
+        nk = self.next_key
+        gctx = ctx.restrict(self._group_threads(ctx, g))
+        entry = groups.get(g)
+        while True:
+            if entry is None:
+                if nk >= len(self.keys):
+                    return None
+                k = self.keys[nk]
+                nk += 1
+                entry = (k, self.gen_fn(k))
+                key_group[k] = g
+            k, sub = entry
+            res = gen.op(sub, test, gctx)
+            if res is None:
+                entry = None
+                continue
+            o, g2 = _wrap(k, res)
+            groups[g] = (k, g2)
+            return o, self._with(nk, groups, key_group)
+
+    def op(self, test, ctx):
+        soonest = None
+        gids = sorted({t // self.n for t in ctx.free_threads
+                      if isinstance(t, int)})
+        for g in gids:
+            cand = self._probe(g, test, ctx)
+            if cand is not None:
+                soonest = gen.soonest_op_vec(soonest, (*cand, g))
+        if soonest is None:
+            return None
+        o, succ, _ = soonest
+        return o, succ
+
+    def update(self, test, ctx, event):
+        v = event.get("value")
+        if not is_tuple(v):
+            return self
+        g = self.key_group.get(v.key)
+        if g is None or g not in self.groups:
+            return self
+        k, sub = self.groups[g]
+        if k != v.key:
+            return self
+        gctx = ctx.restrict(self._group_threads(ctx, g))
+        groups = dict(self.groups)
+        groups[g] = (k, gen.update(sub, test, gctx,
+                                   _unwrap_event(event)))
+        return self._with(self.next_key, groups, self.key_group)
+
+
+def concurrent_generator(n: int, keys: Iterable, gen_fn: Callable):
+    return ConcurrentGenerator(n, keys, gen_fn)
+
+
+# ---------------------------------------------------------------------------
+# Checker
+# ---------------------------------------------------------------------------
 
 def history_keys(history: list) -> list:
     """All keys appearing in lifted op values, in first-seen order."""

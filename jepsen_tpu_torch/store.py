@@ -1,10 +1,11 @@
 """The on-disk store of test runs: the part of `jepsen_tpu/store.py` the
-batch sweep reads and writes.
+test runner and the batch sweep read and write.
 
 Layout (the reference's `store/<test-name>/<start-time>/`):
 
     store/<test-name>/<start-time>/
-        history.jsonl   one op per line (preferred)
+        history.jsonl   one op per line (preferred); `save_1` writes
+                        it and history.edn before analysis
         history.edn     the same ops as EDN (fallback)
         test.json       the serializable test map (the reference's own
                         stores: test.fressian)
@@ -48,6 +49,7 @@ from typing import Any
 
 from . import edn
 from . import history as h
+from .util import chunk_vec, real_pmap
 
 log = logging.getLogger(__name__)
 
@@ -59,6 +61,9 @@ NONSERIALIZABLE_KEYS = (
 )
 
 DEFAULT_BASE = "store"
+
+# Histories longer than this render in chunks on threads (write_history).
+PARALLEL_WRITE_THRESHOLD = 16384
 
 
 def _stringify(v: Any) -> Any:
@@ -140,6 +145,30 @@ class Store:
 
     # -- writes -----------------------------------------------------------
 
+    def write_history(self, test: dict) -> None:
+        """history.edn and history.jsonl of the test's history; a long
+        one renders in chunks on threads, to the same bytes."""
+        hist = test.get("history", [])
+        d = self.test_dir(test)
+        d.mkdir(parents=True, exist_ok=True)
+        if len(hist) > PARALLEL_WRITE_THRESHOLD:
+            chunks = chunk_vec(PARALLEL_WRITE_THRESHOLD, hist)
+            parts = real_pmap(
+                lambda c: (h.history_to_edn(c),
+                           "".join(json.dumps(_stringify(o)) + "\n"
+                                   for o in c)),
+                chunks)
+            with open(d / "history.edn", "w") as fe, \
+                 open(d / "history.jsonl", "w") as fj:
+                for e_part, j_part in parts:
+                    fe.write(e_part)
+                    fj.write(j_part)
+        else:
+            (d / "history.edn").write_text(
+                h.history_to_edn(hist) if hist else "")
+            (d / "history.jsonl").write_text(
+                "".join(json.dumps(_stringify(o)) + "\n" for o in hist))
+
     def write_test(self, test: dict) -> None:
         t = {k: _stringify(v) for k, v in test.items()
              if k not in NONSERIALIZABLE_KEYS
@@ -171,6 +200,14 @@ class Store:
         p = t.export(d / "trace.json")
         t.export_metrics(d / "metrics.json")
         return p
+
+    def save_1(self, test: dict) -> dict:
+        """Persist test.json and the history before analysis, so a run
+        whose analysis crashes still leaves its history."""
+        self.write_test(test)
+        self.write_history(test)
+        self.update_symlinks(test)
+        return test
 
     def save_2(self, test: dict) -> dict:
         """Persist results (after analysis): test.json, results.json and

@@ -1,11 +1,14 @@
-"""Small shared utilities: the part of `jepsen_tpu/util.py` the port's
-checkers call.
+"""Small shared utilities: the part of `jepsen_tpu/util.py` the port
+calls.
 
 `real_pmap` (one thread an element; `checker.Compose` runs its
-sub-checkers through it), `bounded_pmap` (a bounded pool;
-`independent.checker` fans per-key checks out through it), `name_of`,
-the interval-set rendering of the set checker, and the latency pairing
-and nemesis intervals under the plot checkers (reference util.clj:548,
+sub-checkers through it, `control.on_nodes` its nodes), `bounded_pmap`
+(a bounded pool; `independent.checker` fans per-key checks out through
+it), `majority`/`minority` (the nemesis's grudges), the relative-time
+plumbing the test runner stamps ops with (util.clj:290-330), the retry
+and timeout helpers (util.clj:359), `chunk_vec`, `name_of`, the
+interval-set rendering of the set checker, and the latency pairing and
+nemesis intervals under the plot checkers (reference util.clj:548,
 619-700). Standard library only: the ingest pool's workers import the
 checker package.
 """
@@ -13,11 +16,23 @@ checker package.
 from __future__ import annotations
 
 import os
+import threading
+import time as _time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Iterable, Sequence, TypeVar
 
 T = TypeVar("T")
 R = TypeVar("R")
+
+
+def majority(n: int) -> int:
+    """Smallest majority of n nodes: majority(5) == 3; majority(0) == 1."""
+    return n // 2 + 1
+
+
+def minority(n: int) -> int:
+    """Largest strict minority: minority(5) == 2."""
+    return max((n - 1) // 2, 0) if n > 0 else 0
 
 
 def real_pmap(f: Callable[[T], R], coll: Sequence[T]) -> list[R]:
@@ -46,6 +61,102 @@ def bounded_pmap(f: Callable[[T], R], coll: Sequence[T],
         return list(ex.map(f, coll))
 
 
+# ---------------------------------------------------------------------------
+# Relative time: histories are timestamped in nanoseconds from test start.
+# ---------------------------------------------------------------------------
+
+_relative_origin = threading.local()
+
+
+def linear_time_nanos() -> int:
+    return _time.monotonic_ns()
+
+
+class relative_time:
+    """Context manager establishing t=0 for the current test run."""
+
+    def __enter__(self):
+        _relative_origin.t0 = _time.monotonic_ns()
+        return self
+
+    def __exit__(self, *exc):
+        _relative_origin.t0 = None
+        return False
+
+
+def relative_time_nanos() -> int:
+    t0 = getattr(_relative_origin, "t0", None)
+    if t0 is None:
+        raise RuntimeError("relative_time_nanos called outside relative_time")
+    return _time.monotonic_ns() - t0
+
+
+def sleep_nanos(dt: int) -> None:
+    if dt > 0:
+        _time.sleep(dt / 1e9)
+
+
+class RetryFailed(Exception):
+    pass
+
+
+def with_retry(f: Callable[[], R], retries: int = 3, backoff: float = 0.0,
+               exceptions: tuple = (Exception,), *,
+               exponential: bool = False, fatal: tuple = ()) -> R:
+    """Call f, retrying up to `retries` times on the given exceptions.
+
+    With exponential=True each retry sleeps a jittered exponential
+    backoff — ``backoff * 2**attempt * uniform(0.5, 1.5)`` (attempt
+    counting from 0) — so a herd of workers retrying the same
+    transient failure decorrelates instead of stampeding in lockstep.
+    `fatal` exceptions never retry (e.g. a FileNotFoundError under an
+    OSError retry: the thing is gone, not busy)."""
+    import random
+    attempt = 0
+    while True:
+        try:
+            return f()
+        except fatal:
+            raise
+        except exceptions:
+            attempt += 1
+            if attempt > retries:
+                raise
+            if backoff:
+                delay = backoff
+                if exponential:
+                    delay = (backoff * 2 ** (attempt - 1)
+                             * random.uniform(0.5, 1.5))
+                _time.sleep(delay)
+
+
+def timeout_call(seconds: float, f: Callable[[], R], default: Any = None) -> Any:
+    """Run f in a worker thread; return `default` if it takes longer than
+    `seconds`; exceptions from f propagate to the caller. (On timeout the
+    thread is abandoned, mirroring the reference's util/timeout which
+    interrupts; Python threads can't be killed, so callers should make f
+    cooperative where it matters. The worker is DAEMONIC — an abandoned
+    thread must never hold interpreter exit hostage — and named so a
+    faulthandler dump attributes it.)"""
+    result: list = []
+    error: list = []
+
+    def run():
+        try:
+            result.append(f())
+        except BaseException as e:  # noqa: BLE001 - relayed to caller
+            error.append(e)
+
+    t = threading.Thread(target=run, daemon=True, name="timeout-call")
+    t.start()
+    t.join(seconds)
+    if error:
+        raise error[0]
+    if t.is_alive():
+        return default
+    return result[0] if result else default
+
+
 def integer_interval_set_str(xs: Iterable[int]) -> str:
     """Render a set of ints as compact intervals: '#{1..3 5 7..9}'
     (reference util.clj:548 — used in set results)."""
@@ -62,6 +173,11 @@ def integer_interval_set_str(xs: Iterable[int]) -> str:
             lo = hi = x
     parts.append(f"{lo}" if lo == hi else f"{lo}..{hi}")
     return "#{" + " ".join(parts) + "}"
+
+
+def chunk_vec(n: int, xs: Sequence[T]) -> list[list[T]]:
+    """Split xs into chunks of at most n elements."""
+    return [list(xs[i : i + n]) for i in range(0, len(xs), n)]
 
 
 def name_of(x: Any) -> str:

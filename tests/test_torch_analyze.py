@@ -6,9 +6,10 @@ Elle list-append checker with stats and unhandled exceptions, the
 rw-register checker, `independent.checker` of linearizability by both
 routes) on one stored run: both CLIs in this process, each package on
 the same store path in turn, the port's checkers on `device="cpu"`
-against the reference's device path on CPU XLA. Then what the port
-refuses: `test` and `test-all` (not ported), and a kernel failure or a
-missing device, which exits 255 and writes no verdict. Last,
+against the reference's device path on CPU XLA. Then `test` and
+`test-all` running the noop test (their parity with the reference is
+tests/test_torch_core_run.py's), and what the port refuses: a kernel
+failure or a missing device, which exits 255 and writes no verdict. Last,
 `analyze-store --backend cpu` (the host oracles) and `--backend race`
 over a mixed store.
 
@@ -166,10 +167,21 @@ def test_analyze_without_runs_is_a_usage_error(tmp_path, capsys,
 
 
 @pytest.mark.parametrize("command", ["test", "test-all"])
-def test_running_a_test_is_refused(command, tmp_path, capsys):
+def test_running_a_test_runs_and_stores_it(command, tmp_path, capsys):
+    """`test` and `test-all`, once refused, run the noop test map: a
+    valid run whose test.json, history and results land in the store,
+    and one result line naming its run dir."""
     assert cli.run_cli(lambda t, a: t, argv=[
-        command, "--store", str(tmp_path)]) == 254
-    assert "not ported" in capsys.readouterr().err
+        command, "--dummy", "--store", str(tmp_path)]) == 0
+    (line,) = [json.loads(ln) for ln in capsys.readouterr().out
+               .splitlines() if ln.startswith("{")]
+    assert line["valid?"] is True
+    run = Path(line["dir"])
+    assert run.parent.parent == tmp_path and run.parent.name == "noname"
+    for f in ("test.json", "history.jsonl", "history.edn", "results.json",
+              "results.edn"):
+        assert (run / f).is_file(), f
+    assert (tmp_path / "latest").resolve() == run.resolve()
 
 
 def raising_checker(exc):

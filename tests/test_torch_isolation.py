@@ -79,6 +79,14 @@ print(" ".join(mods))
                       "fleet")} | {"jepsen_tpu_torch.serve"} <= mods
     # the sharded sweep's coordination
     assert "jepsen_tpu_torch.mesh" in mods
+    # the test runner: the harness under core.run and its workloads
+    assert {f"jepsen_tpu_torch.{m}"
+            for m in ("client", "control", "control.net", "control.util",
+                      "os_setup", "db", "net", "generator",
+                      "generator.interpreter", "nemesis", "workloads",
+                      "workloads.append", "workloads.wr",
+                      "workloads.register", "workloads.bank",
+                      "workloads.long_fork")} <= mods
 
 
 @pytest.mark.parametrize("path", port_sources(),
@@ -227,6 +235,48 @@ def test_port_shm_module_is_scanned():
     names = {str(p.relative_to(REPO)) for p in port_sources()}
     assert {"jepsen_tpu_torch/shm.py", "jepsen_tpu_torch/ingest.py",
             "jepsen_tpu_torch/trace.py"} <= names
+
+
+def test_harness_modules_are_scanned():
+    """The AST scan above covers the test runner's modules."""
+    names = {str(p.relative_to(REPO)) for p in port_sources()}
+    assert {f"jepsen_tpu_torch/{m}.py"
+            for m in ("client", "control/__init__", "control/net",
+                      "control/util", "os_setup", "db", "net",
+                      "generator/__init__", "generator/interpreter",
+                      "nemesis/__init__", "workloads/__init__",
+                      "workloads/append", "workloads/wr",
+                      "workloads/register", "workloads/bank",
+                      "workloads/long_fork", "core")} <= names
+
+
+def test_harness_runs_a_test_without_torch(tmp_path):
+    """The test runner's host side — control, generator, interpreter,
+    nemesis, net, db, os, core.run and the CLI's `test` — imports
+    neither torch nor jax nor jepsen_tpu: a test whose checker needs
+    no device runs without torch in the process."""
+    code = f"""
+import sys
+for name in ("torch",) + {FORBIDDEN!r}:
+    sys.modules[name] = None          # any import of them now fails
+sys.path.insert(0, {str(REPO)!r})
+from jepsen_tpu_torch import cli, core, generator as gen, nemesis, net
+from jepsen_tpu_torch.workloads import bank
+wl = bank.test(accounts=[0, 1], total=0)
+rc = cli.run_cli(lambda t, a: {{**t, "name": "iso", "net": net.noop(),
+                                "nemesis": nemesis.partition_halves(),
+                                "generator": gen.limit(20, wl["generator"]),
+                                "checker": wl["checker"]}},
+                 argv=["test", "--dummy", "--store", {str(tmp_path)!r}])
+assert rc == 0, rc
+assert "torch" not in [m.split(".")[0] for m in sys.modules
+                       if sys.modules[m] is not None]
+print("ok")
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.split()[-1] == "ok"
 
 
 def test_serve_modules_import_no_torch():
