@@ -288,6 +288,29 @@ failure:
               test's generator.run and analyze spans (its trace.json)
               are printed beside its launches and device time; no
               interpreter worker thread outlives its test.
+ 20. suites   the `tidb` and `cockroach` suites, each through its
+              `run_cli` with the argv a user gives its main (`test
+              --dummy --faults ...`, no --device: the card), against the
+              in-process fake SQL servers of tests/fake_sql.py (loaded by
+              path; it imports the standard library alone) over the
+              port's wire drivers, with the combined fault bundle: (a)
+              tidb append (BASELINE config #4's suite) under --faults
+              partition,kill,pause,clock for 8 s, a fault a second, at
+              concurrency 10: valid, closure_square launched, the
+              history's nemesis ops of all four families, the dummy
+              remote's iptables commands, its kill -KILL/-STOP/-CONT
+              through grepkill, one bump-time (strobe-time) command a
+              bumped (strobed) node and the uploads of the port's helper
+              sources; (b) cockroach register (config #3's suite) under
+              --faults partition,clock: valid, knossos_dense_scan
+              launched; (c) cockroach `test-all` over its seven
+              workloads, 3 s each: a line each and the worst exit code.
+              Every stored run re-checked by `analyze --backend cpu`
+              (the host oracles) gives the same verdict (per key for
+              register). Each test's generator.run and analyze spans,
+              launches and device time printed; no interpreter worker
+              and no server thread outlives the phase; it takes under
+              90 s.
 
 The sweeps run in this process (phases 4-12) ingest through the same
 pool. Spawn re-imports this script in each worker, so it imports torch
@@ -309,8 +332,9 @@ phase 14's (`analyze-append`, `analyze-wr`, `analyze-register`,
 16's (`serve-append`, `serve-wr`: the in-process daemon's folds), and
 phase 18's (`mesh-shard0`, `mesh-shard1`, `mesh-lost-shard0`,
 `mesh-resume-shard1`, `mesh-fresh-shard0`, `mesh-fresh-shard1`: each
-counted in its shard's own process), and phase 19's (`test-append`,
-`test-append-broken`, `test-register`, `test-all`).
+counted in its shard's own process), phase 19's (`test-append`,
+`test-append-broken`, `test-register`, `test-all`) and phase 20's
+(`suite-tidb-append`, `suite-cockroach-register`, `suite-test-all`).
 
 The last lines are a `{"kernels": [...]}` record per kernel (with its
 launches and summed device milliseconds per path), the nvidia-smi line,
@@ -3856,6 +3880,19 @@ def harness_clients():
     return list_client, register_client
 
 
+def workers_ended(what: str) -> None:
+    """Fails if an interpreter worker thread outlived its test."""
+    import threading
+    left = [t.name for t in threading.enumerate()
+            if t.name.startswith("jepsen-worker-")]
+    check(not left, f"{what}: interpreter workers left: {left}")
+
+
+def per_key(res: dict) -> dict:
+    """{key: valid?} of an independent checker's results."""
+    return {str(k): r["valid?"] for k, r in res["results"].items()}
+
+
 def span_secs(run: Path) -> dict:
     """Seconds of the run's "generator.run" and "analyze" trace spans
     (its trace.json)."""
@@ -3874,7 +3911,6 @@ def phase_test(smi: str) -> dict:
     main calls it: the generator, the interpreter's worker threads, the
     dummy remote, the nemesis, the store, then the checker on the card.
     Returns per kernel, per path (launches, device ms)."""
-    import threading
     from jepsen_tpu_torch import cli, generator as gen, net
     from jepsen_tpu_torch.checker.elle import closure_square as cs
     from jepsen_tpu_torch.workloads import append, register
@@ -3924,11 +3960,6 @@ def phase_test(smi: str) -> dict:
         torch.cuda.synchronize()
         raw = (copy / "results.json").read_bytes()
         return {"rc": rc, "raw": raw, "res": json.loads(raw)}
-
-    def workers_ended(what: str) -> None:
-        left = [t.name for t in threading.enumerate()
-                if t.name.startswith("jepsen-worker-")]
-        check(not left, f"{what}: interpreter workers left: {left}")
 
     # (a) config #2: one list-append history of 10,000 txns
     log: list = []
@@ -4005,8 +4036,6 @@ def phase_test(smi: str) -> dict:
         lines[0], "c-host", register.checker(), argv=["--backend", "cpu"])))
     check(relaunched == 0, "the CPU WGL re-check launched")
 
-    def per_key(res):
-        return {str(k): r["valid?"] for k, r in res["results"].items()}
     check(per_key(res_c) == per_key(wgl["res"]) and len(per_key(res_c))
           == 10, f"test-register: per-key verdicts {per_key(res_c)} vs "
           f"the CPU WGL's {per_key(wgl['res'])}")
@@ -4041,6 +4070,271 @@ def phase_test(smi: str) -> dict:
         f"closure_square launches ({ms} ms) and {n_d} knossos_dense_scan "
         f"launches ({ms_d} ms) of device time ({smi})")
     say(f"phase 19 in {time.perf_counter() - t_phase:.1f}s")
+    return {"closure_square": cs_paths, "knossos_dense_scan": dense_paths}
+
+
+#: Phase 20: the suites against tests/fake_sql.py's in-process servers,
+#: through each suite's `run_cli` as its main calls it: (a) tidb append
+#: (BASELINE config #4's suite and workload) under every fault family,
+#: (b) cockroach register (config #3's suite) under partitions and clock
+#: faults, (c) cockroach `test-all` over its seven workloads. Time limits
+#: (s), the nemesis interval (s: the suites' default is 10, which a short
+#: run never reaches) and the concurrency.
+SUITE_LIMIT, SUITE_ALL_LIMIT, SUITE_INTERVAL, SUITE_CONC = 8, 3, 1, 10
+SUITE_A_FAULTS, SUITE_B_FAULTS = "partition,kill,pause,clock", \
+    "partition,clock"
+#: The nemesis ops of each fault family (nemesis.combined's packages).
+FAMILY_FS = {"partition": ("start-partition", "stop-partition"),
+             "kill": ("start-kill", "stop-kill"),
+             "pause": ("start-pause", "stop-pause"),
+             "clock": ("bump", "strobe", "reset")}
+
+
+def load_fake_sql():
+    """`tests/fake_sql.py` (standard library only), loaded by its path;
+    fails if loading it imported anything of the JAX package."""
+    import importlib.util
+    before = set(sys.modules)
+    spec = importlib.util.spec_from_file_location(
+        "fake_sql", ROOT / "tests" / "fake_sql.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    new = sorted(m for m in set(sys.modules) - before
+                 if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
+    check(not new, f"loading tests/fake_sql.py imported {new}")
+    return mod
+
+
+def phase_suites(smi: str) -> dict:
+    """Phase 20: the `cockroach` and `tidb` suites, each driven through
+    its `run_cli` with the argv a user gives its main (`test --dummy
+    --faults ...`), against the fake SQL servers, with the nemesis: the
+    suite layer, the combined fault bundle, the SQL wire drivers, then
+    the checkers on the card. The test_fn adds the fakes' hosts, the
+    time limit and the nemesis interval; the built map then loses db
+    and os (the fakes have no daemons; the fault package still holds the
+    suite's DB), gets the iptables net (with --dummy the default net
+    records no command) and a DummyRemote (what --dummy makes) this
+    phase reads. Returns per kernel, per path (launches, device ms)."""
+    import threading
+    from jepsen_tpu_torch import cli, control, net
+    from jepsen_tpu_torch.suites import cockroach, resolve_workload, tidb
+
+    t_phase = time.perf_counter()
+    fake_sql = load_fake_sql()
+    base = WORK / "suites"
+    dev_args = [] if DEVICE == "cuda" else ["--device", DEVICE]
+    native = (ROOT / "jepsen_tpu_torch" / "native").resolve()
+    threads_before = set(threading.enumerate())
+    cs_paths, dense_paths = {}, {}
+
+    def run(suite, srv, argv: list, limit: float) -> tuple:
+        """The suite's main's run_cli call; returns (exit code, JSON
+        lines, the dummy remote)."""
+        mod = cockroach if suite == "cockroach" else tidb
+        make = cockroach.cockroach_test if suite == "cockroach" \
+            else tidb.tidb_test
+        default = "register" if suite == "cockroach" else "append"
+        remote = control.DummyRemote()
+        extra = {"db-hosts": {n: ("127.0.0.1", srv.port) for n in
+                              ("n1", "n2", "n3", "n4", "n5")},
+                 "time-limit": limit, "nemesis-interval": SUITE_INTERVAL}
+
+        def on_the_fakes(t):
+            t.pop("db", None)
+            t.pop("os", None)
+            t["net"] = net.iptables()
+            t["remote"] = remote
+            return t
+
+        def test_fn(tmap, args):
+            return on_the_fakes(make({**tmap, **extra, "workload":
+                                      resolve_workload(args, tmap,
+                                                       default)}))
+
+        def tests_fn(tmap, args):
+            return [on_the_fakes(make({**tmap, **extra, "workload": w}))
+                    for w in sorted(mod.workloads())]
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.run_cli(
+                test_fn, name=suite, tests_fn=tests_fn,
+                opt_fn=lambda p: p.add_argument(
+                    "--workload", default=None,
+                    choices=sorted(mod.workloads())),
+                argv=[*argv, "--dummy", *dev_args, "--concurrency",
+                      str(SUITE_CONC)])
+        torch.cuda.synchronize()
+        return rc, [json.loads(ln) for ln in buf.getvalue().splitlines()
+                    if ln.startswith("{")], remote
+
+    def recheck(run: Path, suite: str, workload: str) -> dict:
+        """`analyze --backend cpu` (the host oracles) of a copy of a
+        stored run with the suite's checker for its workload."""
+        mod = cockroach if suite == "cockroach" else tidb
+        store = base / "host"
+        copy = store / run.parent.name / run.name
+        shutil.copytree(run, copy)
+        check_ = mod.workloads({})[workload]()["checker"]
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.run_cli(lambda t, a: {**t, "checker": check_},
+                             argv=["analyze", str(copy), "--store",
+                                   str(store), "--backend", "cpu"])
+        return {"rc": rc,
+                "res": json.loads((copy / "results.json").read_text())}
+
+    def nemesis_fs(run: Path) -> dict:
+        out: dict = {}
+        for ln in (run / "history.jsonl").read_text().splitlines():
+            o = json.loads(ln)
+            if o["process"] == "nemesis" and o["type"] == "info":
+                out[o["f"]] = out.get(o["f"], 0) + 1
+        return out
+
+    # (a) tidb append under every fault family
+    srv = fake_sql.FakeMySQLServer()
+    try:
+        (rc, lines, remote), n, ms = counted(lambda: run(
+            "tidb", srv, ["test", "--faults", SUITE_A_FAULTS, "--store",
+                          str(base / "a")], SUITE_LIMIT))
+    finally:
+        srv.close()
+    workers_ended("suite-tidb-append")
+    check(rc == 0 and len(lines) == 1 and lines[0]["valid?"] is True,
+          f"suite-tidb-append: rc {rc}, {lines}")
+    run_a = Path(lines[0]["dir"])
+    fs = nemesis_fs(run_a)
+    for family, ops in FAMILY_FS.items():
+        seen = [f for f in ops if fs.get(f)]
+        want = ops if family != "clock" else ()
+        check(seen and set(want) <= set(seen),
+              f"suite-tidb-append: the {family} family's ops {ops} are "
+              f"not all in the history's nemesis ops {fs}")
+    check(fs.get("bump", 0) + fs.get("strobe", 0) > 0,
+          f"suite-tidb-append: no bump or strobe in {fs}")
+    cmds = [p for _n, k, p in remote.actions if k == "execute"]
+    hist = [json.loads(ln) for ln in
+            (run_a / "history.jsonl").read_text().splitlines()]
+    clock_targets = {f: sum(len(o["value"][1]) for o in hist
+                            if o["process"] == "nemesis"
+                            and o["type"] == "info" and o["f"] == f
+                            and isinstance(o.get("value"), list))
+                     for f in ("bump", "strobe")}
+    # (the helpers' build lines name their binaries too: not counted)
+    n_cmd = {k: sum(k in c and "g++" not in c for c in cmds)
+             for k in ("iptables -A INPUT", "/opt/jepsen/bump-time",
+                       "/opt/jepsen/strobe-time", "grep /opt/tidb/bin",
+                       "kill -KILL", "kill -STOP", "kill -CONT")}
+    check(n_cmd["iptables -A INPUT"] > 0 and n_cmd["kill -KILL"] > 0
+          and n_cmd["kill -STOP"] > 0 and n_cmd["kill -CONT"] > 0
+          and n_cmd["grep /opt/tidb/bin"] == n_cmd["kill -KILL"]
+          + n_cmd["kill -STOP"] + n_cmd["kill -CONT"],
+          f"suite-tidb-append: the remote's commands {n_cmd}")
+    check(n_cmd["/opt/jepsen/bump-time"] == clock_targets["bump"]
+          and n_cmd["/opt/jepsen/strobe-time"] == clock_targets["strobe"],
+          f"suite-tidb-append: clock commands {n_cmd} for the history's "
+          f"targets {clock_targets}")
+    ups = [p[0] for _n, k, p in remote.actions if k == "upload"]
+    check(ups and all(Path(u).resolve().parent == native
+                      and Path(u).name in ("bump_time.cc", "strobe_time.cc")
+                      for u in ups),
+          f"suite-tidb-append: uploads {sorted(set(ups))}")
+    check(n > 1, f"suite-tidb-append: {n} closure_square launches")
+    host = recheck(run_a, "tidb", "append")
+    res_a = json.loads((run_a / "results.json").read_text())
+    check((host["res"]["valid?"], host["res"].get("anomaly-types"))
+          == (res_a["valid?"], res_a.get("anomaly-types"))
+          and host["rc"] == rc,
+          f"suite-tidb-append: the host oracle says {host}")
+    secs = span_secs(run_a)
+    cs_paths["suite-tidb-append"] = (n, ms)
+    say(f"suite-tidb-append (tidb append, --faults {SUITE_A_FAULTS}, "
+        f"{SUITE_LIMIT}s, interval {SUITE_INTERVAL}s, concurrency "
+        f"{SUITE_CONC}, FakeMySQLServer): valid as the host oracle's, "
+        f"txn-count {res_a.get('txn-count')}; nemesis ops {fs}; remote "
+        f"{n_cmd}, {len(ups)} helper uploads; generator.run "
+        f"{secs['generator.run']:.3f}s, analyze {secs['analyze']:.3f}s; "
+        f"{n} closure_square launches taking {ms} ms of device time "
+        f"({smi})")
+
+    # (b) cockroach register under partitions and clock faults
+    srv = fake_sql.FakePGServer()
+    try:
+        (rc, lines, remote), n, ms = counted_dense(lambda: run(
+            "cockroach", srv, ["test", "--faults", SUITE_B_FAULTS,
+                               "--store", str(base / "b")], SUITE_LIMIT))
+    finally:
+        srv.close()
+    workers_ended("suite-cockroach-register")
+    check(rc == 0 and len(lines) == 1 and lines[0]["valid?"] is True,
+          f"suite-cockroach-register: rc {rc}, {lines}")
+    run_b = Path(lines[0]["dir"])
+    fs_b = nemesis_fs(run_b)
+    check(fs_b.get("start-partition") and set(fs_b) <= {
+        *FAMILY_FS["partition"], *FAMILY_FS["clock"]},
+        f"suite-cockroach-register: nemesis ops {fs_b}")
+    check(n > 0, "suite-cockroach-register launched no knossos_dense_scan")
+    host = recheck(run_b, "cockroach", "register")
+    res_b = json.loads((run_b / "results.json").read_text())
+
+    check(per_key(res_b) == per_key(host["res"]) and per_key(res_b),
+          f"suite-cockroach-register: per-key verdicts {per_key(res_b)} "
+          f"vs the CPU WGL's {per_key(host['res'])}")
+    secs_b = span_secs(run_b)
+    dense_paths["suite-cockroach-register"] = (n, ms)
+    say(f"suite-cockroach-register (cockroach register, --faults "
+        f"{SUITE_B_FAULTS}, FakePGServer): valid, {len(per_key(res_b))} "
+        f"keys each as the CPU WGL's; nemesis ops {fs_b}; generator.run "
+        f"{secs_b['generator.run']:.3f}s, analyze "
+        f"{secs_b['analyze']:.3f}s; {n} knossos_dense_scan launches "
+        f"taking {ms} ms of device time ({smi})")
+
+    # (c) cockroach test-all over its seven workloads
+    srv = fake_sql.FakePGServer()
+    try:
+        ((rc, lines, _), n_d, ms_d), n, ms = counted(lambda: counted_dense(
+            lambda: run("cockroach", srv, ["test-all", "--store",
+                                           str(base / "c")],
+                        SUITE_ALL_LIMIT)))
+    finally:
+        srv.close()
+    workers_ended("suite-test-all")
+    names = sorted(cockroach.workloads())
+    check([ln.get("name") for ln in lines] == [f"cockroach {w}"
+                                               for w in names],
+          f"suite-test-all: lines {lines}")
+    codes, spans = [], {}
+    for w, ln in zip(names, lines):
+        run_c = Path(ln["dir"])
+        res = json.loads((run_c / "results.json").read_text())
+        host = recheck(run_c, "cockroach", w)
+        host_res = host["res"].get("bank", host["res"]) if w == "bank" \
+            else host["res"]
+        check(res["valid?"] == host_res["valid?"] == ln["valid?"],
+              f"suite-test-all {w}: {res['valid?']} on the card, "
+              f"{host_res['valid?']} from the host oracle")
+        codes.append(cli.validity_exit_code(res))
+        spans[w] = span_secs(run_c)
+    check(rc == max(codes), f"suite-test-all: rc {rc}, codes {codes}")
+    check(n_d > 0, "suite-test-all launched no knossos_dense_scan")
+    dense_paths["suite-test-all"] = (n_d, ms_d)
+    say(f"suite-test-all (cockroach test-all, {SUITE_ALL_LIMIT}s each): "
+        f"exit {rc}, verdicts "
+        f"{ {w: ln['valid?'] for w, ln in zip(names, lines)} } as the host "
+        f"oracles'; generator.run/analyze s "
+        f"{ {w: (round(s['generator.run'], 3), round(s['analyze'], 3)) for w, s in spans.items()} }; "
+        f"{n_d} knossos_dense_scan launches ({ms_d} ms) and {n} "
+        f"closure_square launches ({ms} ms) of device time ({smi})")
+
+    deadline = time.monotonic() + 10
+    while set(threading.enumerate()) - threads_before:
+        check(time.monotonic() < deadline, "phase 20: threads left: "
+              f"{[t.name for t in set(threading.enumerate()) - threads_before]}")
+        time.sleep(0.05)
+    took = time.perf_counter() - t_phase
+    check(took < 90, f"phase 20 took {took:.1f}s")
+    say(f"phase 20 in {took:.1f}s")
     return {"closure_square": cs_paths, "knossos_dense_scan": dense_paths}
 
 
@@ -4120,6 +4414,9 @@ def main() -> int:
         tested = phase_test(smi)
         paths.update(tested["closure_square"])
         dense_paths.update(tested["knossos_dense_scan"])
+        suites = phase_suites(smi)
+        paths.update(suites["closure_square"])
+        dense_paths.update(suites["knossos_dense_scan"])
         for rec, ps in ((record, paths), (dense_record, dense_paths)):
             rec["launches"] = sum(n for n, _ in ps.values())
             rec["paths"] = {k: {"launches": n, "device_ms": ms}

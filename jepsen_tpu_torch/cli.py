@@ -2,7 +2,8 @@
 
     python -m jepsen_tpu_torch.cli test|test-all [--dummy] [--store DIR] \\
         [--concurrency N|Nn] [--test-count N] [--node HOST ...] \\
-        [--backend auto|tpu|cpu|race] [--[no-]trace] [--[no-]jax-profile]
+        [--faults F,...] [--backend auto|tpu|cpu|race] [--[no-]trace] \\
+        [--[no-]jax-profile] [--device cuda|cpu]
     python -m jepsen_tpu_torch.cli analyze [RUN_DIR] [--store DIR] \\
         [--backend auto|tpu|cpu|race] [--[no-]trace] [--[no-]jax-profile]
     python -m jepsen_tpu_torch.cli analyze-store --store DIR \\
@@ -31,7 +32,11 @@ run dir, printing one JSON line. `python -m jepsen_tpu_torch.cli` is
 `run_cli` with the base test map as it is: `test` runs the noop test
 (no generator, `unbridled_optimism`), `analyze` a stored test map (no
 checker: `valid? true`). A test map's checker built without a device
-runs on the card: without one, `test` exits 255.
+runs on the card: without one, `test` exits 255. `--device` (test and
+test-all) puts `device` into the base test map, which a suite's
+checkers that reach a kernel run on (`suites.standard_workloads`), and
+`--faults` puts `faults`, which a suite's `suite_test` builds the
+combined nemesis bundle from (`nemesis.combined.nemesis_package`).
 
 `--backend` exports `JEPSEN_TPU_BACKEND` for the call (restored when
 `run_cli` returns), which every `auto` checker reads
@@ -1004,6 +1009,15 @@ def add_test_opts(p: argparse.ArgumentParser) -> None:
     add_trace_opts(p)
 
 
+def add_device_opt(p: argparse.ArgumentParser) -> None:
+    """`--device` of `test` and `test-all`: where a suite's checkers
+    that reach a kernel run. `test_map_from_args` writes it into the
+    test map only when given; without it they run on cuda."""
+    p.add_argument("--device", default=None, choices=["cuda", "cpu"],
+                   help="where the checkers' kernels run (default cuda; "
+                        "cpu only when asked)")
+
+
 def _trace_path_of(test: dict) -> str | None:
     """The run's written trace.json path (None when tracing is off)."""
     try:
@@ -1043,6 +1057,8 @@ def test_map_from_args(args: argparse.Namespace) -> dict:
     }
     if nodes:
         t["nodes"] = nodes
+    if getattr(args, "device", None):
+        t["device"] = args.device
     return t
 
 
@@ -1086,6 +1102,7 @@ def run_cli(test_fn: Callable[[dict, argparse.Namespace], dict],
 
     p_test = sub.add_parser("test", help="run a test")
     add_test_opts(p_test)
+    add_device_opt(p_test)
     p_an = sub.add_parser("analyze",
                           help="re-run the checker on a stored history")
     p_an.add_argument("run_dir", nargs="?",
@@ -1095,6 +1112,7 @@ def run_cli(test_fn: Callable[[dict, argparse.Namespace], dict],
         "test-all",
         help="run a whole suite of tests (cli.clj:413-491's test-all)")
     add_test_opts(p_all)
+    add_device_opt(p_all)
     if opt_fn:
         for p in (p_test, p_an, p_all):
             opt_fn(p)

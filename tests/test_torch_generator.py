@@ -64,11 +64,13 @@ COMPLETIONS = {"perfect": lambda: perfect,
                "imperfect": make_imperfect}
 
 
-def simulate(gen, g, completion_fn, concurrency=2, max_steps=100_000):
+def simulate(gen, g, completion_fn, concurrency=2, max_steps=100_000,
+             test=None):
     """`tests/gen_sim.py`'s simulate over the generator module `gen`:
     run g to exhaustion against fixed-latency completions; returns the
-    history (invokes and completions interleaved by time)."""
-    test = {"concurrency": concurrency}
+    history (invokes and completions interleaved by time). `test` is
+    the test map the generator sees (its concurrency is set here)."""
+    test = {**(test or {}), "concurrency": concurrency}
     ctx = gen.Context.for_test(test)
     history: list = []
     inflight: list = []  # heap of (time, seq, completion-op)

@@ -87,6 +87,15 @@ print(" ".join(mods))
                       "workloads.append", "workloads.wr",
                       "workloads.register", "workloads.bank",
                       "workloads.long_fork")} <= mods
+    # the suite layer, its SQL wire drivers and the fault bundle
+    assert {f"jepsen_tpu_torch.{m}"
+            for m in ("suites", "suites.sql", "suites.cockroach",
+                      "suites.tidb", "drivers", "drivers.pgwire",
+                      "drivers.mysql_wire", "nemesis.clock",
+                      "nemesis.combined", "faketime", "faultfs",
+                      "workloads.set_workload", "workloads.monotonic",
+                      "workloads.causal_reverse", "workloads.adya",
+                      "workloads.comments")} <= mods
 
 
 @pytest.mark.parametrize("path", port_sources(),
@@ -294,6 +303,47 @@ from jepsen_tpu_torch.serve import client, daemon, fleet, protocol, scheduler
 from jepsen_tpu_torch import store
 assert store.shard_of("tA", 3) in (0, 1, 2)
 assert store.safe_tenant("../x") != "../x"
+print("ok")
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "ok"
+
+
+def test_suite_layer_modules_are_scanned():
+    """The AST scan above covers the suite layer, its drivers and the
+    fault bundle, and chip_smoke.py."""
+    names = {str(p.relative_to(REPO)) for p in port_sources()}
+    assert {f"jepsen_tpu_torch/{m}.py"
+            for m in ("suites/__init__", "suites/sql", "suites/cockroach",
+                      "suites/tidb", "drivers/__init__", "drivers/pgwire",
+                      "drivers/mysql_wire", "nemesis/clock",
+                      "nemesis/combined", "faketime", "faultfs",
+                      "workloads/set_workload", "workloads/monotonic",
+                      "workloads/causal_reverse", "workloads/adya",
+                      "workloads/comments")} | {"chip_smoke.py"} <= names
+
+
+def test_suite_layer_imports_no_torch():
+    """The suites, the SQL drivers, the nemeses, faketime and faultfs
+    import neither torch nor jax nor jepsen_tpu: a suite's test map, its
+    fault package and its clients are host code."""
+    code = f"""
+import sys
+for name in ("torch",) + {FORBIDDEN!r}:
+    sys.modules[name] = None          # any import of them now fails
+sys.path.insert(0, {str(REPO)!r})
+from jepsen_tpu_torch import faketime, faultfs, suites
+from jepsen_tpu_torch.drivers import mysql_wire, pgwire
+from jepsen_tpu_torch.nemesis import clock, combined
+from jepsen_tpu_torch.suites import cockroach, sql, tidb
+t = cockroach.cockroach_test({{"faults": ["partition", "kill", "pause",
+                                         "clock"], "workload": "bank"}})
+assert t["nemesis"].fs >= {{"start-kill", "bump"}}
+assert tidb.tidb_test({{"workload": "table"}})["client"].mode == "table"
+assert "torch" not in [m.split(".")[0] for m in sys.modules
+                       if sys.modules[m] is not None]
 print("ok")
 """
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
