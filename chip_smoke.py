@@ -138,7 +138,7 @@ failure:
               subprocess (`python -m jepsen_tpu_torch.tools.pool_smoke`,
               which, unlike this script, imports no torch in the
               workers spawn re-imports it in). /dev/shm's size first.
-              A store of 256 list-append runs at phase 4's width (every
+              A store of 128 list-append runs at phase 4's width (every
               8th with G1c): (a) every encoding the pool delivers equals
               the serial path's, array for array and in run order
               (the cache off, so both parse; phase 5's wr store too),
@@ -307,10 +307,37 @@ failure:
               workloads, 3 s each: a line each and the worst exit code.
               Every stored run re-checked by `analyze --backend cpu`
               (the host oracles) gives the same verdict (per key for
-              register). Each test's generator.run and analyze spans,
+              register); in (c) each entry as the host's and the plot
+              entries (bank's `plot`, sequential's `perf`) by the rule
+              of phase 21. Each test's generator.run and analyze spans,
               launches and device time printed; no interpreter worker
               and no server thread outlives the phase; it takes under
               90 s.
+ 21. baseline the suites of BASELINE.json's configs #1 and #5, each
+              through its own `main` with the argv a user gives it (its
+              `<db>_test` wrapped for the run), against the fake
+              servers of tests/ (fake_etcd, fake_sql, fake_cql,
+              fake_dgraph; loaded by path, standard library only): (a)
+              etcd at its published shape (10 threads a key, 300 ops a
+              key, values 0-4, stagger 1/30 s) at concurrency 30 for
+              10 s under --faults partition,kill,pause,clock: one
+              knossos_dense_scan launch a dense key, each key's verdict
+              the CPU WGL's, every family's ops in the history and its
+              commands on the dummy remote, the device time from a
+              one-thread re-check; (b) yugabyte YSQL `append` over
+              pgwire (closure_square) and YCQL `register` over the CQL
+              protocol (knossos_dense_scan), --nemesis partition, 5 s
+              each; (c) dgraph `register` (knossos_dense_scan) and
+              `bank` (host checkers alone), 5 s each. Each stored run
+              re-checked by `analyze --backend cpu`: each entry as the
+              host's (its verdicts, per key, where a kernel made it),
+              each plot entry valid with its PNGs where matplotlib is
+              installed and `unknown` with an error naming it where it
+              is not (the phase says which), the exit code the whole
+              verdict's. It takes under 75 s.
+
+Every phase prints its wall (phases 1-13 through `phase_wall`), and the
+script ends with all of them in one line.
 
 The sweeps run in this process (phases 4-12) ingest through the same
 pool. Spawn re-imports this script in each worker, so it imports torch
@@ -333,8 +360,10 @@ phase 14's (`analyze-append`, `analyze-wr`, `analyze-register`,
 phase 18's (`mesh-shard0`, `mesh-shard1`, `mesh-lost-shard0`,
 `mesh-resume-shard1`, `mesh-fresh-shard0`, `mesh-fresh-shard1`: each
 counted in its shard's own process), phase 19's (`test-append`,
-`test-append-broken`, `test-register`, `test-all`) and phase 20's
-(`suite-tidb-append`, `suite-cockroach-register`, `suite-test-all`).
+`test-append-broken`, `test-register`, `test-all`), phase 20's
+(`suite-tidb-append`, `suite-cockroach-register`, `suite-test-all`) and
+phase 21's (`suite-etcd-register`, `suite-ysql-append`,
+`suite-ycql-register`, `suite-dgraph-register`).
 
 The last lines are a `{"kernels": [...]}` record per kernel (with its
 launches and summed device milliseconds per path), the nvidia-smi line,
@@ -426,9 +455,10 @@ SMALL_RUNS = 8
 SMALL_LONG_T, SMALL_LONG_K, SMALL_LONG_GAP, SMALL_LONG_LIMIT = \
     3000, 16, 1003, 1000
 #: Phase 13: the pooled sweep's store (BASELINE config #4's 1k-history
-#: batch cut to 256: four chunks of 64, so ingest can overlap the
-#: device) at phase 4's width, and the kill nemesis's rate.
-POOL_RUNS = 256
+#: batch cut to 128, which keeps the whole smoke within its time: two
+#: chunks of 64, so ingest can overlap the device) at phase 4's width,
+#: and the kill nemesis's rate.
+POOL_RUNS = 128
 POOL_KILL = "kill:0.05"
 #: Phase 18's two shards and the coordinator's wait in its full fleet.
 MESH_SHARDS, MESH_WAIT_S = 2, 300
@@ -453,6 +483,23 @@ sys.argv[0] = "jepsen_tpu_torch.cli"
 runpy.run_module("jepsen_tpu_torch.cli", run_name="__main__",
                  alter_sys=True)
 """
+
+
+#: Each phase's wall clock (s), by phase number, in the order run.
+WALLS: dict = {}
+
+
+@contextlib.contextmanager
+def phase_wall(n: int, say_it: bool = True):
+    """Time phase n's block into WALLS; print it unless the phase prints
+    its own wall (phases 14-21)."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        WALLS[n] = round(time.perf_counter() - t0, 1)
+    if say_it:
+        say(f"phase {n} in {WALLS[n]:.1f}s")
 
 
 class SmokeFailure(RuntimeError):
@@ -4090,19 +4137,91 @@ FAMILY_FS = {"partition": ("start-partition", "stop-partition"),
              "clock": ("bump", "strobe", "reset")}
 
 
-def load_fake_sql():
-    """`tests/fake_sql.py` (standard library only), loaded by its path;
-    fails if loading it imported anything of the JAX package."""
+def load_fake(name: str):
+    """`tests/<name>.py` (standard library only), loaded by its path and
+    registered under its name (tests/fake_cql.py imports fake_sql by
+    name); fails if loading it imported anything of the JAX package."""
     import importlib.util
+    if name in sys.modules:
+        return sys.modules[name]
     before = set(sys.modules)
     spec = importlib.util.spec_from_file_location(
-        "fake_sql", ROOT / "tests" / "fake_sql.py")
+        name, ROOT / "tests" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    sys.modules[name] = mod
+    try:
+        spec.loader.exec_module(mod)
+    except BaseException:
+        del sys.modules[name]
+        raise
     new = sorted(m for m in set(sys.modules) - before
                  if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
-    check(not new, f"loading tests/fake_sql.py imported {new}")
+    check(not new, f"loading tests/{name}.py imported {new}")
     return mod
+
+
+#: The results entries that draw plots with matplotlib: `perf` (the
+#: latency and rate graphs) and bank's balance `plot`.
+PLOT_ENTRIES = {"perf": ("latency-raw.png", "latency-quantiles.png",
+                         "rate.png"),
+                "plot": ("bank.png",)}
+
+
+def has_matplotlib() -> bool:
+    import importlib.util
+    return importlib.util.find_spec("matplotlib") is not None
+
+
+def plots_as_expected(res: dict, run: Path, what: str) -> None:
+    """Each plot entry of a results map: `{"valid?": true}` with its PNGs
+    in the run dir where matplotlib is installed; where it is not,
+    `"unknown"` with an error naming it (the reference's `check_safe`
+    on a failed import), the whole verdict then at most unknown."""
+    for key, pngs in PLOT_ENTRIES.items():
+        if key not in res:
+            continue
+        entry = res[key]
+        if has_matplotlib():
+            check(entry.get("valid?") is True and all(
+                (run / f).is_file() for f in pngs),
+                f"{what}: the {key} entry {entry} or its files {pngs}")
+            continue
+        errors = [e.get("error") for e in [entry, *entry.values()]
+                  if isinstance(e, dict) and e.get("error")]
+        check(entry.get("valid?") == "unknown" and errors
+              and all("matplotlib" in e for e in errors)
+              and res["valid?"] in ("unknown", False),
+              f"{what}: without matplotlib the {key} entry is "
+              f"{str(entry)[:300]}, the verdict {res['valid?']}")
+
+
+def verdict_tree(x):
+    """The verdicts of a results map: every "valid?" and
+    "anomaly-types", by path (dicts without one dropped)."""
+    if not isinstance(x, dict):
+        return x
+    out = {}
+    for k, v in x.items():
+        if k in ("valid?", "anomaly-types"):
+            out[k] = v
+        elif isinstance(v, dict) and verdict_tree(v):
+            out[k] = verdict_tree(v)
+    return out
+
+
+def same_entries(res: dict, host: dict, what: str,
+                 device: bool = False) -> None:
+    """Each entry but the plots as the host oracle's: equal where a host
+    checker made it; where a kernel did (`device`), its verdicts (every
+    valid? and anomaly-types, per key too)."""
+    a = {k: v for k, v in res.items() if k not in PLOT_ENTRIES}
+    b = {k: v for k, v in host.items() if k not in PLOT_ENTRIES}
+    if device:
+        a, b = verdict_tree(a), verdict_tree(b)
+    a.pop("valid?", None)
+    b.pop("valid?", None)
+    check(a == b, f"{what}: the entries {str(a)[:400]} differ from the "
+                  f"host oracle's {str(b)[:400]}")
 
 
 def phase_suites(smi: str) -> dict:
@@ -4121,7 +4240,7 @@ def phase_suites(smi: str) -> dict:
     from jepsen_tpu_torch.suites import cockroach, resolve_workload, tidb
 
     t_phase = time.perf_counter()
-    fake_sql = load_fake_sql()
+    fake_sql = load_fake("fake_sql")
     base = WORK / "suites"
     dev_args = [] if DEVICE == "cuda" else ["--device", DEVICE]
     native = (ROOT / "jepsen_tpu_torch" / "native").resolve()
@@ -4309,11 +4428,16 @@ def phase_suites(smi: str) -> dict:
         run_c = Path(ln["dir"])
         res = json.loads((run_c / "results.json").read_text())
         host = recheck(run_c, "cockroach", w)
-        host_res = host["res"].get("bank", host["res"]) if w == "bank" \
-            else host["res"]
-        check(res["valid?"] == host_res["valid?"] == ln["valid?"],
+        # bank and sequential compose plots (bank's "plot", sequential's
+        # "perf"): each other entry as the host oracle's, each plot
+        # entry by the matplotlib rule, the whole verdict and exit code
+        # from all of them
+        same_entries(res, host["res"], f"suite-test-all {w}",
+                     device=w == "register")
+        plots_as_expected(res, run_c, f"suite-test-all {w}")
+        check(res["valid?"] == host["res"]["valid?"] == ln["valid?"],
               f"suite-test-all {w}: {res['valid?']} on the card, "
-              f"{host_res['valid?']} from the host oracle")
+              f"{host['res']['valid?']} from the host oracle")
         codes.append(cli.validity_exit_code(res))
         spans[w] = span_secs(run_c)
     check(rc == max(codes), f"suite-test-all: rc {rc}, codes {codes}")
@@ -4338,6 +4462,318 @@ def phase_suites(smi: str) -> dict:
     return {"closure_square": cs_paths, "knossos_dense_scan": dense_paths}
 
 
+#: Phase 21: the BASELINE suites. etcd (config #1's suite) at its
+#: published shape (10 threads a key, 300 ops a key, values 0-4,
+#: stagger 1/30 s) for about 10 s at a concurrency of three keys at
+#: once; the yugabyte and dgraph runs' time limit; the nemesis interval
+#: (s) and the concurrency of those runs.
+BASE_ETCD_LIMIT, BASE_ETCD_CONC = 10, 30
+BASE_LIMIT, BASE_INTERVAL, BASE_CONC = 5, 1, 10
+BASE_ETCD_FAULTS = "partition,kill,pause,clock"
+
+
+def phase_baseline(smi: str) -> dict:
+    """Phase 21: the suites of BASELINE.json's configs #1 and #5, each
+    through its own `main` with the argv a user gives it, against the
+    fake servers of tests/ (loaded by path), on the card: (a) etcd
+    `test --faults partition,kill,pause,clock` against tests/fake_etcd.py
+    (knossos_dense_scan, one launch a key); (b) yugabyte YSQL `append`
+    against FakePGServer (closure_square) and YCQL `register` against
+    FakeCQLServer (knossos_dense_scan), each `--nemesis partition`; (c)
+    dgraph `register` (knossos_dense_scan) and `bank` (host checkers
+    only) against FakeDgraphServer. The suite's `<db>_test` is wrapped
+    for the run to add the fakes' hosts, the time limit and the nemesis
+    interval, to drop db and os (the fakes have no daemons; a fault
+    package keeps the suite's DB) and to set the iptables net and a
+    DummyRemote. Every stored run re-checked by `analyze --backend cpu`
+    (the host oracles): each entry as the host's (per key for the
+    registers), the plot entries by the matplotlib rule, the exit code
+    the whole verdict's. Returns per kernel, per path (launches, device
+    ms)."""
+    import threading
+    from jepsen_tpu_torch import cli, control, net
+    from jepsen_tpu_torch.suites import dgraph, etcd, yugabyte
+
+    t_phase = time.perf_counter()
+    fakes = {n: load_fake(n) for n in ("fake_sql", "fake_cql",
+                                       "fake_dgraph", "fake_etcd")}
+    base = WORK / "baseline"
+    dev_args = [] if DEVICE == "cuda" else ["--device", DEVICE]
+    threads_before = set(threading.enumerate())
+    cs_paths, dense_paths = {}, {}
+    mpl = has_matplotlib()
+    say("phase 21: matplotlib is "
+        + ("installed: each plot entry must be valid with its PNGs"
+           if mpl else "not installed: each plot entry must be unknown "
+           "with an error naming matplotlib, as the reference's"))
+
+    def run(mod, make_name: str, extra: dict, argv: list) -> tuple:
+        """`mod.main(argv)` with `mod.<make_name>` wrapped for the fakes;
+        returns (exit code, JSON lines, the dummy remote)."""
+        remote = control.DummyRemote()
+        real = getattr(mod, make_name)
+
+        def make(opts=None):
+            t = real({**(opts or {}), **extra})
+            t.pop("db", None)
+            t.pop("os", None)
+            t["net"] = net.iptables()
+            t["remote"] = remote
+            return t
+
+        setattr(mod, make_name, make)
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = mod.main([*argv, "--dummy", *dev_args])
+        finally:
+            setattr(mod, make_name, real)
+        torch.cuda.synchronize()
+        return rc, [json.loads(ln) for ln in buf.getvalue().splitlines()
+                    if ln.startswith("{")], remote
+
+    def recheck(run_dir: Path, checker_, backend: str = "cpu") -> dict:
+        """`analyze` (`--backend cpu`: the host oracles) of a copy of a
+        stored run with the suite's checker."""
+        store = base / f"host-{backend}"
+        copy_ = store / run_dir.parent.name / run_dir.name
+        shutil.copytree(run_dir, copy_)
+        argv = ["analyze", str(copy_), "--store", str(store)]
+        if backend != "device":
+            argv += ["--backend", backend]
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.run_cli(lambda t, a: {**t, "checker": checker_},
+                             argv=argv)
+        return {"rc": rc, "dir": copy_,
+                "res": json.loads((copy_ / "results.json").read_text())}
+
+    def nemesis_fs(run_dir: Path) -> dict:
+        out: dict = {}
+        for ln in (run_dir / "history.jsonl").read_text().splitlines():
+            o = json.loads(ln)
+            if o["process"] == "nemesis" and o["type"] == "info":
+                out[o["f"]] = out.get(o["f"], 0) + 1
+        return out
+
+    def verdict_of(what: str, rc: int, lines: list, host: dict,
+                   device: bool) -> tuple:
+        """The one stored run's results against the host oracle's."""
+        check(len(lines) == 1 and "dir" in lines[0],
+              f"{what}: rc {rc}, lines {lines}")
+        run_dir = Path(lines[0]["dir"])
+        res = json.loads((run_dir / "results.json").read_text())
+        same_entries(res, host["res"], what, device=device)
+        plots_as_expected(res, run_dir, what)
+        plots_as_expected(host["res"], host["dir"], f"{what} (host)")
+        valid = res["valid?"]
+        check(valid == host["res"]["valid?"] == lines[0]["valid?"]
+              and rc == cli.validity_exit_code(res) == host["rc"],
+              f"{what}: verdict {valid} (exit {rc}) on the card, "
+              f"{host['res']['valid?']} (exit {host['rc']}) from the host")
+        # no fault reaches the fakes: every verdict but a plot's holds,
+        # and a plot's is unknown only without matplotlib
+        inner = [v.get("valid?") for k, v in res.items()
+                 if isinstance(v, dict) and "valid?" in v
+                 and k not in PLOT_ENTRIES]
+        want = "unknown" if not mpl and set(res) & set(PLOT_ENTRIES) \
+            else True
+        check(all(v is True for v in inner) and valid == want,
+              f"{what}: verdicts {inner}, whole {valid}, want {want}")
+        return run_dir, res
+
+    # (a) etcd under all four fault families
+    srv = fakes["fake_etcd"].FakeEtcdServer()
+    real_url = etcd.client_url
+    etcd.client_url = lambda node: srv.url()
+    try:
+        (rc, lines, remote), n, ms_run = counted_dense(lambda: run(
+            etcd, "etcd_test",
+            {"time-limit": BASE_ETCD_LIMIT,
+             "nemesis-interval": BASE_INTERVAL},
+            ["test", "--faults", BASE_ETCD_FAULTS, "--store",
+             str(base / "etcd"), "--concurrency", str(BASE_ETCD_CONC)]))
+    finally:
+        etcd.client_url = real_url
+        srv.close()
+    workers_ended("suite-etcd-register")
+    check(len(lines) == 1, f"suite-etcd-register: rc {rc}, {lines}")
+    run_e = Path(lines[0]["dir"])
+    host = recheck(run_e, etcd.etcd_test({})["checker"])
+    run_e, res_e = verdict_of("suite-etcd-register", rc, lines, host,
+                              device=True)
+    keys = per_key(res_e["indep"])
+    check(keys and keys == per_key(host["res"]["indep"])
+          and all(v is True for v in keys.values()),
+          f"suite-etcd-register: per-key verdicts {keys} vs the CPU "
+          f"WGL's {per_key(host['res']['indep'])}")
+    tiers_e: dict = {}
+    for r in res_e["indep"]["results"].values():
+        a = r["linear"].get("analyzer")
+        tiers_e[a] = tiers_e.get(a, 0) + 1
+    check(0 < n == tiers_e.get("tpu-dense", 0),
+          f"suite-etcd-register: {n} knossos_dense_scan launches for "
+          f"{len(keys)} keys of tiers {tiers_e} (one a dense key)")
+    hist = [json.loads(ln) for ln in
+            (run_e / "history.jsonl").read_text().splitlines()]
+    ops_a_key: dict = {}
+    for o in hist:
+        if isinstance(o["process"], int) and o["type"] == "invoke":
+            k = o["value"][0]
+            ops_a_key[k] = ops_a_key.get(k, 0) + 1
+    check(ops_a_key and max(ops_a_key.values()) <= 300
+          and {o["f"] for o in hist if isinstance(o["process"], int)}
+          <= {"read", "write", "cas"},
+          f"suite-etcd-register: ops a key {ops_a_key}")
+    fs = nemesis_fs(run_e)
+    for family, ops in FAMILY_FS.items():
+        check(any(fs.get(f) for f in ops),
+              f"suite-etcd-register: no op of the {family} family in {fs}")
+    cmds = [p for _n, k, p in remote.actions if k == "execute"]
+    n_cmd = {k: sum(k in c and "g++" not in c for c in cmds)
+             for k in ("iptables -A INPUT", "kill -KILL", "kill -STOP",
+                       "kill -CONT", "/opt/jepsen/bump-time",
+                       "/opt/jepsen/strobe-time")}
+    check(n_cmd["iptables -A INPUT"] > 0 and n_cmd["kill -KILL"] > 0
+          and n_cmd["kill -STOP"] > 0 and n_cmd["kill -CONT"] > 0
+          and n_cmd["/opt/jepsen/bump-time"]
+          + n_cmd["/opt/jepsen/strobe-time"] > 0,
+          f"suite-etcd-register: the remote's commands {n_cmd}")
+    # the device time from a second pass on one thread: the fan-out's
+    # threads launch at once and each event pair also brackets a GIL
+    # wait (phase 14)
+    with one_thread():
+        again, n_1, ms = counted_dense(lambda: recheck(
+            run_e, etcd.etcd_test({"device": DEVICE})["checker"],
+            backend="device"))
+    check(n_1 == n and again["res"]["indep"] == res_e["indep"],
+          f"suite-etcd-register: the one-thread re-check launched {n_1} "
+          "times or differs from the run's per-key results")
+    secs = span_secs(run_e)
+    dense_paths["suite-etcd-register"] = (n, ms)
+    say(f"suite-etcd-register (etcd, --faults {BASE_ETCD_FAULTS}, "
+        f"{BASE_ETCD_LIMIT}s, interval {BASE_INTERVAL}s, concurrency "
+        f"{BASE_ETCD_CONC}: 10 threads a key, fake etcd): exit {rc}, "
+        f"{res_e['valid?']}; {len(keys)} keys each valid as the CPU "
+        f"WGL's, tiers {tiers_e}, ops a key "
+        f"{sorted(ops_a_key.values())}; nemesis ops "
+        f"{fs}; remote {n_cmd}; generator.run "
+        f"{secs['generator.run']:.3f}s, analyze {secs['analyze']:.3f}s; "
+        f"{n} knossos_dense_scan launches, {ms} ms of device time on one "
+        f"thread ({ms_run} ms of event pairs in the run's fan-out) "
+        f"({smi})")
+
+    # (b) yugabyte: YSQL append and YCQL register, --nemesis partition
+    def yuga(api: str, workload: str, fake, counter) -> tuple:
+        srv_ = fake()
+        try:
+            got = counter(lambda: run(
+                yugabyte, "yugabyte_test",
+                {"db-hosts": {n: ("127.0.0.1", srv_.port) for n in
+                              ("n1", "n2", "n3", "n4", "n5")},
+                 "time-limit": BASE_LIMIT,
+                 "nemesis-interval": BASE_INTERVAL},
+                ["test", "--api", api, "--workload", workload,
+                 "--nemesis", "partition", "--store",
+                 str(base / f"{api}-{workload}"), "--concurrency",
+                 str(BASE_CONC)]))
+        finally:
+            srv_.close()
+        return got
+
+    for api, workload, fake, counter, paths in (
+            ("ysql", "append", fakes["fake_sql"].FakePGServer, counted,
+             cs_paths),
+            ("ycql", "register", fakes["fake_cql"].FakeCQLServer,
+             counted_dense, dense_paths)):
+        what = f"suite-{api}-{workload}"
+        (rc, lines, remote), n, ms = yuga(api, workload, fake, counter)
+        workers_ended(what)
+        check(len(lines) == 1, f"{what}: rc {rc}, {lines}")
+        host = recheck(Path(lines[0]["dir"]), yugabyte.workloads(
+            {}, api)[workload]()["checker"])
+        run_y, res_y = verdict_of(what, rc, lines, host, device=True)
+        if workload == "register":
+            check(per_key(res_y) == per_key(host["res"]) and per_key(res_y),
+                  f"{what}: per-key verdicts {per_key(res_y)} vs the CPU "
+                  f"WGL's {per_key(host['res'])}")
+        fs_y = nemesis_fs(run_y)
+        check(fs_y.get("start") and set(fs_y) <= {"start", "stop"} and any(
+            "iptables -A INPUT" in p for _n, k, p in remote.actions
+            if k == "execute"),
+            f"{what}: nemesis ops {fs_y} or no iptables command")
+        check(n > 0, f"{what}: no kernel launch")
+        secs = span_secs(run_y)
+        paths[what] = (n, ms)
+        size = (f"txn-count {res_y.get('txn-count')}"
+                if workload == "append"
+                else f"{len(per_key(res_y))} keys each as the CPU WGL's")
+        say(f"{what} (yugabyte {api.upper()} {workload}, --nemesis "
+            f"partition, {BASE_LIMIT}s, concurrency {BASE_CONC}, "
+            f"{fake.__name__}): exit {rc}, {res_y['valid?']} as the host "
+            f"oracle's; {size}; nemesis ops {fs_y}; generator.run "
+            f"{secs['generator.run']:.3f}s, analyze "
+            f"{secs['analyze']:.3f}s; {n} "
+            f"{'closure_square' if workload == 'append' else 'knossos_dense_scan'}"
+            f" launches taking {ms} ms of device time ({smi})")
+
+    # (c) dgraph register and bank
+    for workload in ("register", "bank"):
+        what = f"suite-dgraph-{workload}"
+        srv = fakes["fake_dgraph"].FakeDgraphServer()
+        try:
+            ((rc, lines, remote), n_d, ms_d), n_c, _ = counted(
+                lambda: counted_dense(lambda: run(
+                    dgraph, "dgraph_test",
+                    {"db-hosts": {n: ("127.0.0.1", srv.port) for n in
+                                  ("n1", "n2", "n3", "n4", "n5")},
+                     "time-limit": BASE_LIMIT,
+                     "nemesis-interval": BASE_INTERVAL},
+                    ["test", "--workload", workload, "--store",
+                     str(base / f"dgraph-{workload}"), "--concurrency",
+                     str(BASE_CONC)])))
+        finally:
+            srv.close()
+        workers_ended(what)
+        check(len(lines) == 1, f"{what}: rc {rc}, {lines}")
+        host = recheck(Path(lines[0]["dir"]),
+                       dgraph.workloads({})[workload]()["checker"])
+        run_d, res_d = verdict_of(what, rc, lines, host,
+                                  device=workload == "register")
+        check(n_c == 0, f"{what}: {n_c} closure_square launches")
+        if workload == "register":
+            check(per_key(res_d) == per_key(host["res"]) and per_key(res_d)
+                  and n_d > 0,
+                  f"{what}: per-key verdicts {per_key(res_d)} vs the CPU "
+                  f"WGL's {per_key(host['res'])}, {n_d} launches")
+            dense_paths[what] = (n_d, ms_d)
+            size = f"{len(per_key(res_d))} keys each as the CPU WGL's"
+        else:
+            check(n_d == 0 and res_d["bank"]["read-count"] > 0,
+                  f"{what}: {n_d} launches, {res_d['bank']}")
+            size = (f"{res_d['bank']['read-count']} reads, the balance "
+                    f"entry equal to the host's, plot "
+                    f"{res_d['plot']['valid?']}")
+        fs_d = nemesis_fs(run_d)
+        check(fs_d.get("start"), f"{what}: nemesis ops {fs_d}")
+        secs = span_secs(run_d)
+        say(f"{what} (dgraph {workload}, {BASE_LIMIT}s, concurrency "
+            f"{BASE_CONC}, FakeDgraphServer): exit {rc}, "
+            f"{res_d['valid?']} as the host oracle's; {size}; nemesis "
+            f"ops {fs_d}; generator.run {secs['generator.run']:.3f}s, "
+            f"analyze {secs['analyze']:.3f}s; {n_d} knossos_dense_scan "
+            f"launches taking {ms_d} ms of device time ({smi})")
+
+    deadline = time.monotonic() + 10
+    while set(threading.enumerate()) - threads_before:
+        check(time.monotonic() < deadline, "phase 21: threads left: "
+              f"{[t.name for t in set(threading.enumerate()) - threads_before]}")
+        time.sleep(0.05)
+    took = time.perf_counter() - t_phase
+    check(took < 75, f"phase 21 took {took:.1f}s")
+    say(f"phase 21 in {took:.1f}s")
+    return {"closure_square": cs_paths, "knossos_dense_scan": dense_paths}
+
+
 def main() -> int:
     global torch
     import torch
@@ -4353,70 +4789,94 @@ def main() -> int:
     from jepsen_tpu_torch import _build
 
     t_start = time.perf_counter()
-    smi = nvidia_smi()
-    name = torch.cuda.get_device_name(0)
-    say(f"device {name} ({smi}); torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+    with phase_wall(1):
+        smi = nvidia_smi()
+        name = torch.cuda.get_device_name(0)
+        say(f"device {name} ({smi}); torch {torch.__version__}, CUDA "
+            f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
-    t0 = time.perf_counter()
-    # the CUDA kernels, the CPU oracle (wgl) and the history encoder
-    libs = _build.build_all()
-    say(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f}s")
-    for lib in libs:
-        print(_build.build_log(lib).strip(), flush=True)
+    with phase_wall(2):
+        t0 = time.perf_counter()
+        # the CUDA kernels, the CPU oracle (wgl) and the history encoder
+        libs = _build.build_all()
+        say(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f}s")
+        for lib in libs:
+            print(_build.build_log(lib).strip(), flush=True)
 
     shutil.rmtree(WORK, ignore_errors=True)
     WORK.mkdir()
     try:
-        record = phase_kernels(name)
+        with phase_wall(3):
+            record = phase_kernels(name)
         paths = {}
         verdicts = {}
-        paths["append"] = phase_main()
-        verdicts["append"] = run_files(WORK / "store")
-        phase_cli()
-        paths["wr"] = phase_wr()
-        verdicts["wr"] = run_files(WORK / "wr")
-        paths["long"] = phase_long()
-        dense_record = phase_knossos(name)
-        dense_paths = phase_register(name)
-        store_paths = phase_store()
-        paths.update(store_paths["closure_square"])
-        paths.update(phase_supervisor(WORK / "mixed-pristine",
-                                      store_paths["append_full"]))
-        dense_paths.update(store_paths["knossos_dense_scan"])
-        tele = phase_telemetry(
-            {"append": paths["append"][0], "wr": paths["wr"][0],
-             "long": paths["long"][0],
-             "register": dense_paths["register"][0]}, dense_record)
+        with phase_wall(4):
+            paths["append"] = phase_main()
+            verdicts["append"] = run_files(WORK / "store")
+            phase_cli()
+        with phase_wall(5):
+            paths["wr"] = phase_wr()
+            verdicts["wr"] = run_files(WORK / "wr")
+        with phase_wall(6):
+            paths["long"] = phase_long()
+        with phase_wall(7):
+            dense_record = phase_knossos(name)
+        with phase_wall(8):
+            dense_paths = phase_register(name)
+        with phase_wall(9):
+            store_paths = phase_store()
+            paths.update(store_paths["closure_square"])
+            dense_paths.update(store_paths["knossos_dense_scan"])
+        with phase_wall(10):
+            paths.update(phase_supervisor(WORK / "mixed-pristine",
+                                          store_paths["append_full"]))
+        with phase_wall(11):
+            tele = phase_telemetry(
+                {"append": paths["append"][0], "wr": paths["wr"][0],
+                 "long": paths["long"][0],
+                 "register": dense_paths["register"][0]}, dense_record)
         for kind in ("append", "wr", "long", "register"):
             (dense_paths if kind == "register" else paths)[
                 f"stats-{kind}"] = (tele[kind]["launches"],
                                     tele[kind]["device_ms"])
-        paths.update(phase_native(
-            {"append": paths["append"][0], "wr": paths["wr"][0]},
-            verdicts)["paths"])
+        with phase_wall(12):
+            paths.update(phase_native(
+                {"append": paths["append"][0], "wr": paths["wr"][0]},
+                verdicts)["paths"])
         verdicts["register"] = run_files(WORK / "reg")
-        pool = phase_pool({"append": paths["append"][0],
-                           "wr": paths["wr"][0],
-                           "register": dense_paths["register"][0]},
-                          verdicts)
+        with phase_wall(13):
+            pool = phase_pool({"append": paths["append"][0],
+                               "wr": paths["wr"][0],
+                               "register": dense_paths["register"][0]},
+                              verdicts)
         paths.update(pool["closure_square"])
         dense_paths.update(pool["knossos_dense_scan"])
-        single = phase_analyze(smi)
+        with phase_wall(14, say_it=False):
+            single = phase_analyze(smi)
         paths.update(single["closure_square"])
         dense_paths.update(single["knossos_dense_scan"])
-        paths.update(phase_costdb(
-            {"append": paths["append"][0], "wr": paths["wr"][0]},
-            verdicts, name)["paths"])
-        paths.update(phase_serve(verdicts)["paths"])
-        phase_fleet(verdicts)
-        paths.update(phase_mesh(verdicts, name, smi)["paths"])
-        tested = phase_test(smi)
+        with phase_wall(15, say_it=False):
+            paths.update(phase_costdb(
+                {"append": paths["append"][0], "wr": paths["wr"][0]},
+                verdicts, name)["paths"])
+        with phase_wall(16, say_it=False):
+            paths.update(phase_serve(verdicts)["paths"])
+        with phase_wall(17, say_it=False):
+            phase_fleet(verdicts)
+        with phase_wall(18, say_it=False):
+            paths.update(phase_mesh(verdicts, name, smi)["paths"])
+        with phase_wall(19, say_it=False):
+            tested = phase_test(smi)
         paths.update(tested["closure_square"])
         dense_paths.update(tested["knossos_dense_scan"])
-        suites = phase_suites(smi)
+        with phase_wall(20, say_it=False):
+            suites = phase_suites(smi)
         paths.update(suites["closure_square"])
         dense_paths.update(suites["knossos_dense_scan"])
+        with phase_wall(21, say_it=False):
+            baseline = phase_baseline(smi)
+        paths.update(baseline["closure_square"])
+        dense_paths.update(baseline["knossos_dense_scan"])
         for rec, ps in ((record, paths), (dense_record, dense_paths)):
             rec["launches"] = sum(n for n, _ in ps.values())
             rec["paths"] = {k: {"launches": n, "device_ms": ms}
@@ -4432,6 +4892,7 @@ def main() -> int:
         check(time.monotonic() < deadline, "grandchildren left running: "
               f"{[p for p in GRANDCHILDREN if alive(p)]}")
         time.sleep(0.05)
+    say(f"phase walls (s): {json.dumps(WALLS)}")
     say(f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": [record, dense_record]}))
     print(nvidia_smi())

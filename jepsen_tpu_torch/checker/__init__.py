@@ -15,8 +15,11 @@ per-key checking in `independent`.
 One departure from the reference: `check_safe` (and so `compose`)
 re-raises what `supervisor.must_end_sweep` names — a kernel that cannot
 be built or launched, a missing device, a CUDA error — instead of
-writing it as an unknown verdict. The plot checkers (`perf`, `clock`)
-are not ported; `timeline_checker` is.
+writing it as an unknown verdict. The plot checkers (`latency_graph`,
+`rate_graph`, `perf_checker`, `clock_plot`) and `timeline_checker` live
+in submodules, as in the reference. The plots import matplotlib when
+they draw: without it their entries are `{"valid?": "unknown"}`, as
+the reference's are.
 """
 
 from __future__ import annotations
@@ -865,8 +868,38 @@ def linearizable(m: model.Model | None = None,
     return Linearizable(m, algorithm=algorithm, backend=backend, **kw)
 
 
+# ---------------------------------------------------------------------------
+# Plot/report checkers live in submodules (perf, clock, timeline) but are
+# part of the reference's jepsen.checker namespace (checker.clj:797-837) —
+# re-export the constructors here. Imported lazily to keep matplotlib off
+# the fast path.
+# ---------------------------------------------------------------------------
+
+def _submodule(name: str):
+    import importlib
+    return importlib.import_module(f"{__name__}.{name}")
+
+
+def latency_graph(nemeses=None) -> Checker:
+    return _submodule("perf").latency_graph(nemeses)
+
+
+def rate_graph(nemeses=None) -> Checker:
+    return _submodule("perf").rate_graph_checker(nemeses)
+
+
+def perf_checker(opts: dict | None = None) -> Checker:
+    """Composite latency+rate plots (checker.clj:822-829). Named
+    perf_checker because `checker.perf` is the helper submodule, as in the
+    reference's jepsen.checker.perf namespace."""
+    return _submodule("perf").perf(opts)
+
+
+def clock_plot() -> Checker:
+    return _submodule("clock").clock_plot()
+
+
 def timeline_checker() -> Checker:
     """Timeline HTML checker; the submodule `checker.timeline` mirrors
     jepsen.checker.timeline (whose constructor is `html`)."""
-    from . import timeline
-    return timeline.html()
+    return _submodule("timeline").html()

@@ -8,6 +8,7 @@ framework carries its own minimal clients:
     pgwire       PostgreSQL wire protocol v3 (cockroach, yugabyte YSQL)
     mysql_wire   MySQL client/server protocol (tidb)
     dgraph_http  Dgraph HTTP API (mutate/query/alter)
+    cql          CQL native protocol v4 (yugabyte YCQL)
 
 All are synchronous, one-socket, simple-query-protocol clients — exactly
 what a jepsen client worker needs: each worker owns one connection, and

@@ -39,7 +39,7 @@ SUITES = (
 
 
 #: The suites of SUITES the port has; the others are still to port.
-PORTED = ("cockroach", "tidb")
+PORTED = ("cockroach", "dgraph", "etcd", "tidb", "yugabyte")
 
 
 class SuiteNotPorted(NotImplementedError):

@@ -10,8 +10,7 @@ Ops:
     {"f": "transfer", "value": {"from","to","amount"}}
 
 The port's copy of `jepsen_tpu/workloads/bank.py`; it imports the
-standard library and the port's own modules only. The balance plot is
-not ported (see `test`).
+standard library and the port's own modules only.
 """
 
 from __future__ import annotations
@@ -63,6 +62,48 @@ class BankChecker(Checker):
                 "bad-read-count": len(bad_reads)}
 
 
+class BankPlot(Checker):
+    """Renders bank.png: every account's balance over time from the ok
+    reads, with nemesis shading — the reference's balance plot
+    (bank.clj:160-186, drawn through perf/plot!). Always valid; the
+    plot is the artifact."""
+
+    def __init__(self, nemeses=None):
+        self.nemeses = nemeses
+
+    def check(self, test, history, opts):
+        from ..checker import perf
+
+        path = perf.store_path(test, opts, "bank.png")
+        if path is None:
+            return {"valid?": True}
+        series: dict = {}
+        times: dict = {}
+        for op in history:
+            if op.get("type") != "ok" or op.get("f") != "read":
+                continue
+            t = perf.nanos_to_secs(op.get("time", 0))
+            for acct, bal in (op.get("value") or {}).items():
+                series.setdefault(acct, []).append(bal)
+                times.setdefault(acct, []).append(t)
+        if not series:
+            return {"valid?": True, "plot": None}
+        fig, ax = perf.fig_ax(test.get("name", "bank"), "balance",
+                              logy=False)
+        for acct in sorted(series, key=repr):
+            ax.plot(times[acct], series[acct], lw=1,
+                    label=f"account {acct}")
+        nemeses = self.nemeses or (test.get("plot") or {}).get("nemeses")
+        perf.draw_nemeses(ax, history, nemeses, perf.t_max(history))
+        ax.grid(True, alpha=0.3)
+        perf.finish(fig, ax, path)
+        return {"valid?": True, "plot": str(path)}
+
+
+def plot_checker(nemeses=None) -> Checker:
+    return BankPlot(nemeses)
+
+
 def checker(**kw) -> Checker:
     return BankChecker(**kw)
 
@@ -83,20 +124,18 @@ def generator(accounts=None, max_transfer=DEFAULT_MAX_TRANSFER):
 
 
 def test(accounts=None, total=DEFAULT_TOTAL,
-         max_transfer=DEFAULT_MAX_TRANSFER, plot: bool = False,
+         max_transfer=DEFAULT_MAX_TRANSFER, plot: bool = True,
          nemeses=None, **kw) -> dict:
-    """Partial test map; the checker is the balance invariant
-    (bank.clj:188-201). The reference composes it with the
-    balance-over-time plot (bank.png, drawn with matplotlib, by
-    default), which the port does not render: its default is
-    `plot=False`, and `plot=True` raises ValueError. `nemeses` is the
-    plot's and is accepted for the reference's signature."""
-    if plot:
-        raise ValueError("the bank plot (bank.png) is not ported; "
-                         "pass plot=False")
+    """Partial test map; the checker composes the balance invariant
+    with the balance-over-time plot (bank.clj:188-201)."""
+    from ..checker import compose
+
     accounts = accounts or DEFAULT_ACCOUNTS
+    balance = checker(total=total, **kw)
     return {"generator": generator(accounts, max_transfer),
-            "checker": checker(total=total, **kw),
+            "checker": compose({"bank": balance,
+                                "plot": plot_checker(nemeses)}) if plot
+            else balance,
             "accounts": accounts,
             "total-amount": total,
             "max-transfer": max_transfer}

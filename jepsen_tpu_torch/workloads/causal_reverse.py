@@ -11,9 +11,7 @@ acknowledged predecessor w_j < w_i is an error (errors,
 causal_reverse.clj:52-75).
 
 The port's copy of `jepsen_tpu/workloads/causal_reverse.py`; it imports
-the standard library and the port's own modules only. The workload's
-latency and rate plots (the reference's "perf" checker, matplotlib) are
-not ported: its checker composes "sequential" alone.
+the standard library and the port's own modules only.
 """
 
 from __future__ import annotations
@@ -87,10 +85,10 @@ def workload(nodes: list | None = None, per_key_limit: int = 500) -> dict:
             1 / 100, gen.mix([gen.repeat_gen({"f": "read"}),
                               lambda: next(w)])))
 
-    # the reference also composes "perf" (perf_checker: latency and
-    # rate plots drawn with matplotlib), which the port does not render
+    from ..checker import perf_checker
     return {
         "checker": compose({
+            "perf": perf_checker(),
             "sequential": independent.checker(checker()),
         }),
         "generator": independent.concurrent_generator(

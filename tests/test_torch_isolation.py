@@ -6,6 +6,7 @@ handing back the plain version."""
 import ast
 import json
 import os
+import re
 import stat
 import subprocess
 import sys
@@ -96,6 +97,13 @@ print(" ".join(mods))
                       "workloads.set_workload", "workloads.monotonic",
                       "workloads.causal_reverse", "workloads.adya",
                       "workloads.comments")} <= mods
+    # the BASELINE suites (etcd, yugabyte, dgraph), their drivers and
+    # the plot checkers
+    assert {f"jepsen_tpu_torch.{m}"
+            for m in ("suites.etcd", "suites.yugabyte", "suites.ycql",
+                      "suites.yugabyte_runner", "suites.dgraph",
+                      "drivers.cql", "drivers.dgraph_http",
+                      "checker.perf", "checker.clock")} <= mods
 
 
 @pytest.mark.parametrize("path", port_sources(),
@@ -111,6 +119,64 @@ def test_no_jax_or_reference_import(path):
             continue
         for n in names:
             assert n.split(".")[0] not in FORBIDDEN, (path, node.lineno, n)
+
+
+#: A module of the JAX package named in a string: `-m jepsen_tpu.x`, an
+#: `importlib.import_module("jepsen_tpu.x")` or a spec a subprocess runs.
+REFERENCE_MODULE = re.compile(r"(?<![\w.])jepsen_tpu\.[A-Za-z_]")
+
+
+def docstring_nodes(tree: ast.AST) -> set:
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) \
+                    and isinstance(body[0].value, ast.Constant) \
+                    and isinstance(body[0].value.value, str):
+                out.add(id(body[0].value))
+    return out
+
+
+def reference_module_strings(src: str) -> list:
+    """(line, text) of every string constant but a docstring that names
+    a module under `jepsen_tpu.`; docstrings may name the reference's
+    files."""
+    tree = ast.parse(src)
+    docs = docstring_nodes(tree)
+    return [(node.lineno, node.value) for node in ast.walk(tree)
+            if isinstance(node, ast.Constant)
+            and isinstance(node.value, str) and id(node) not in docs
+            and REFERENCE_MODULE.search(node.value)]
+
+
+@pytest.mark.parametrize("path", port_sources(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_string_names_a_reference_module(path):
+    """No port module spawns or imports the JAX package by a string (a
+    subprocess's `-m jepsen_tpu.suites.yugabyte`, say), which the
+    import scan above cannot see."""
+    assert reference_module_strings(path.read_text()) == [], path
+
+
+def test_reference_module_strings_are_found():
+    """The scan finds the reference runner's spawn, in a plain string
+    and in an f-string, and lets a docstring and the port's own names
+    through."""
+    spawn = ('"""Runs `python -m jepsen_tpu.suites.yugabyte_runner`."""\n'
+             'import sys\n'
+             'cmd = [sys.executable, "-m", "jepsen_tpu.suites.yugabyte"]\n'
+             'mod = f"jepsen_tpu.suites.{sys.argv[0]}"\n'
+             'ok = ["-m", "jepsen_tpu_torch.suites.yugabyte", "jepsen_tpu"]\n')
+    assert [ln for ln, _ in reference_module_strings(spawn)] == [3, 4]
+
+
+def test_yugabyte_runner_spawns_the_ports_suite():
+    from jepsen_tpu_torch.suites import yugabyte_runner
+    src = Path(yugabyte_runner.__file__).read_text()
+    assert '"jepsen_tpu_torch.suites.yugabyte"' in src
+    assert reference_module_strings(src) == []
 
 
 def test_resolve_device_defaults_to_cuda_and_raises_without_it(monkeypatch):
@@ -323,6 +389,50 @@ def test_suite_layer_modules_are_scanned():
                       "workloads/set_workload", "workloads/monotonic",
                       "workloads/causal_reverse", "workloads/adya",
                       "workloads/comments")} | {"chip_smoke.py"} <= names
+
+
+def test_baseline_suites_are_scanned():
+    """The AST scans above cover the etcd, yugabyte and dgraph suites,
+    their drivers and the plot checkers."""
+    names = {str(p.relative_to(REPO)) for p in port_sources()}
+    assert {f"jepsen_tpu_torch/{m}.py"
+            for m in ("suites/etcd", "suites/yugabyte", "suites/ycql",
+                      "suites/yugabyte_runner", "suites/dgraph",
+                      "drivers/cql", "drivers/dgraph_http",
+                      "checker/perf", "checker/clock")} <= names
+
+
+def test_baseline_suites_import_no_torch():
+    """The etcd, yugabyte and dgraph suites, their clients and drivers,
+    and the plot checkers import neither torch nor jax nor jepsen_tpu:
+    a suite's test map is host code until its checker runs on the
+    device."""
+    code = f"""
+import sys
+for name in ("torch",) + {FORBIDDEN!r}:
+    sys.modules[name] = None          # any import of them now fails
+sys.path.insert(0, {str(REPO)!r})
+from jepsen_tpu_torch import checker, suites
+from jepsen_tpu_torch.checker import clock, perf
+from jepsen_tpu_torch.drivers import cql, dgraph_http
+from jepsen_tpu_torch.suites import dgraph, etcd, ycql, yugabyte
+from jepsen_tpu_torch.suites import yugabyte_runner
+t = etcd.etcd_test({{"faults": ["partition", "kill", "pause", "clock"]}})
+assert sorted(t["checker"].checker_map) == ["indep", "perf"]
+assert len(yugabyte.all_tests({{}})) == 12
+assert dgraph.dgraph_test({{"workload": "delete"}})["client"].mode == \
+    "delete"
+assert [suites.load_suite(n).__name__.rsplit(".", 1)[1]
+        for n in ("etcd", "yugabyte", "dgraph")] == \
+    ["etcd", "yugabyte", "dgraph"]
+assert "torch" not in [m.split(".")[0] for m in sys.modules
+                       if sys.modules[m] is not None]
+print("ok")
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "ok"
 
 
 def test_suite_layer_imports_no_torch():

@@ -110,7 +110,8 @@ def test_suite_registry_loads_the_ported_suites():
         with pytest.raises(port_suites.SuiteNotPorted,
                            match=f"suite {name!r} is not ported"):
             port_suites.load_suite(name)
-    assert set(port_suites.PORTED) == {"cockroach", "tidb"}
+    assert set(port_suites.PORTED) == {"cockroach", "dgraph", "etcd",
+                                       "tidb", "yugabyte"}
     with pytest.raises(ValueError, match="unknown suite"):
         port_suites.load_suite("nope")
 
@@ -158,9 +159,9 @@ def map_shape(P, t: dict) -> dict:
 
 
 def checker_name(t: dict) -> str:
-    """The test map's checker class. The reference's bank checker
-    composes the balance invariant with its plot (`{"bank", "plot"}`),
-    which the port does not render: there, the invariant's class."""
+    """The test map's checker class. The bank checker composes the
+    balance invariant with its plot (`{"bank", "plot"}`) in both
+    packages: there, the invariant's class."""
     chk = t.get("checker")
     if t["workload"] == "bank" and type(chk).__name__ == "Compose":
         assert sorted(chk.checker_map) == ["bank", "plot"]
@@ -355,12 +356,14 @@ def test_workload_checkers_equal_the_references(case):
 
 
 def test_sequential_checker_omits_the_perf_plots():
-    """The port's sequential workload composes the reference's checks
-    but not its latency and rate plots (matplotlib)."""
+    """The port's sequential workload composes the reference's checks,
+    its latency and rate plots (`perf`) included: none is omitted any
+    more (tests/test_torch_plots.py holds the plots to the
+    reference's)."""
     port = port_causal_reverse.workload(NODES)["checker"]
     ref = ref_causal_reverse.workload(NODES)["checker"]
-    assert sorted(port.checker_map) == \
-        sorted(set(ref.checker_map) - {"perf"}) == ["sequential"]
+    assert sorted(port.checker_map) == sorted(ref.checker_map) == \
+        ["perf", "sequential"]
 
 
 def test_monotonic_workload_full_run(tmp_path):
@@ -511,10 +514,10 @@ def ref_recheck(suite: str, run: Path, tmp_path: Path, workload: str,
                 monkeypatch):
     """The reference's `analyze --backend cpu` of a copy of a stored run
     with the reference suite's checker for the workload; returns (exit
-    code, results). The reference's bank checker composes its balance
-    plot, which the port does not render: its invariant's results are
-    returned. Its CLI exports JEPSEN_TPU_BACKEND for the rest of the
-    process: set here first, the test's teardown undoes it."""
+    code, results); the bank checker's results hold its balance plot's
+    entry in both packages. Its CLI exports JEPSEN_TPU_BACKEND for the
+    rest of the process: set here first, the test's teardown undoes
+    it."""
     monkeypatch.setenv("JEPSEN_TPU_BACKEND", "cpu")
     dst = tmp_path / "ref" / run.parent.name / run.name
     shutil.copytree(run, dst)
@@ -525,7 +528,7 @@ def ref_recheck(suite: str, run: Path, tmp_path: Path, workload: str,
                                    str(tmp_path / "ref"), "--backend",
                                    "cpu"])
     res = json.loads((dst / "results.json").read_text())
-    return rc, res.get("bank", res) if workload == "bank" else res
+    return rc, res
 
 
 @pytest.mark.parametrize("suite,faults", [
@@ -604,6 +607,11 @@ def test_cockroach_test_all_equals_the_references_verdicts(
         _, ref_res = ref_recheck("cockroach", run, tmp_path, w,
                                  monkeypatch)
         assert res["valid?"] == ref_res["valid?"] == ln["valid?"], w
+        # each composed entry (bank's plot, sequential's perf) too
+        assert {k: v["valid?"] for k, v in res.items()
+                if isinstance(v, dict) and "valid?" in v} == \
+            {k: v["valid?"] for k, v in ref_res.items()
+             if isinstance(v, dict) and "valid?" in v}, w
         codes.append(cli.validity_exit_code(res))
     assert rc == max(codes)
 
