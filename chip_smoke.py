@@ -138,7 +138,7 @@ failure:
               subprocess (`python -m jepsen_tpu_torch.tools.pool_smoke`,
               which, unlike this script, imports no torch in the
               workers spawn re-imports it in). /dev/shm's size first.
-              A store of 128 list-append runs at phase 4's width (every
+              A store of 96 list-append runs at phase 4's width (every
               8th with G1c): (a) every encoding the pool delivers equals
               the serial path's, array for array and in run order
               (the cache off, so both parse; phase 5's wr store too),
@@ -335,6 +335,24 @@ failure:
               installed and `unknown` with an error naming it where it
               is not (the phase says which), the exit code the whole
               verdict's. It takes under 75 s.
+ 22. more     the mongodb family (`mongodb`, `mongodb_rocks`),
+              `zookeeper` and `consul` over their own wire drivers
+              (OP_MSG and BSON, jute, consul's HTTP KV), and `galera`,
+              `percona`, `mysql_cluster` and `postgres_rds` over the SQL
+              wire drivers, each through its own `main` with the argv a
+              user gives it, 2 s under its own nemesis (the partitioner;
+              postgres_rds's is the noop), against the fakes of tests/
+              (fake_torch_mongo: fake_mongo.py's server on the port's
+              BSON codec; fake_misc, fake_sql): mongodb, mongodb_rocks,
+              zookeeper and consul `register` (knossos_dense_scan; one
+              launch a dense key for zookeeper and consul, whose device
+              time comes from a one-thread re-check), galera and percona
+              `dirty-reads` and mysql_cluster `bank` (host checkers, no
+              launch), postgres_rds `append` and `wr` (closure_square).
+              Each stored run re-checked by `analyze --backend cpu`:
+              each entry as the host's (per key for the registers), the
+              plot entries by the matplotlib rule, the exit code the
+              whole verdict's. It takes under 90 s.
 
 Every phase prints its wall (phases 1-13 through `phase_wall`), and the
 script ends with all of them in one line.
@@ -363,7 +381,10 @@ counted in its shard's own process), phase 19's (`test-append`,
 `test-append-broken`, `test-register`, `test-all`), phase 20's
 (`suite-tidb-append`, `suite-cockroach-register`, `suite-test-all`) and
 phase 21's (`suite-etcd-register`, `suite-ysql-append`,
-`suite-ycql-register`, `suite-dgraph-register`).
+`suite-ycql-register`, `suite-dgraph-register`) and phase 22's
+(`suite-mongodb-register`, `suite-mongodb_rocks-register`,
+`suite-zookeeper-register`, `suite-consul-register`,
+`suite-postgres_rds-append`, `suite-postgres_rds-wr`).
 
 The last lines are a `{"kernels": [...]}` record per kernel (with its
 launches and summed device milliseconds per path), the nvidia-smi line,
@@ -455,10 +476,10 @@ SMALL_RUNS = 8
 SMALL_LONG_T, SMALL_LONG_K, SMALL_LONG_GAP, SMALL_LONG_LIMIT = \
     3000, 16, 1003, 1000
 #: Phase 13: the pooled sweep's store (BASELINE config #4's 1k-history
-#: batch cut to 128, which keeps the whole smoke within its time: two
-#: chunks of 64, so ingest can overlap the device) at phase 4's width,
-#: and the kill nemesis's rate.
-POOL_RUNS = 128
+#: batch cut to 96, which keeps the whole smoke within its time: a
+#: chunk of 64 and one of 32, so ingest can overlap the device) at phase
+#: 4's width, and the kill nemesis's rate.
+POOL_RUNS = 96
 POOL_KILL = "kill:0.05"
 #: Phase 18's two shards and the coordinator's wait in its full fleet.
 MESH_SHARDS, MESH_WAIT_S = 2, 300
@@ -492,7 +513,7 @@ WALLS: dict = {}
 @contextlib.contextmanager
 def phase_wall(n: int, say_it: bool = True):
     """Time phase n's block into WALLS; print it unless the phase prints
-    its own wall (phases 14-21)."""
+    its own wall (phases 14-22)."""
     t0 = time.perf_counter()
     try:
         yield
@@ -4462,6 +4483,98 @@ def phase_suites(smi: str) -> dict:
     return {"closure_square": cs_paths, "knossos_dense_scan": dense_paths}
 
 
+def suite_main(mod, make_name: str, extra: dict, argv: list) -> tuple:
+    """`mod.main(argv)`, a suite's own entry point (with `--dummy`, and
+    `--device` unless DEVICE is cuda), with `mod.<make_name>` wrapped
+    for the fakes: `extra` added to its opts, db and os dropped (the
+    fakes have no daemons; a fault package keeps the suite's DB), the
+    iptables net and a DummyRemote set. Returns (exit code, JSON lines,
+    the dummy remote)."""
+    from jepsen_tpu_torch import control, net
+    remote = control.DummyRemote()
+    real = getattr(mod, make_name)
+    dev_args = [] if DEVICE == "cuda" else ["--device", DEVICE]
+
+    def make(opts=None):
+        t = real({**(opts or {}), **extra})
+        t.pop("db", None)
+        t.pop("os", None)
+        t["net"] = net.iptables()
+        t["remote"] = remote
+        return t
+
+    setattr(mod, make_name, make)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main([*argv, "--dummy", *dev_args])
+    finally:
+        setattr(mod, make_name, real)
+    torch.cuda.synchronize()
+    return rc, [json.loads(ln) for ln in buf.getvalue().splitlines()
+                if ln.startswith("{")], remote
+
+
+def suite_recheck(base: Path, run_dir: Path, checker_,
+                  backend: str = "cpu") -> dict:
+    """`analyze` (`--backend cpu`: the host oracles; "device": the
+    checker's own device) of a copy of a stored run under
+    `base/host-<backend>` with the suite's checker."""
+    from jepsen_tpu_torch import cli
+    store = base / f"host-{backend}"
+    copy_ = store / run_dir.parent.name / run_dir.name
+    shutil.copytree(run_dir, copy_)
+    argv = ["analyze", str(copy_), "--store", str(store)]
+    if backend != "device":
+        argv += ["--backend", backend]
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.run_cli(lambda t, a: {**t, "checker": checker_},
+                         argv=argv)
+    return {"rc": rc, "dir": copy_,
+            "res": json.loads((copy_ / "results.json").read_text())}
+
+
+def nemesis_ops(run_dir: Path) -> dict:
+    """{f: count} of a stored run's nemesis info ops."""
+    out: dict = {}
+    for ln in (run_dir / "history.jsonl").read_text().splitlines():
+        o = json.loads(ln)
+        if o["process"] == "nemesis" and o["type"] == "info":
+            out[o["f"]] = out.get(o["f"], 0) + 1
+    return out
+
+
+def suite_verdict(what: str, rc: int, lines: list, host: dict,
+                  device: bool, mpl: bool) -> tuple:
+    """The one stored run's results against the host oracle's: each
+    entry as the host's (its verdicts where a kernel made it), the plot
+    entries by the matplotlib rule, the exit code the whole verdict's;
+    no fault reaches the fakes, so every verdict but a plot's holds.
+    Returns (the run dir, its results)."""
+    from jepsen_tpu_torch import cli
+    check(len(lines) == 1 and "dir" in lines[0],
+          f"{what}: rc {rc}, lines {lines}")
+    run_dir = Path(lines[0]["dir"])
+    res = json.loads((run_dir / "results.json").read_text())
+    same_entries(res, host["res"], what, device=device)
+    plots_as_expected(res, run_dir, what)
+    plots_as_expected(host["res"], host["dir"], f"{what} (host)")
+    valid = res["valid?"]
+    check(valid == host["res"]["valid?"] == lines[0]["valid?"]
+          and rc == cli.validity_exit_code(res) == host["rc"],
+          f"{what}: verdict {valid} (exit {rc}) on the card, "
+          f"{host['res']['valid?']} (exit {host['rc']}) from the host")
+    # a plot's verdict is unknown only without matplotlib
+    inner = [v.get("valid?") for k, v in res.items()
+             if isinstance(v, dict) and "valid?" in v
+             and k not in PLOT_ENTRIES]
+    want = "unknown" if not mpl and set(res) & set(PLOT_ENTRIES) \
+        else True
+    check(all(v is True for v in inner) and valid == want,
+          f"{what}: verdicts {inner}, whole {valid}, want {want}")
+    return run_dir, res
+
+
 #: Phase 21: the BASELINE suites. etcd (config #1's suite) at its
 #: published shape (10 threads a key, 300 ops a key, values 0-4,
 #: stagger 1/30 s) for about 10 s at a concurrency of three keys at
@@ -4491,14 +4604,12 @@ def phase_baseline(smi: str) -> dict:
     the whole verdict's. Returns per kernel, per path (launches, device
     ms)."""
     import threading
-    from jepsen_tpu_torch import cli, control, net
     from jepsen_tpu_torch.suites import dgraph, etcd, yugabyte
 
     t_phase = time.perf_counter()
     fakes = {n: load_fake(n) for n in ("fake_sql", "fake_cql",
                                        "fake_dgraph", "fake_etcd")}
     base = WORK / "baseline"
-    dev_args = [] if DEVICE == "cuda" else ["--device", DEVICE]
     threads_before = set(threading.enumerate())
     cs_paths, dense_paths = {}, {}
     mpl = has_matplotlib()
@@ -4507,86 +4618,12 @@ def phase_baseline(smi: str) -> dict:
            if mpl else "not installed: each plot entry must be unknown "
            "with an error naming matplotlib, as the reference's"))
 
-    def run(mod, make_name: str, extra: dict, argv: list) -> tuple:
-        """`mod.main(argv)` with `mod.<make_name>` wrapped for the fakes;
-        returns (exit code, JSON lines, the dummy remote)."""
-        remote = control.DummyRemote()
-        real = getattr(mod, make_name)
-
-        def make(opts=None):
-            t = real({**(opts or {}), **extra})
-            t.pop("db", None)
-            t.pop("os", None)
-            t["net"] = net.iptables()
-            t["remote"] = remote
-            return t
-
-        setattr(mod, make_name, make)
-        buf = io.StringIO()
-        try:
-            with contextlib.redirect_stdout(buf):
-                rc = mod.main([*argv, "--dummy", *dev_args])
-        finally:
-            setattr(mod, make_name, real)
-        torch.cuda.synchronize()
-        return rc, [json.loads(ln) for ln in buf.getvalue().splitlines()
-                    if ln.startswith("{")], remote
-
-    def recheck(run_dir: Path, checker_, backend: str = "cpu") -> dict:
-        """`analyze` (`--backend cpu`: the host oracles) of a copy of a
-        stored run with the suite's checker."""
-        store = base / f"host-{backend}"
-        copy_ = store / run_dir.parent.name / run_dir.name
-        shutil.copytree(run_dir, copy_)
-        argv = ["analyze", str(copy_), "--store", str(store)]
-        if backend != "device":
-            argv += ["--backend", backend]
-        with contextlib.redirect_stdout(io.StringIO()):
-            rc = cli.run_cli(lambda t, a: {**t, "checker": checker_},
-                             argv=argv)
-        return {"rc": rc, "dir": copy_,
-                "res": json.loads((copy_ / "results.json").read_text())}
-
-    def nemesis_fs(run_dir: Path) -> dict:
-        out: dict = {}
-        for ln in (run_dir / "history.jsonl").read_text().splitlines():
-            o = json.loads(ln)
-            if o["process"] == "nemesis" and o["type"] == "info":
-                out[o["f"]] = out.get(o["f"], 0) + 1
-        return out
-
-    def verdict_of(what: str, rc: int, lines: list, host: dict,
-                   device: bool) -> tuple:
-        """The one stored run's results against the host oracle's."""
-        check(len(lines) == 1 and "dir" in lines[0],
-              f"{what}: rc {rc}, lines {lines}")
-        run_dir = Path(lines[0]["dir"])
-        res = json.loads((run_dir / "results.json").read_text())
-        same_entries(res, host["res"], what, device=device)
-        plots_as_expected(res, run_dir, what)
-        plots_as_expected(host["res"], host["dir"], f"{what} (host)")
-        valid = res["valid?"]
-        check(valid == host["res"]["valid?"] == lines[0]["valid?"]
-              and rc == cli.validity_exit_code(res) == host["rc"],
-              f"{what}: verdict {valid} (exit {rc}) on the card, "
-              f"{host['res']['valid?']} (exit {host['rc']}) from the host")
-        # no fault reaches the fakes: every verdict but a plot's holds,
-        # and a plot's is unknown only without matplotlib
-        inner = [v.get("valid?") for k, v in res.items()
-                 if isinstance(v, dict) and "valid?" in v
-                 and k not in PLOT_ENTRIES]
-        want = "unknown" if not mpl and set(res) & set(PLOT_ENTRIES) \
-            else True
-        check(all(v is True for v in inner) and valid == want,
-              f"{what}: verdicts {inner}, whole {valid}, want {want}")
-        return run_dir, res
-
     # (a) etcd under all four fault families
     srv = fakes["fake_etcd"].FakeEtcdServer()
     real_url = etcd.client_url
     etcd.client_url = lambda node: srv.url()
     try:
-        (rc, lines, remote), n, ms_run = counted_dense(lambda: run(
+        (rc, lines, remote), n, ms_run = counted_dense(lambda: suite_main(
             etcd, "etcd_test",
             {"time-limit": BASE_ETCD_LIMIT,
              "nemesis-interval": BASE_INTERVAL},
@@ -4598,9 +4635,9 @@ def phase_baseline(smi: str) -> dict:
     workers_ended("suite-etcd-register")
     check(len(lines) == 1, f"suite-etcd-register: rc {rc}, {lines}")
     run_e = Path(lines[0]["dir"])
-    host = recheck(run_e, etcd.etcd_test({})["checker"])
-    run_e, res_e = verdict_of("suite-etcd-register", rc, lines, host,
-                              device=True)
+    host = suite_recheck(base, run_e, etcd.etcd_test({})["checker"])
+    run_e, res_e = suite_verdict("suite-etcd-register", rc, lines, host,
+                                 device=True, mpl=mpl)
     keys = per_key(res_e["indep"])
     check(keys and keys == per_key(host["res"]["indep"])
           and all(v is True for v in keys.values()),
@@ -4624,7 +4661,7 @@ def phase_baseline(smi: str) -> dict:
           and {o["f"] for o in hist if isinstance(o["process"], int)}
           <= {"read", "write", "cas"},
           f"suite-etcd-register: ops a key {ops_a_key}")
-    fs = nemesis_fs(run_e)
+    fs = nemesis_ops(run_e)
     for family, ops in FAMILY_FS.items():
         check(any(fs.get(f) for f in ops),
               f"suite-etcd-register: no op of the {family} family in {fs}")
@@ -4642,8 +4679,8 @@ def phase_baseline(smi: str) -> dict:
     # threads launch at once and each event pair also brackets a GIL
     # wait (phase 14)
     with one_thread():
-        again, n_1, ms = counted_dense(lambda: recheck(
-            run_e, etcd.etcd_test({"device": DEVICE})["checker"],
+        again, n_1, ms = counted_dense(lambda: suite_recheck(
+            base, run_e, etcd.etcd_test({"device": DEVICE})["checker"],
             backend="device"))
     check(n_1 == n and again["res"]["indep"] == res_e["indep"],
           f"suite-etcd-register: the one-thread re-check launched {n_1} "
@@ -4666,7 +4703,7 @@ def phase_baseline(smi: str) -> dict:
     def yuga(api: str, workload: str, fake, counter) -> tuple:
         srv_ = fake()
         try:
-            got = counter(lambda: run(
+            got = counter(lambda: suite_main(
                 yugabyte, "yugabyte_test",
                 {"db-hosts": {n: ("127.0.0.1", srv_.port) for n in
                               ("n1", "n2", "n3", "n4", "n5")},
@@ -4689,14 +4726,15 @@ def phase_baseline(smi: str) -> dict:
         (rc, lines, remote), n, ms = yuga(api, workload, fake, counter)
         workers_ended(what)
         check(len(lines) == 1, f"{what}: rc {rc}, {lines}")
-        host = recheck(Path(lines[0]["dir"]), yugabyte.workloads(
+        host = suite_recheck(base, Path(lines[0]["dir"]), yugabyte.workloads(
             {}, api)[workload]()["checker"])
-        run_y, res_y = verdict_of(what, rc, lines, host, device=True)
+        run_y, res_y = suite_verdict(what, rc, lines, host, device=True,
+                                     mpl=mpl)
         if workload == "register":
             check(per_key(res_y) == per_key(host["res"]) and per_key(res_y),
                   f"{what}: per-key verdicts {per_key(res_y)} vs the CPU "
                   f"WGL's {per_key(host['res'])}")
-        fs_y = nemesis_fs(run_y)
+        fs_y = nemesis_ops(run_y)
         check(fs_y.get("start") and set(fs_y) <= {"start", "stop"} and any(
             "iptables -A INPUT" in p for _n, k, p in remote.actions
             if k == "execute"),
@@ -4722,7 +4760,7 @@ def phase_baseline(smi: str) -> dict:
         srv = fakes["fake_dgraph"].FakeDgraphServer()
         try:
             ((rc, lines, remote), n_d, ms_d), n_c, _ = counted(
-                lambda: counted_dense(lambda: run(
+                lambda: counted_dense(lambda: suite_main(
                     dgraph, "dgraph_test",
                     {"db-hosts": {n: ("127.0.0.1", srv.port) for n in
                                   ("n1", "n2", "n3", "n4", "n5")},
@@ -4735,10 +4773,11 @@ def phase_baseline(smi: str) -> dict:
             srv.close()
         workers_ended(what)
         check(len(lines) == 1, f"{what}: rc {rc}, {lines}")
-        host = recheck(Path(lines[0]["dir"]),
-                       dgraph.workloads({})[workload]()["checker"])
-        run_d, res_d = verdict_of(what, rc, lines, host,
-                                  device=workload == "register")
+        host = suite_recheck(base, Path(lines[0]["dir"]),
+                             dgraph.workloads({})[workload]()["checker"])
+        run_d, res_d = suite_verdict(what, rc, lines, host,
+                                     device=workload == "register",
+                                     mpl=mpl)
         check(n_c == 0, f"{what}: {n_c} closure_square launches")
         if workload == "register":
             check(per_key(res_d) == per_key(host["res"]) and per_key(res_d)
@@ -4753,7 +4792,7 @@ def phase_baseline(smi: str) -> dict:
             size = (f"{res_d['bank']['read-count']} reads, the balance "
                     f"entry equal to the host's, plot "
                     f"{res_d['plot']['valid?']}")
-        fs_d = nemesis_fs(run_d)
+        fs_d = nemesis_ops(run_d)
         check(fs_d.get("start"), f"{what}: nemesis ops {fs_d}")
         secs = span_secs(run_d)
         say(f"{what} (dgraph {workload}, {BASE_LIMIT}s, concurrency "
@@ -4771,6 +4810,184 @@ def phase_baseline(smi: str) -> dict:
     took = time.perf_counter() - t_phase
     check(took < 75, f"phase 21 took {took:.1f}s")
     say(f"phase 21 in {took:.1f}s")
+    return {"closure_square": cs_paths, "knossos_dense_scan": dense_paths}
+
+
+#: Phase 22: the suites of the mongodb family, zookeeper and consul over
+#: their own wire drivers, and the SQL suites that ride the SQL layer,
+#: each through its own main against a fake of tests/ under its own
+#: nemesis (the partitioner; postgres_rds's is the noop, as the
+#: reference's): the time limit (s), the nemesis interval (s) and the
+#: concurrency of each run.
+MORE_LIMIT, MORE_INTERVAL, MORE_CONC = 2, 0.5, 10
+#: path -> (suite, (fake module, class), --workload or None, the kernel
+#: its checker launches: "dense" (knossos_dense_scan), "closure"
+#: (closure_square) or None (host checkers alone))
+MORE_RUNS = {
+    "suite-mongodb-register": ("mongodb", ("fake_torch_mongo",
+                                           "FakeMongoServer"),
+                               "register", "dense"),
+    "suite-mongodb_rocks-register": ("mongodb_rocks", (
+        "fake_torch_mongo", "FakeMongoServer"), "register", "dense"),
+    "suite-zookeeper-register": ("zookeeper", ("fake_misc",
+                                               "FakeZKServer"),
+                                 None, "dense"),
+    "suite-consul-register": ("consul", ("fake_misc", "FakeConsulServer"),
+                              None, "dense"),
+    "suite-galera-dirty-reads": ("galera", ("fake_sql", "FakeMySQLServer"),
+                                 "dirty-reads", None),
+    "suite-percona-dirty-reads": ("percona", ("fake_sql",
+                                              "FakeMySQLServer"),
+                                  "dirty-reads", None),
+    "suite-mysql_cluster-bank": ("mysql_cluster", ("fake_sql",
+                                                   "FakeMySQLServer"),
+                                 "bank", None),
+    "suite-postgres_rds-append": ("postgres_rds", ("fake_sql",
+                                                   "FakePGServer"),
+                                  "append", "closure"),
+    "suite-postgres_rds-wr": ("postgres_rds", ("fake_sql", "FakePGServer"),
+                              "wr", "closure"),
+}
+#: The suites whose register checker fans out a thread a key (compose of
+#: timeline and linear inside independent.checker): one dense launch a
+#: dense key, device ms from a one-thread re-check (phase 21's etcd).
+FANOUT = ("zookeeper", "consul")
+
+
+def phase_more(smi: str) -> dict:
+    """Phase 22: the mongodb family (`mongodb`, `mongodb_rocks`),
+    `zookeeper` and `consul` over their own wire drivers (OP_MSG and
+    BSON, jute, consul's HTTP KV), and `galera`, `percona`,
+    `mysql_cluster` and `postgres_rds` over the SQL wire drivers, each
+    through its own `main` with the argv a user gives it, against the
+    fakes of tests/ (loaded by path: fake_torch_mongo runs
+    fake_mongo.py's server on the port's BSON codec), for MORE_LIMIT s
+    under the suite's own nemesis. The register paths launch
+    knossos_dense_scan, postgres_rds `append` and `wr` closure_square,
+    the dirty-reads and bank paths nothing. Every stored run re-checked
+    by `analyze --backend cpu` (the host oracles): each entry as the
+    host's (per key for the registers), the plot entries by the
+    matplotlib rule, the exit code the whole verdict's. Returns per
+    kernel, per path (launches, device ms)."""
+    import importlib
+    import threading
+
+    t_phase = time.perf_counter()
+    base = WORK / "more"
+    threads_before = set(threading.enumerate())
+    cs_paths, dense_paths = {}, {}
+    mpl = has_matplotlib()
+    say("phase 22: matplotlib is "
+        + ("installed: each plot entry must be valid with its PNGs"
+           if mpl else "not installed: each plot entry must be unknown "
+           "with an error naming matplotlib, as the reference's"))
+
+    for what, (suite, (fake_mod, fake_cls), workload, kernel) in \
+            MORE_RUNS.items():
+        mod = importlib.import_module(f"jepsen_tpu_torch.suites.{suite}")
+        make_name = f"{suite}_test"
+        srv = getattr(load_fake(fake_mod), fake_cls)()
+        argv = ["test", "--store", str(base / what), "--concurrency",
+                str(MORE_CONC)]
+        if workload:
+            argv += ["--workload", workload]
+        try:
+            ((rc, lines, remote), n_d, ms_d), n_c, ms_c = counted(
+                lambda: counted_dense(lambda: suite_main(
+                    mod, make_name,
+                    {"db-hosts": {n: ("127.0.0.1", srv.port) for n in
+                                  ("n1", "n2", "n3", "n4", "n5")},
+                     "time-limit": MORE_LIMIT,
+                     "nemesis-interval": MORE_INTERVAL}, argv)))
+        finally:
+            srv.close()
+        workers_ended(what)
+        check(len(lines) == 1, f"{what}: rc {rc}, {lines}")
+        name = workload or "register"
+        host = suite_recheck(base, Path(lines[0]["dir"]),
+                             mod.workloads({})[name]()["checker"])
+        run_dir, res = suite_verdict(what, rc, lines, host,
+                                     device=kernel is not None, mpl=mpl)
+        hist = [json.loads(ln) for ln in
+                (run_dir / "history.jsonl").read_text().splitlines()]
+        n_ops = sum(1 for o in hist if isinstance(o["process"], int)
+                    and o["type"] == "invoke")
+        check(n_ops > 0, f"{what}: no client op in the history")
+        fs = nemesis_ops(run_dir)
+        iptables = sum("iptables -A INPUT" in p for _n, k, p in
+                       remote.actions if k == "execute")
+        check(fs.get("start") and set(fs) <= {"start", "stop"}
+              and (iptables > 0) == (suite != "postgres_rds"),
+              f"{what}: nemesis ops {fs}, {iptables} iptables commands")
+        if kernel == "dense":
+            keys = per_key(res)
+            check(keys and keys == per_key(host["res"])
+                  and all(v is True for v in keys.values()),
+                  f"{what}: per-key verdicts {keys} vs the CPU WGL's "
+                  f"{per_key(host['res'])}")
+            check(n_c == 0 and n_d > 0,
+                  f"{what}: {n_d} knossos_dense_scan and {n_c} "
+                  "closure_square launches")
+            detail = f"{len(keys)} keys each valid as the CPU WGL's"
+            if suite in FANOUT:
+                tiers: dict = {}
+                for r in res["results"].values():
+                    a = r["linear"].get("analyzer")
+                    tiers[a] = tiers.get(a, 0) + 1
+                check(n_d == tiers.get("tpu-dense", 0),
+                      f"{what}: {n_d} launches for tiers {tiers} (one "
+                      "a dense key)")
+                # the fan-out's event pairs also bracket waits on the
+                # interpreter lock: the device time from one thread
+                with one_thread():
+                    again, n_1, ms_d1 = counted_dense(lambda: suite_recheck(
+                        base, run_dir, mod.workloads(
+                            {"device": DEVICE})[name]()["checker"],
+                        backend="device"))
+                check(n_1 == n_d and again["res"]["results"]
+                      == res["results"],
+                      f"{what}: the one-thread re-check launched {n_1} "
+                      "times or differs from the run's per-key results")
+                detail += (f", tiers {tiers}; {ms_d1} ms of device time "
+                           f"on one thread ({ms_d} ms of event pairs in "
+                           "the run's fan-out)")
+                ms_d = ms_d1
+            dense_paths[what] = (n_d, ms_d)
+            launched = f"{n_d} knossos_dense_scan launches ({ms_d} ms)"
+        elif kernel == "closure":
+            check(n_c > 0 and n_d == 0,
+                  f"{what}: {n_c} closure_square and {n_d} "
+                  "knossos_dense_scan launches")
+            cs_paths[what] = (n_c, ms_c)
+            detail = f"txn-count {res.get('txn-count')}"
+            launched = f"{n_c} closure_square launches ({ms_c} ms)"
+        else:
+            check(n_c == 0 and n_d == 0,
+                  f"{what}: {n_c} closure_square and {n_d} "
+                  "knossos_dense_scan launches")
+            entry = res.get("dirty-reads") or res.get("bank")
+            check(entry["read-count"] > 0,
+                  f"{what}: no read in {str(entry)[:300]}")
+            detail = ", ".join(f"{k} {entry[k]}" for k in (
+                "read-count", "failed-write-count", "dirty-count",
+                "inconsistent-count") if k in entry)
+            launched = "no launch"
+        secs = span_secs(run_dir)
+        say(f"{what} ({suite} {name}, {MORE_LIMIT}s, interval "
+            f"{MORE_INTERVAL}s, concurrency {MORE_CONC}, {fake_cls}): "
+            f"exit {rc}, {res['valid?']} as the host oracle's; {n_ops} "
+            f"ops; {detail}; nemesis ops {fs}, {iptables} iptables "
+            f"commands; generator.run {secs['generator.run']:.3f}s, "
+            f"analyze {secs['analyze']:.3f}s; {launched} ({smi})")
+
+    deadline = time.monotonic() + 10
+    while set(threading.enumerate()) - threads_before:
+        check(time.monotonic() < deadline, "phase 22: threads left: "
+              f"{[t.name for t in set(threading.enumerate()) - threads_before]}")
+        time.sleep(0.05)
+    took = time.perf_counter() - t_phase
+    check(took < 90, f"phase 22 took {took:.1f}s")
+    say(f"phase 22 in {took:.1f}s")
     return {"closure_square": cs_paths, "knossos_dense_scan": dense_paths}
 
 
@@ -4877,6 +5094,10 @@ def main() -> int:
             baseline = phase_baseline(smi)
         paths.update(baseline["closure_square"])
         dense_paths.update(baseline["knossos_dense_scan"])
+        with phase_wall(22, say_it=False):
+            more = phase_more(smi)
+        paths.update(more["closure_square"])
+        dense_paths.update(more["knossos_dense_scan"])
         for rec, ps in ((record, paths), (dense_record, dense_paths)):
             rec["launches"] = sum(n for n, _ in ps.values())
             rec["paths"] = {k: {"launches": n, "device_ms": ms}

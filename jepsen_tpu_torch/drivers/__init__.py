@@ -9,6 +9,8 @@ framework carries its own minimal clients:
     mysql_wire   MySQL client/server protocol (tidb)
     dgraph_http  Dgraph HTTP API (mutate/query/alter)
     cql          CQL native protocol v4 (yugabyte YCQL)
+    mongo        BSON + OP_MSG (mongodb, mongodb_rocks, mongodb_smartos)
+    zk           ZooKeeper's jute protocol (zookeeper)
 
 All are synchronous, one-socket, simple-query-protocol clients — exactly
 what a jepsen client worker needs: each worker owns one connection, and

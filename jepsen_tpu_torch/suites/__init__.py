@@ -39,7 +39,9 @@ SUITES = (
 
 
 #: The suites of SUITES the port has; the others are still to port.
-PORTED = ("cockroach", "dgraph", "etcd", "tidb", "yugabyte")
+PORTED = ("cockroach", "consul", "dgraph", "etcd", "galera", "mongodb",
+          "mongodb_rocks", "mongodb_smartos", "mysql_cluster", "percona",
+          "postgres_rds", "tidb", "yugabyte", "zookeeper")
 
 
 class SuiteNotPorted(NotImplementedError):

@@ -111,7 +111,7 @@ def test_load_suite_returns_the_ports_baseline_suites():
         assert port_suites.load_suite(name) is mod
         assert name in port_suites.PORTED
     left = set(port_suites.SUITES) - set(port_suites.PORTED)
-    assert len(left) == 23 and "zookeeper" in left
+    assert len(left) == 14 and "rethinkdb" in left
     for name in sorted(left):
         with pytest.raises(port_suites.SuiteNotPorted):
             port_suites.load_suite(name)
@@ -334,15 +334,17 @@ def checker_files(run: Path) -> dict:
 
 
 def recheck_in_turn(run: Path, tmp_path: Path, make_check,
-                    monkeypatch) -> dict:
+                    monkeypatch, pkgs: tuple = (REF, PORT)) -> dict:
     """Both packages' `analyze --backend cpu` of a copy of the stored
-    run, in turn on one path, each with its package's checker; returns
-    {pkg: (exit code, results, {file: bytes})}."""
+    run, in turn on one path, each with its package's checker
+    (`make_check(P)`, P each of `pkgs`: the reference's, the port's);
+    returns {pkg: (exit code, results, {file: bytes})}."""
     monkeypatch.setenv("JEPSEN_TPU_BACKEND", "cpu")
     store = tmp_path / "recheck"
     path = store / run.parent.name / run.name
     out = {}
-    for name, clis, P in (("ref", ref_cli, REF), ("port", cli, PORT)):
+    for name, clis, P in (("ref", ref_cli, pkgs[0]),
+                          ("port", cli, pkgs[1])):
         shutil.rmtree(store, ignore_errors=True)
         shutil.copytree(run, path)
         rc, res = analyze_cpu(clis, path, store, make_check(P))
