@@ -349,10 +349,26 @@ failure:
               time comes from a one-thread re-check), galera and percona
               `dirty-reads` and mysql_cluster `bank` (host checkers, no
               launch), postgres_rds `append` and `wr` (closure_square).
-              Each stored run re-checked by `analyze --backend cpu`:
-              each entry as the host's (per key for the registers), the
-              plot entries by the matplotlib rule, the exit code the
-              whole verdict's. It takes under 90 s.
+              Each stored run re-checked by `analyze --backend cpu`
+              with its test map's checker: each entry as the host's
+              (per key for the registers), the plot entries by the
+              matplotlib rule, the exit code the whole verdict's. A run
+              whose generator.run outlasts its limit by more than 2 s
+              prints its slowest client op (f, latency, completion,
+              error). It takes under 90 s.
+ 23. queues   phase 22's shape for the RESP, ReQL and AMQP suites and
+              robustirc, against the fakes of tests/fake_misc.py:
+              `raftis` register (FakeRedisServer), `rethinkdb` register
+              and set (FakeReqlServer), `disque` queue
+              (FakeDisqueServer), `rabbitmq` queue (FakeAMQPServer) and
+              `robustirc` set over plain HTTP (FakeRobustIRCServer, tls
+              off). The registers' model is the plain read/write
+              `register`, which Linearizable (as the reference's) gives
+              the host WGL engine, so no path launches a kernel: each
+              register key valid on that engine as the re-check's, the
+              queues lose no acknowledged enqueue and drain after the
+              limit, the sets lose no add. Each stored run re-checked as
+              in phase 22. It takes under 90 s.
 
 Every phase prints its wall (phases 1-13 through `phase_wall`), and the
 script ends with all of them in one line.
@@ -384,7 +400,11 @@ phase 21's (`suite-etcd-register`, `suite-ysql-append`,
 `suite-ycql-register`, `suite-dgraph-register`) and phase 22's
 (`suite-mongodb-register`, `suite-mongodb_rocks-register`,
 `suite-zookeeper-register`, `suite-consul-register`,
-`suite-postgres_rds-append`, `suite-postgres_rds-wr`).
+`suite-postgres_rds-append`, `suite-postgres_rds-wr`). Phase 23's paths
+(`suite-raftis-register`, `suite-rethinkdb-register`,
+`suite-rethinkdb-set`, `suite-disque-queue`, `suite-rabbitmq-queue`,
+`suite-robustirc-set`) are driven and read the same way, and must
+launch neither kernel.
 
 The last lines are a `{"kernels": [...]}` record per kernel (with its
 launches and summed device milliseconds per path), the nvidia-smi line,
@@ -4818,72 +4838,157 @@ def phase_baseline(smi: str) -> dict:
 #: each through its own main against a fake of tests/ under its own
 #: nemesis (the partitioner; postgres_rds's is the noop, as the
 #: reference's): the time limit (s), the nemesis interval (s) and the
-#: concurrency of each run.
+#: concurrency of each run. Phase 23 runs the same shape.
 MORE_LIMIT, MORE_INTERVAL, MORE_CONC = 2, 0.5, 10
+#: A run whose generator.run outlasts its limit by more than this (s)
+#: prints its slowest client op.
+SLOW_RUN = 2
 #: path -> (suite, (fake module, class), --workload or None, the kernel
 #: its checker launches: "dense" (knossos_dense_scan), "closure"
-#: (closure_square) or None (host checkers alone))
+#: (closure_square) or None (host checkers alone), options the suite's
+#: `<db>_test` gets besides the fake's hosts and the time limit)
 MORE_RUNS = {
     "suite-mongodb-register": ("mongodb", ("fake_torch_mongo",
                                            "FakeMongoServer"),
-                               "register", "dense"),
+                               "register", "dense", {}),
     "suite-mongodb_rocks-register": ("mongodb_rocks", (
-        "fake_torch_mongo", "FakeMongoServer"), "register", "dense"),
+        "fake_torch_mongo", "FakeMongoServer"), "register", "dense", {}),
     "suite-zookeeper-register": ("zookeeper", ("fake_misc",
                                                "FakeZKServer"),
-                                 None, "dense"),
+                                 None, "dense", {}),
     "suite-consul-register": ("consul", ("fake_misc", "FakeConsulServer"),
-                              None, "dense"),
+                              None, "dense", {}),
     "suite-galera-dirty-reads": ("galera", ("fake_sql", "FakeMySQLServer"),
-                                 "dirty-reads", None),
+                                 "dirty-reads", None, {}),
     "suite-percona-dirty-reads": ("percona", ("fake_sql",
                                               "FakeMySQLServer"),
-                                  "dirty-reads", None),
+                                  "dirty-reads", None, {}),
     "suite-mysql_cluster-bank": ("mysql_cluster", ("fake_sql",
                                                    "FakeMySQLServer"),
-                                 "bank", None),
+                                 "bank", None, {}),
     "suite-postgres_rds-append": ("postgres_rds", ("fake_sql",
                                                    "FakePGServer"),
-                                  "append", "closure"),
+                                  "append", "closure", {}),
     "suite-postgres_rds-wr": ("postgres_rds", ("fake_sql", "FakePGServer"),
-                              "wr", "closure"),
+                              "wr", "closure", {}),
+}
+#: Phase 23: the RESP, ReQL and AMQP suites and robustirc. Their
+#: registers' model is the plain read/write `register`, which
+#: `Linearizable` (as the reference's) gives the host WGL engine: only a
+#: fresh CAS register takes the device tiers. So no path here launches
+#: a kernel; the queues drain after the limit.
+QUEUE_RUNS = {
+    "suite-raftis-register": ("raftis", ("fake_misc", "FakeRedisServer"),
+                              None, None, {}),
+    "suite-rethinkdb-register": ("rethinkdb", ("fake_misc",
+                                               "FakeReqlServer"),
+                                 "register", None, {}),
+    "suite-rethinkdb-set": ("rethinkdb", ("fake_misc", "FakeReqlServer"),
+                            "set", None, {}),
+    "suite-disque-queue": ("disque", ("fake_misc", "FakeDisqueServer"),
+                           None, None, {}),
+    "suite-rabbitmq-queue": ("rabbitmq", ("fake_misc", "FakeAMQPServer"),
+                             None, None, {}),
+    "suite-robustirc-set": ("robustirc", ("fake_misc",
+                                          "FakeRobustIRCServer"),
+                            "set", None, {"tls": False}),
 }
 #: The suites whose register checker fans out a thread a key (compose of
 #: timeline and linear inside independent.checker): one dense launch a
 #: dense key, device ms from a one-thread re-check (phase 21's etcd).
 FANOUT = ("zookeeper", "consul")
+#: Each suite's default workload (its `main` without --workload).
+DEFAULT_WORKLOAD = {"disque": "queue", "rabbitmq": "queue"}
 
 
-def phase_more(smi: str) -> dict:
-    """Phase 22: the mongodb family (`mongodb`, `mongodb_rocks`),
-    `zookeeper` and `consul` over their own wire drivers (OP_MSG and
-    BSON, jute, consul's HTTP KV), and `galera`, `percona`,
-    `mysql_cluster` and `postgres_rds` over the SQL wire drivers, each
-    through its own `main` with the argv a user gives it, against the
-    fakes of tests/ (loaded by path: fake_torch_mongo runs
-    fake_mongo.py's server on the port's BSON codec), for MORE_LIMIT s
-    under the suite's own nemesis. The register paths launch
-    knossos_dense_scan, postgres_rds `append` and `wr` closure_square,
-    the dirty-reads and bank paths nothing. Every stored run re-checked
-    by `analyze --backend cpu` (the host oracles): each entry as the
-    host's (per key for the registers), the plot entries by the
-    matplotlib rule, the exit code the whole verdict's. Returns per
-    kernel, per path (launches, device ms)."""
+def slowest_op(run_dir: Path) -> str:
+    """The stored history's slowest client op: its f, latency, completion
+    type and error (an op never completed counts to the history's end)."""
+    hist = [json.loads(ln) for ln in
+            (run_dir / "history.jsonl").read_text().splitlines()]
+    end = max((o.get("time", 0) for o in hist), default=0)
+    open_: dict = {}
+    worst = None
+    for o in hist:
+        if not isinstance(o["process"], int):
+            continue
+        if o["type"] == "invoke":
+            open_[o["process"]] = o
+            continue
+        inv = open_.pop(o["process"], None)
+        if inv is not None:
+            lat = (o["time"] - inv["time"]) / 1e9
+            if worst is None or lat > worst[0]:
+                worst = (lat, inv["f"], o["type"], o.get("error"))
+    for inv in open_.values():
+        lat = (end - inv["time"]) / 1e9
+        if worst is None or lat > worst[0]:
+            worst = (lat, inv["f"], "never completed", None)
+    if worst is None:
+        return "no client op"
+    lat, f, typ, err = worst
+    return f"f {f}, latency {lat:.3f}s, {typ}, error {err!r}"
+
+
+def host_entry(res: dict, run_dir: Path, what: str) -> str:
+    """Checks a host-checked run's main entry (dirty reads and bank: a
+    read; the queues: no acknowledged enqueue lost, a drain after the
+    last enqueue; set: adds acknowledged, none lost) and says it."""
+    if "queue" in res:
+        q = res["queue"]
+        hist = [json.loads(ln) for ln in
+                (run_dir / "history.jsonl").read_text().splitlines()]
+        drains = [i for i, o in enumerate(hist)
+                  if o["f"] == "drain" and o["type"] == "ok"]
+        enqueues = [i for i, o in enumerate(hist) if o["f"] == "enqueue"]
+        check(q["lost-count"] == 0 and q["acknowledged-count"] > 0
+              and drains and enqueues and drains[-1] > enqueues[-1],
+              f"{what}: queue {str(q)[:300]}, drains at {drains[-3:]}, "
+              f"last enqueue {enqueues[-1:]}")
+        return ", ".join(f"{k} {q[k]}" for k in (
+            "attempt-count", "acknowledged-count", "ok-count",
+            "recovered-count", "lost-count")) + \
+            f", {len(drains)} ok drains"
+    if "ok-count" in res:
+        check(res["ok-count"] > 0 and res["lost-count"] == 0,
+              f"{what}: set {str(res)[:300]}")
+        return ", ".join(f"{k} {res[k]}" for k in (
+            "attempt-count", "ok-count", "lost-count", "unexpected-count")
+            if k in res)
+    entry = res.get("dirty-reads") or res.get("bank")
+    check(entry is not None and entry["read-count"] > 0,
+          f"{what}: no read in {str(entry)[:300]}")
+    return ", ".join(f"{k} {entry[k]}" for k in (
+        "read-count", "failed-write-count", "dirty-count",
+        "inconsistent-count") if k in entry)
+
+
+def drive_suites(n: int, runs: dict, smi: str) -> dict:
+    """Phases 22 and 23: each suite of `runs` through its own `main` with
+    the argv a user gives it, against the fakes of tests/ (loaded by
+    path), for MORE_LIMIT s under the suite's own nemesis, each path
+    with both kernels' counts set to 0 just before it and read just
+    after. Every stored run re-checked by `analyze --backend cpu` (the
+    host oracles) with its test map's checker: each entry as the host's
+    (per key for the registers), the plot entries by the matplotlib
+    rule, the exit code the whole verdict's. A run whose generator.run
+    outlasts its limit by more than SLOW_RUN s prints its slowest
+    client op. Returns per kernel, per path (launches, device ms)."""
     import importlib
     import threading
 
     t_phase = time.perf_counter()
-    base = WORK / "more"
+    base = WORK / f"suites-{n}"
     threads_before = set(threading.enumerate())
     cs_paths, dense_paths = {}, {}
     mpl = has_matplotlib()
-    say("phase 22: matplotlib is "
+    say(f"phase {n}: matplotlib is "
         + ("installed: each plot entry must be valid with its PNGs"
            if mpl else "not installed: each plot entry must be unknown "
            "with an error naming matplotlib, as the reference's"))
 
-    for what, (suite, (fake_mod, fake_cls), workload, kernel) in \
-            MORE_RUNS.items():
+    for what, (suite, (fake_mod, fake_cls), workload, kernel, extra) in \
+            runs.items():
         mod = importlib.import_module(f"jepsen_tpu_torch.suites.{suite}")
         make_name = f"{suite}_test"
         srv = getattr(load_fake(fake_mod), fake_cls)()
@@ -4898,14 +5003,14 @@ def phase_more(smi: str) -> dict:
                     {"db-hosts": {n: ("127.0.0.1", srv.port) for n in
                                   ("n1", "n2", "n3", "n4", "n5")},
                      "time-limit": MORE_LIMIT,
-                     "nemesis-interval": MORE_INTERVAL}, argv)))
+                     "nemesis-interval": MORE_INTERVAL, **extra}, argv)))
         finally:
             srv.close()
         workers_ended(what)
-        check(len(lines) == 1, f"{what}: rc {rc}, {lines}")
-        name = workload or "register"
-        host = suite_recheck(base, Path(lines[0]["dir"]),
-                             mod.workloads({})[name]()["checker"])
+        check(len(lines) == 1, f"{what}: rc {rc}, lines {lines}")
+        name = workload or DEFAULT_WORKLOAD.get(suite, "register")
+        host = suite_recheck(base, Path(lines[0]["dir"]), getattr(
+            mod, make_name)({"workload": name, **extra})["checker"])
         run_dir, res = suite_verdict(what, rc, lines, host,
                                      device=kernel is not None, mpl=mpl)
         hist = [json.loads(ln) for ln in
@@ -4965,12 +5070,20 @@ def phase_more(smi: str) -> dict:
             check(n_c == 0 and n_d == 0,
                   f"{what}: {n_c} closure_square and {n_d} "
                   "knossos_dense_scan launches")
-            entry = res.get("dirty-reads") or res.get("bank")
-            check(entry["read-count"] > 0,
-                  f"{what}: no read in {str(entry)[:300]}")
-            detail = ", ".join(f"{k} {entry[k]}" for k in (
-                "read-count", "failed-write-count", "dirty-count",
-                "inconsistent-count") if k in entry)
+            if name == "register":
+                # a plain register: the host WGL engine, as the
+                # reference's, for every key
+                keys = per_key(res)
+                engines = {r["analyzer"] for r in res["results"].values()}
+                check(keys and keys == per_key(host["res"])
+                      and all(v is True for v in keys.values())
+                      and engines == {"wgl"},
+                      f"{what}: per-key verdicts {keys} ({engines}) vs the "
+                      f"CPU WGL's {per_key(host['res'])}")
+                detail = (f"{len(keys)} keys each valid on the host WGL "
+                          "engine as the re-check's")
+            else:
+                detail = host_entry(res, run_dir, what)
             launched = "no launch"
         secs = span_secs(run_dir)
         say(f"{what} ({suite} {name}, {MORE_LIMIT}s, interval "
@@ -4979,15 +5092,19 @@ def phase_more(smi: str) -> dict:
             f"ops; {detail}; nemesis ops {fs}, {iptables} iptables "
             f"commands; generator.run {secs['generator.run']:.3f}s, "
             f"analyze {secs['analyze']:.3f}s; {launched} ({smi})")
+        if secs["generator.run"] > MORE_LIMIT + SLOW_RUN:
+            say(f"{what}: generator.run {secs['generator.run']:.3f}s for a "
+                f"{MORE_LIMIT}s limit; slowest client op: "
+                f"{slowest_op(run_dir)}")
 
     deadline = time.monotonic() + 10
     while set(threading.enumerate()) - threads_before:
-        check(time.monotonic() < deadline, "phase 22: threads left: "
+        check(time.monotonic() < deadline, f"phase {n}: threads left: "
               f"{[t.name for t in set(threading.enumerate()) - threads_before]}")
         time.sleep(0.05)
     took = time.perf_counter() - t_phase
-    check(took < 90, f"phase 22 took {took:.1f}s")
-    say(f"phase 22 in {took:.1f}s")
+    check(took < 90, f"phase {n} took {took:.1f}s")
+    say(f"phase {n} in {took:.1f}s")
     return {"closure_square": cs_paths, "knossos_dense_scan": dense_paths}
 
 
@@ -5094,10 +5211,11 @@ def main() -> int:
             baseline = phase_baseline(smi)
         paths.update(baseline["closure_square"])
         dense_paths.update(baseline["knossos_dense_scan"])
-        with phase_wall(22, say_it=False):
-            more = phase_more(smi)
-        paths.update(more["closure_square"])
-        dense_paths.update(more["knossos_dense_scan"])
+        for n, runs in ((22, MORE_RUNS), (23, QUEUE_RUNS)):
+            with phase_wall(n, say_it=False):
+                more = drive_suites(n, runs, smi)
+            paths.update(more["closure_square"])
+            dense_paths.update(more["knossos_dense_scan"])
         for rec, ps in ((record, paths), (dense_record, dense_paths)):
             rec["launches"] = sum(n for n, _ in ps.values())
             rec["paths"] = {k: {"launches": n, "device_ms": ms}

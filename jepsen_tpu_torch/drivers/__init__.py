@@ -11,6 +11,9 @@ framework carries its own minimal clients:
     cql          CQL native protocol v4 (yugabyte YCQL)
     mongo        BSON + OP_MSG (mongodb, mongodb_rocks, mongodb_smartos)
     zk           ZooKeeper's jute protocol (zookeeper)
+    resp         RESP arrays of bulk strings (disque, raftis)
+    reql         ReQL V1_0: SCRAM handshake, JSON term queries (rethinkdb)
+    amqp         AMQP 0-9-1 with PLAIN auth, one channel (rabbitmq)
 
 All are synchronous, one-socket, simple-query-protocol clients — exactly
 what a jepsen client worker needs: each worker owns one connection, and

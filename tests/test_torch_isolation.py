@@ -460,3 +460,43 @@ print("ok")
                           text=True, timeout=120, cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip() == "ok"
+
+
+def test_queue_suites_are_scanned():
+    """The AST scans above cover the raftis, rethinkdb, disque, rabbitmq
+    and robustirc suites, their RESP, ReQL and AMQP drivers, and the
+    queue, causal and cycle workloads."""
+    names = {str(p.relative_to(REPO)) for p in port_sources()}
+    assert {f"jepsen_tpu_torch/{m}.py"
+            for m in ("suites/raftis", "suites/rethinkdb", "suites/disque",
+                      "suites/rabbitmq", "suites/robustirc", "drivers/resp",
+                      "drivers/reql", "drivers/amqp", "workloads/queue",
+                      "workloads/causal", "workloads/cycle")} <= names
+
+
+def test_queue_suites_import_no_torch():
+    """The five suites, their drivers and the queue, causal and cycle
+    workloads import neither torch nor jax nor jepsen_tpu: their test
+    maps, clients and checkers are host code."""
+    code = f"""
+import sys
+for name in ("torch",) + {FORBIDDEN!r}:
+    sys.modules[name] = None          # any import of them now fails
+sys.path.insert(0, {str(REPO)!r})
+from jepsen_tpu_torch import suites
+from jepsen_tpu_torch.drivers import amqp, reql, resp
+from jepsen_tpu_torch.workloads import causal, cycle, queue
+for name in ("raftis", "rethinkdb", "disque", "rabbitmq", "robustirc"):
+    mod = suites.load_suite(name)
+    t = getattr(mod, name + "_test")({{}})
+    assert t["checker"] is not None and t["client"] is not None, name
+assert cycle.checker(lambda h: [(0, 1, "ww"), (1, 0, "ww")]).check(
+    {{}}, [{{"type": "ok"}}, {{"type": "ok"}}], {{}})["scc-count"] == 1
+assert "torch" not in [m.split(".")[0] for m in sys.modules
+                       if sys.modules[m] is not None]
+print("ok")
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "ok"

@@ -560,7 +560,7 @@ class _StatusHandler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(b"{}")
 
-    do_GET = do_PUT = _answer
+    do_GET = do_PUT = do_POST = _answer
 
 
 @contextlib.contextmanager
