@@ -138,7 +138,7 @@ failure:
               subprocess (`python -m jepsen_tpu_torch.tools.pool_smoke`,
               which, unlike this script, imports no torch in the
               workers spawn re-imports it in). /dev/shm's size first.
-              A store of 96 list-append runs at phase 4's width (every
+              A store of 80 list-append runs at phase 4's width (every
               8th with G1c): (a) every encoding the pool delivers equals
               the serial path's, array for array and in run order
               (the cache off, so both parse; phase 5's wr store too),
@@ -369,6 +369,25 @@ failure:
               queues lose no acknowledged enqueue and drain after the
               limit, the sets lose no add. Each stored run re-checked as
               in phase 22. It takes under 90 s.
+ 24. wire     phase 22's shape for the aerospike, ignite, hazelcast and
+              faunadb suites over their own wire drivers, against the
+              fakes of tests/ on the port's codecs (fake_torch_aerospike,
+              fake_torch_ignite, fake_torch_hazelcast: the reference's
+              fakes executed on the port's codec; fake_fauna, standard
+              library only). The first three clients connect to the
+              node's name at their client class's `port`: those runs
+              take `--node 127.0.0.1` and the class's port is set to the
+              fake's for the run and restored after it (one node: the
+              partitioner cuts no link). faunadb reaches its fake through
+              `db-hosts`. aerospike, ignite and faunadb `register` (a
+              fresh CAS register: knossos_dense_scan, one launch for all
+              keys, the device time from a one-thread re-check),
+              aerospike `counter`, ignite `bank`, hazelcast `queue` (the
+              drain after the limit) and `lock` (the mutex: the host WGL
+              engine) and faunadb `set` (host checkers, no launch). Each
+              stored run re-checked as in phase 22; the phase says
+              whether `hashlib` has RIPEMD-160 (aerospike's record
+              digest). It takes under 90 s.
 
 Every phase prints its wall (phases 1-13 through `phase_wall`), and the
 script ends with all of them in one line.
@@ -496,10 +515,10 @@ SMALL_RUNS = 8
 SMALL_LONG_T, SMALL_LONG_K, SMALL_LONG_GAP, SMALL_LONG_LIMIT = \
     3000, 16, 1003, 1000
 #: Phase 13: the pooled sweep's store (BASELINE config #4's 1k-history
-#: batch cut to 96, which keeps the whole smoke within its time: a
-#: chunk of 64 and one of 32, so ingest can overlap the device) at phase
+#: batch cut to 80, which keeps the whole smoke within its time: a
+#: chunk of 64 and one of 16, so ingest can overlap the device) at phase
 #: 4's width, and the kill nemesis's rate.
-POOL_RUNS = 96
+POOL_RUNS = 80
 POOL_KILL = "kill:0.05"
 #: Phase 18's two shards and the coordinator's wait in its full fleet.
 MESH_SHARDS, MESH_WAIT_S = 2, 300
@@ -4893,6 +4912,40 @@ QUEUE_RUNS = {
                                           "FakeRobustIRCServer"),
                             "set", None, {"tls": False}),
 }
+#: Phase 24: the aerospike, ignite, hazelcast and faunadb suites over
+#: their own wire drivers. aerospike, ignite and faunadb take
+#: `standard_workloads`' register (a fresh CAS register: the device
+#: tiers, one knossos_dense_scan launch for all keys); hazelcast's lock
+#: is the mutex, which the host WGL engine checks.
+WIRE_RUNS = {
+    "suite-aerospike-register": ("aerospike", ("fake_torch_aerospike",
+                                               "FakeAerospikeServer"),
+                                 "register", "dense", {}),
+    "suite-aerospike-counter": ("aerospike", ("fake_torch_aerospike",
+                                              "FakeAerospikeServer"),
+                                "counter", None, {}),
+    "suite-ignite-register": ("ignite", ("fake_torch_ignite",
+                                         "FakeIgniteServer"),
+                              "register", "dense", {}),
+    "suite-ignite-bank": ("ignite", ("fake_torch_ignite",
+                                     "FakeIgniteServer"),
+                          "bank", None, {}),
+    "suite-hazelcast-queue": ("hazelcast", ("fake_torch_hazelcast",
+                                            "FakeHazelcastServer"),
+                              "queue", None, {}),
+    "suite-hazelcast-lock": ("hazelcast", ("fake_torch_hazelcast",
+                                           "FakeHazelcastServer"),
+                             "lock", None, {}),
+    "suite-faunadb-register": ("faunadb", ("fake_fauna", "FakeFaunaServer"),
+                               "register", "dense", {}),
+    "suite-faunadb-set": ("faunadb", ("fake_fauna", "FakeFaunaServer"),
+                          "set", None, {}),
+}
+#: The suites whose clients connect to the node's name at a class
+#: attribute's port (suite -> the client class): their runs take
+#: `--node 127.0.0.1`, with the class's port set to the fake's.
+CLASS_PORTS = {"aerospike": "_AsClient", "ignite": "_IgClient",
+               "hazelcast": "_HzClient"}
 #: The suites whose register checker fans out a thread a key (compose of
 #: timeline and linear inside independent.checker): one dense launch a
 #: dense key, device ms from a one-thread re-check (phase 21's etcd).
@@ -4934,8 +4987,17 @@ def host_entry(res: dict, run_dir: Path, what: str) -> str:
     """Checks a host-checked run's main entry (dirty reads and bank: a
     read; the queues: no acknowledged enqueue lost, a drain after the
     last enqueue; set: adds acknowledged, none lost) and says it."""
-    if "queue" in res:
-        q = res["queue"]
+    if "analyzer" in res:
+        # the mutex: a linearizability verdict of the host WGL engine
+        check(res["analyzer"] == "wgl" and res["valid?"] is True,
+              f"{what}: lock {str(res)[:300]}")
+        return f"analyzer {res['analyzer']}, valid {res['valid?']}"
+    if "reads" in res and "errors" in res:
+        check(res["reads"] and not res["errors"],
+              f"{what}: counter {str(res)[:300]}")
+        return f"{len(res['reads'])} counter reads in bounds"
+    if "queue" in res or "duplicated-count" in res:
+        q = res.get("queue", res)
         hist = [json.loads(ln) for ln in
                 (run_dir / "history.jsonl").read_text().splitlines()]
         drains = [i for i, o in enumerate(hist)
@@ -4964,16 +5026,19 @@ def host_entry(res: dict, run_dir: Path, what: str) -> str:
 
 
 def drive_suites(n: int, runs: dict, smi: str) -> dict:
-    """Phases 22 and 23: each suite of `runs` through its own `main` with
-    the argv a user gives it, against the fakes of tests/ (loaded by
-    path), for MORE_LIMIT s under the suite's own nemesis, each path
+    """Phases 22, 23 and 24: each suite of `runs` through its own `main`
+    with the argv a user gives it, against the fakes of tests/ (loaded
+    by path), for MORE_LIMIT s under the suite's own nemesis, each path
     with both kernels' counts set to 0 just before it and read just
-    after. Every stored run re-checked by `analyze --backend cpu` (the
-    host oracles) with its test map's checker: each entry as the host's
-    (per key for the registers), the plot entries by the matplotlib
-    rule, the exit code the whole verdict's. A run whose generator.run
-    outlasts its limit by more than SLOW_RUN s prints its slowest
-    client op. Returns per kernel, per path (launches, device ms)."""
+    after. A suite of CLASS_PORTS runs on `--node 127.0.0.1` with its
+    client class's port set to the fake's, and restored after. Every
+    stored run re-checked by `analyze --backend cpu` (the host oracles)
+    with its test map's checker: each entry as the host's (per key for
+    the registers), the plot entries by the matplotlib rule, the exit
+    code the whole verdict's. A run whose generator.run outlasts its
+    limit by more than SLOW_RUN s prints its slowest client op. Returns
+    per kernel, per path (launches, device ms).
+    """
     import importlib
     import threading
 
@@ -4987,25 +5052,38 @@ def drive_suites(n: int, runs: dict, smi: str) -> dict:
            if mpl else "not installed: each plot entry must be unknown "
            "with an error naming matplotlib, as the reference's"))
 
+    if n == 24:
+        import hashlib
+        say(f"phase {n}: hashlib has ripemd160: "
+            f"{'ripemd160' in hashlib.algorithms_available}")
     for what, (suite, (fake_mod, fake_cls), workload, kernel, extra) in \
             runs.items():
         mod = importlib.import_module(f"jepsen_tpu_torch.suites.{suite}")
         make_name = f"{suite}_test"
-        srv = getattr(load_fake(fake_mod), fake_cls)()
         argv = ["test", "--store", str(base / what), "--concurrency",
                 str(MORE_CONC)]
         if workload:
             argv += ["--workload", workload]
-        try:
-            ((rc, lines, remote), n_d, ms_d), n_c, ms_c = counted(
-                lambda: counted_dense(lambda: suite_main(
-                    mod, make_name,
-                    {"db-hosts": {n: ("127.0.0.1", srv.port) for n in
-                                  ("n1", "n2", "n3", "n4", "n5")},
-                     "time-limit": MORE_LIMIT,
-                     "nemesis-interval": MORE_INTERVAL, **extra}, argv)))
-        finally:
-            srv.close()
+        port_cls = getattr(mod, CLASS_PORTS[suite]) \
+            if suite in CLASS_PORTS else None
+        if port_cls is not None:
+            argv += ["--node", "127.0.0.1"]
+        with getattr(load_fake(fake_mod), fake_cls)() as srv:
+            if port_cls is not None:
+                saved_port = port_cls.port
+                port_cls.port = srv.port
+            try:
+                ((rc, lines, remote), n_d, ms_d), n_c, ms_c = counted(
+                    lambda: counted_dense(lambda: suite_main(
+                        mod, make_name,
+                        {"db-hosts": {n: ("127.0.0.1", srv.port) for n in
+                                      ("n1", "n2", "n3", "n4", "n5")},
+                         "time-limit": MORE_LIMIT,
+                         "nemesis-interval": MORE_INTERVAL, **extra},
+                        argv)))
+            finally:
+                if port_cls is not None:
+                    port_cls.port = saved_port
         workers_ended(what)
         check(len(lines) == 1, f"{what}: rc {rc}, lines {lines}")
         name = workload or DEFAULT_WORKLOAD.get(suite, "register")
@@ -5021,8 +5099,10 @@ def drive_suites(n: int, runs: dict, smi: str) -> dict:
         fs = nemesis_ops(run_dir)
         iptables = sum("iptables -A INPUT" in p for _n, k, p in
                        remote.actions if k == "execute")
+        # postgres_rds's nemesis is the noop; one node cuts no link
         check(fs.get("start") and set(fs) <= {"start", "stop"}
-              and (iptables > 0) == (suite != "postgres_rds"),
+              and (iptables > 0) == (suite != "postgres_rds"
+                                     and port_cls is None),
               f"{what}: nemesis ops {fs}, {iptables} iptables commands")
         if kernel == "dense":
             keys = per_key(res)
@@ -5034,16 +5114,18 @@ def drive_suites(n: int, runs: dict, smi: str) -> dict:
                   f"{what}: {n_d} knossos_dense_scan and {n_c} "
                   "closure_square launches")
             detail = f"{len(keys)} keys each valid as the CPU WGL's"
+            tiers: dict = {}
+            for r in res["results"].values():
+                a = (r["linear"] if suite in FANOUT else r).get("analyzer")
+                tiers[a] = tiers.get(a, 0) + 1
             if suite in FANOUT:
-                tiers: dict = {}
-                for r in res["results"].values():
-                    a = r["linear"].get("analyzer")
-                    tiers[a] = tiers.get(a, 0) + 1
                 check(n_d == tiers.get("tpu-dense", 0),
                       f"{what}: {n_d} launches for tiers {tiers} (one "
                       "a dense key)")
+            if suite in FANOUT or n == 24:
                 # the fan-out's event pairs also bracket waits on the
-                # interpreter lock: the device time from one thread
+                # interpreter lock: the device time from one thread (for
+                # phase 24's batch route too, to compare like with like)
                 with one_thread():
                     again, n_1, ms_d1 = counted_dense(lambda: suite_recheck(
                         base, run_dir, mod.workloads(
@@ -5055,7 +5137,7 @@ def drive_suites(n: int, runs: dict, smi: str) -> dict:
                       "times or differs from the run's per-key results")
                 detail += (f", tiers {tiers}; {ms_d1} ms of device time "
                            f"on one thread ({ms_d} ms of event pairs in "
-                           "the run's fan-out)")
+                           "the run)")
                 ms_d = ms_d1
             dense_paths[what] = (n_d, ms_d)
             launched = f"{n_d} knossos_dense_scan launches ({ms_d} ms)"
@@ -5211,7 +5293,8 @@ def main() -> int:
             baseline = phase_baseline(smi)
         paths.update(baseline["closure_square"])
         dense_paths.update(baseline["knossos_dense_scan"])
-        for n, runs in ((22, MORE_RUNS), (23, QUEUE_RUNS)):
+        for n, runs in ((22, MORE_RUNS), (23, QUEUE_RUNS),
+                        (24, WIRE_RUNS)):
             with phase_wall(n, say_it=False):
                 more = drive_suites(n, runs, smi)
             paths.update(more["closure_square"])

@@ -14,6 +14,10 @@ framework carries its own minimal clients:
     resp         RESP arrays of bulk strings (disque, raftis)
     reql         ReQL V1_0: SCRAM handshake, JSON term queries (rethinkdb)
     amqp         AMQP 0-9-1 with PLAIN auth, one channel (rabbitmq)
+    aerospike_msg  Aerospike's info and message protocols (aerospike)
+    ignite_thin  Ignite's thin-client binary protocol (ignite)
+    hazelcast_proto  Hazelcast's Open Client Protocol 1.x (hazelcast)
+    fauna_http   FaunaDB's FQL wire JSON over HTTP (faunadb)
 
 All are synchronous, one-socket, simple-query-protocol clients — exactly
 what a jepsen client worker needs: each worker owns one connection, and

@@ -39,10 +39,11 @@ SUITES = (
 
 
 #: The suites of SUITES the port has; the others are still to port.
-PORTED = ("cockroach", "consul", "dgraph", "disque", "etcd", "galera",
-          "mongodb", "mongodb_rocks", "mongodb_smartos", "mysql_cluster",
-          "percona", "postgres_rds", "rabbitmq", "raftis", "rethinkdb",
-          "robustirc", "tidb", "yugabyte", "zookeeper")
+PORTED = ("aerospike", "cockroach", "consul", "dgraph", "disque", "etcd",
+          "faunadb", "galera", "hazelcast", "ignite", "mongodb",
+          "mongodb_rocks", "mongodb_smartos", "mysql_cluster", "percona",
+          "postgres_rds", "rabbitmq", "raftis", "rethinkdb", "robustirc",
+          "tidb", "yugabyte", "zookeeper")
 
 
 class SuiteNotPorted(NotImplementedError):

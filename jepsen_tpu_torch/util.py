@@ -7,15 +7,17 @@ sub-checkers through it, `control.on_nodes` its nodes), `bounded_pmap`
 it), `majority`/`minority` (the nemesis's grudges), the relative-time
 plumbing the test runner stamps ops with (util.clj:290-330), the retry
 and timeout helpers (util.clj:359), `chunk_vec`, `name_of`, the
-interval-set rendering of the set checker, and the latency pairing and
+interval-set rendering of the set checker, the latency pairing and
 nemesis intervals under the plot checkers (reference util.clj:548,
-619-700). Standard library only: the ingest pool's workers import the
+619-700), and `iso_to_epoch` (faunadb's timestamp order). Standard
+library only: the ingest pool's workers import the
 checker package.
 """
 
 from __future__ import annotations
 
 import os
+import re as _re
 import threading
 import time as _time
 from concurrent.futures import ThreadPoolExecutor
@@ -94,6 +96,29 @@ def relative_time_nanos() -> int:
 def sleep_nanos(dt: int) -> None:
     if dt > 0:
         _time.sleep(dt / 1e9)
+
+
+_ISO_FRAC = _re.compile(r"[.,](\d+)(?=$|[Z+\-])")
+
+
+def iso_to_epoch(s: str) -> float:
+    """ISO-8601 string -> epoch seconds, preserving FULL fractional
+    precision. datetime.fromisoformat silently truncates fractions
+    beyond 6 digits (`date -Ins` and Fauna @ts strings carry 9), which
+    collapses nanosecond-distinct timestamps onto one microsecond —
+    so the fraction is split off and re-added exactly. Comma fractions
+    (valid ISO, emitted by `date` in some locales) are handled; naive
+    strings are interpreted as LOCAL time, matching the naive producer
+    (core.py's start-time)."""
+    from datetime import datetime
+    frac = 0.0
+    m = _ISO_FRAC.search(s)
+    if m:
+        digits = m.group(1)
+        frac = int(digits) / 10 ** len(digits)
+        s = s[:m.start()] + s[m.end():]
+    s = s.replace("Z", "+00:00")
+    return datetime.fromisoformat(s).timestamp() + frac
 
 
 class RetryFailed(Exception):

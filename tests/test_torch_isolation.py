@@ -500,3 +500,126 @@ print("ok")
                           text=True, timeout=120, cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip() == "ok"
+
+
+#: The aerospike, ignite, hazelcast and faunadb suites and their wire
+#: drivers.
+WIRE_SUITES = ("suites/aerospike", "suites/ignite", "suites/hazelcast",
+               "suites/faunadb", "drivers/aerospike_msg",
+               "drivers/ignite_thin", "drivers/hazelcast_proto",
+               "drivers/fauna_http")
+#: tests/fake_torch_*.py wrapper -> the reference codec it stands in for
+PORT_FAKES = {"fake_torch_aerospike": "aerospike_msg",
+              "fake_torch_ignite": "ignite_thin",
+              "fake_torch_hazelcast": "hazelcast_proto"}
+
+
+def test_wire_suites_are_scanned():
+    """The AST and string scans above cover the four suites and their
+    drivers."""
+    names = {str(p.relative_to(REPO)) for p in port_sources()}
+    assert {f"jepsen_tpu_torch/{m}.py" for m in WIRE_SUITES} <= names
+
+
+def test_wire_suites_import_no_torch():
+    """The four suites and their drivers import neither torch nor jax nor
+    jepsen_tpu: their test maps, clients and checkers are host code;
+    `util.iso_to_epoch` is the port's."""
+    code = f"""
+import sys
+for name in ("torch",) + {FORBIDDEN!r}:
+    sys.modules[name] = None          # any import of them now fails
+sys.path.insert(0, {str(REPO)!r})
+from jepsen_tpu_torch import suites, util
+from jepsen_tpu_torch.drivers import (aerospike_msg, fauna_http,
+                                      hazelcast_proto, ignite_thin)
+for name, w in (("aerospike", "register"), ("ignite", "bank"),
+                ("hazelcast", "queue"), ("faunadb", "multimonotonic")):
+    mod = suites.load_suite(name)
+    t = getattr(mod, name + "_test")({{"workload": w}})
+    assert t["checker"] is not None and t["client"] is not None, name
+assert len(aerospike_msg.key_digest("jepsen", 1)) == 20
+assert util.iso_to_epoch("1970-01-01T00:00:01.000000001Z") > 1
+assert "torch" not in [m.split(".")[0] for m in sys.modules
+                       if sys.modules[m] is not None]
+print("ok")
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("rel", ["suites/specs/aerospike.tla",
+                                 "suites/resources/SetUnionMergePolicy.java"])
+def test_wire_suite_resources_are_the_references_bytes(rel):
+    assert (PKG / rel).read_bytes() == (REPO / "jepsen_tpu" / rel).read_bytes()
+
+
+def test_hazelcast_setup_uploads_the_ports_own_merge_policy():
+    from jepsen_tpu_torch import control
+    from jepsen_tpu_torch.suites import hazelcast
+    test = hazelcast.hazelcast_test({"ssh": {"dummy": True},
+                                     "nodes": ["n1"]})
+    control.on_nodes(test, lambda t, n: t["db"].setup(t, n))
+    ups = [p for _n, k, p in test["remote"].actions if k == "upload"]
+    assert len(ups) == 1
+    local = Path(ups[0][0]).resolve()
+    assert local == PKG / "suites" / "resources" / "SetUnionMergePolicy.java"
+    assert PKG in local.parents
+
+
+@pytest.mark.parametrize("wrapper", sorted(PORT_FAKES))
+def test_port_fake_wrappers_name_only_their_stand_ins(wrapper):
+    """A wrapper imports nothing of jax or the JAX package (AST scan); the
+    only reference modules it names are the `sys.modules` keys it stands
+    in for while the fake's file executes."""
+    path = REPO / "tests" / f"{wrapper}.py"
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            assert n.split(".")[0] not in FORBIDDEN, (node.lineno, n)
+    found = {s for _ln, s in reference_module_strings(path.read_text())}
+    assert found == {"jepsen_tpu.drivers",
+                     f"jepsen_tpu.drivers.{PORT_FAKES[wrapper]}"}
+
+
+def test_port_fake_wrappers_load_with_jax_and_reference_blocked():
+    """With jax and jepsen_tpu blocked, each wrapper loads its fake on the
+    port's codec and serves a round trip; afterwards every blocked entry
+    is as it was and no other `jepsen_tpu*` module is in `sys.modules`."""
+    code = f"""
+import sys
+for name in {FORBIDDEN!r}:
+    sys.modules[name] = None          # any import of them now fails
+sys.path[:0] = [{str(REPO)!r}, {str(REPO / "tests")!r}]
+import fake_torch_aerospike, fake_torch_hazelcast, fake_torch_ignite
+from jepsen_tpu_torch.drivers import (aerospike_msg, hazelcast_proto,
+                                      ignite_thin)
+with fake_torch_aerospike.FakeAerospikeServer() as s:
+    c = aerospike_msg.AsConn("127.0.0.1", s.port)
+    c.put(1, {{"value": 7}})
+    assert c.get(1)["bins"] == {{"value": 7}}
+with fake_torch_ignite.FakeIgniteServer() as s:
+    c = ignite_thin.IgniteConn("127.0.0.1", s.port)
+    c.put("jepsen", "k", 5)
+    assert c.get("jepsen", "k") == 5
+with fake_torch_hazelcast.FakeHazelcastServer() as s:
+    c = hazelcast_proto.HzConn("127.0.0.1", s.port)
+    assert c.queue_offer("q", 3) and c.queue_poll("q") == 3
+assert all(sys.modules[n] is None for n in {FORBIDDEN!r})
+left = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}
+        and m not in {FORBIDDEN!r}]
+assert not left, left
+print("ok")
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "ok"

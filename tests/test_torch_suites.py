@@ -111,10 +111,11 @@ def test_suite_registry_loads_the_ported_suites():
                            match=f"suite {name!r} is not ported"):
             port_suites.load_suite(name)
     assert set(port_suites.PORTED) == {
-        "cockroach", "consul", "dgraph", "disque", "etcd", "galera",
-        "mongodb", "mongodb_rocks", "mongodb_smartos", "mysql_cluster",
-        "percona", "postgres_rds", "rabbitmq", "raftis", "rethinkdb",
-        "robustirc", "tidb", "yugabyte", "zookeeper"}
+        "aerospike", "cockroach", "consul", "dgraph", "disque", "etcd",
+        "faunadb", "galera", "hazelcast", "ignite", "mongodb",
+        "mongodb_rocks", "mongodb_smartos", "mysql_cluster", "percona",
+        "postgres_rds", "rabbitmq", "raftis", "rethinkdb", "robustirc",
+        "tidb", "yugabyte", "zookeeper"}
     with pytest.raises(ValueError, match="unknown suite"):
         port_suites.load_suite("nope")
 
