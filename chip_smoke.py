@@ -138,7 +138,7 @@ failure:
               subprocess (`python -m jepsen_tpu_torch.tools.pool_smoke`,
               which, unlike this script, imports no torch in the
               workers spawn re-imports it in). /dev/shm's size first.
-              A store of 80 list-append runs at phase 4's width (every
+              A store of 72 list-append runs at phase 4's width (every
               8th with G1c): (a) every encoding the pool delivers equals
               the serial path's, array for array and in run order
               (the cache off, so both parse; phase 5's wr store too),
@@ -388,6 +388,24 @@ failure:
               stored run re-checked as in phase 22; the phase says
               whether `hashlib` has RIPEMD-160 (aerospike's record
               digest). It takes under 90 s.
+ 25. last     phase 22's shape for the last five suites and the store
+              browser: `crate` over the pg wire (FakePGServer) with
+              `register` (a fresh CAS register: one knossos_dense_scan
+              launch for all keys, every key `tpu-dense`), `wr` (the
+              rw-register checker: closure_square; crate's menu has no
+              `append`), `version-divergence` and `lost-updates` (host
+              checkers); `logcabin` register through the TreeOps remote
+              of tests/fake_torch_treeops.py (one dense launch for all
+              keys); `elasticsearch` set and dirty-read (FakeESServer);
+              `chronos` schedule for 50 s (so a job's first target falls
+              due before the final read whatever its epsilon and
+              duration: target-count >= 1, missed-count 0) and jobs,
+              against tests/fake_torch_chronos.py; `charybdefs`
+              file-faults on the dummy remote. Each stored run re-checked
+              as in phase 22. Then `python -m jepsen_tpu_torch.cli serve
+              --web` over a store of the phase's runs: the run table, a
+              run's listing, a file and its zip held to the store's
+              bytes, `..` refused. It takes under 160 s.
 
 Every phase prints its wall (phases 1-13 through `phase_wall`), and the
 script ends with all of them in one line.
@@ -423,7 +441,9 @@ phase 21's (`suite-etcd-register`, `suite-ysql-append`,
 (`suite-raftis-register`, `suite-rethinkdb-register`,
 `suite-rethinkdb-set`, `suite-disque-queue`, `suite-rabbitmq-queue`,
 `suite-robustirc-set`) are driven and read the same way, and must
-launch neither kernel.
+launch neither kernel; so are phase 24's and phase 25's, where only
+`suite-crate-register` and `suite-logcabin-register` (knossos_dense_scan)
+and `suite-crate-wr` (closure_square) launch one.
 
 The last lines are a `{"kernels": [...]}` record per kernel (with its
 launches and summed device milliseconds per path), the nvidia-smi line,
@@ -515,10 +535,10 @@ SMALL_RUNS = 8
 SMALL_LONG_T, SMALL_LONG_K, SMALL_LONG_GAP, SMALL_LONG_LIMIT = \
     3000, 16, 1003, 1000
 #: Phase 13: the pooled sweep's store (BASELINE config #4's 1k-history
-#: batch cut to 80, which keeps the whole smoke within its time: a
-#: chunk of 64 and one of 16, so ingest can overlap the device) at phase
+#: batch cut to 72, which keeps the whole smoke within its time: a
+#: chunk of 64 and one of 8, so ingest can overlap the device) at phase
 #: 4's width, and the kill nemesis's rate.
-POOL_RUNS = 80
+POOL_RUNS = 72
 POOL_KILL = "kill:0.05"
 #: Phase 18's two shards and the coordinator's wait in its full fleet.
 MESH_SHARDS, MESH_WAIT_S = 2, 300
@@ -4522,15 +4542,18 @@ def phase_suites(smi: str) -> dict:
     return {"closure_square": cs_paths, "knossos_dense_scan": dense_paths}
 
 
-def suite_main(mod, make_name: str, extra: dict, argv: list) -> tuple:
+def suite_main(mod, make_name: str, extra: dict, argv: list,
+               remote=None) -> tuple:
     """`mod.main(argv)`, a suite's own entry point (with `--dummy`, and
     `--device` unless DEVICE is cuda), with `mod.<make_name>` wrapped
     for the fakes: `extra` added to its opts, db and os dropped (the
     fakes have no daemons; a fault package keeps the suite's DB), the
-    iptables net and a DummyRemote set. Returns (exit code, JSON lines,
-    the dummy remote)."""
+    iptables net and `remote` (a fake that plays the nodes' commands;
+    default a DummyRemote) set. Returns (exit code, JSON lines, the
+    remote)."""
     from jepsen_tpu_torch import control, net
-    remote = control.DummyRemote()
+    if remote is None:
+        remote = control.DummyRemote()
     real = getattr(mod, make_name)
     dev_args = [] if DEVICE == "cuda" else ["--device", DEVICE]
 
@@ -4941,6 +4964,55 @@ WIRE_RUNS = {
     "suite-faunadb-set": ("faunadb", ("fake_fauna", "FakeFaunaServer"),
                           "set", None, {}),
 }
+#: Phase 25: the last five suites. crate's register (`standard_workloads`'
+#: fresh CAS register: one knossos_dense_scan launch for all keys) and wr
+#: (the rw-register checker: closure_square; crate's menu has no append)
+#: over the pg wire, its `_version` workloads (host checkers); logcabin's
+#: register through the TreeOps remote of tests/fake_torch_treeops.py
+#: (one dense launch for all keys); elasticsearch's set and dirty-read;
+#: chronos's schedule and jobs against tests/fake_torch_chronos.py (the
+#: scheduler over HTTP, the run files over the control plane); and
+#: charybdefs's file faults on the dummy remote. A fake of None: the
+#: dummy remote alone.
+LAST_RUNS = {
+    "suite-crate-register": ("crate", ("fake_sql", "FakePGServer"),
+                             "register", "dense", {}),
+    "suite-crate-wr": ("crate", ("fake_sql", "FakePGServer"), "wr",
+                       "closure", {}),
+    "suite-crate-version-divergence": ("crate", ("fake_sql",
+                                                 "FakePGServer"),
+                                       "version-divergence", None,
+                                       {"keys-concurrent": 5,
+                                        "readers": 2}),
+    # each key's adds, quiescence and final read inside the limit
+    "suite-crate-lost-updates": ("crate", ("fake_sql", "FakePGServer"),
+                                 "lost-updates", None,
+                                 {"time-limit": 3, "quiesce": 0.5,
+                                  "keys-concurrent": 5, "key-count": 2}),
+    "suite-logcabin-register": ("logcabin", ("fake_torch_treeops",
+                                             "FakeTreeOpsRemote"),
+                                None, "dense", {}),
+    # 100 adds (the suite's default is 500): all acknowledged and the
+    # set read well inside the limit
+    "suite-elasticsearch-set": ("elasticsearch", ("fake_misc",
+                                                  "FakeESServer"),
+                                "set", None, {"set-size": 100}),
+    "suite-elasticsearch-dirty-read": ("elasticsearch", (
+        "fake_misc", "FakeESServer"), "dirty-read", None, {"quiesce": 0.2}),
+    "suite-chronos-schedule": ("chronos", ("fake_torch_chronos",
+                                           "FakeChronos"),
+                               "schedule", None,
+                               {"time-limit": 50}),
+    "suite-chronos-jobs": ("chronos", ("fake_torch_chronos",
+                                       "FakeChronos"), "jobs", None, {}),
+    "suite-charybdefs-file-faults": ("charybdefs", None, None, None, {}),
+}
+#: How long each phase may take (s): 90 but for phase 25, whose chronos
+#: schedule run alone takes 50 s. A job's first target is 10 s after it
+#: is added (at the run's start) and is due by the final read only once
+#: its epsilon (up to 29 s) and duration (up to 9 s) have passed: a 50 s
+#: limit makes at least one target due whatever the draw.
+PHASE_LIMIT_S = {25: 160}
 #: The suites whose clients connect to the node's name at a class
 #: attribute's port (suite -> the client class): their runs take
 #: `--node 127.0.0.1`, with the class's port set to the fake's.
@@ -4951,7 +5023,8 @@ CLASS_PORTS = {"aerospike": "_AsClient", "ignite": "_IgClient",
 #: dense key, device ms from a one-thread re-check (phase 21's etcd).
 FANOUT = ("zookeeper", "consul")
 #: Each suite's default workload (its `main` without --workload).
-DEFAULT_WORKLOAD = {"disque": "queue", "rabbitmq": "queue"}
+DEFAULT_WORKLOAD = {"disque": "queue", "rabbitmq": "queue",
+                    "charybdefs": "file-faults"}
 
 
 def slowest_op(run_dir: Path) -> str:
@@ -4987,6 +5060,40 @@ def host_entry(res: dict, run_dir: Path, what: str) -> str:
     """Checks a host-checked run's main entry (dirty reads and bank: a
     read; the queues: no acknowledged enqueue lost, a drain after the
     last enqueue; set: adds acknowledged, none lost) and says it."""
+    if "target-count" in res:
+        # chronos's schedule: every target due by the final read met
+        check(res["target-count"] >= 1 and res["missed-count"] == 0,
+              f"{what}: schedule {str(res)[:300]}")
+        return ", ".join(f"{k} {res[k]}" for k in (
+            "target-count", "missed-count", "extra-count")) + \
+            f", {len(res['jobs'])} jobs"
+    if "stats" in res and "exceptions" in res:
+        check(res["stats"]["count"] > 0,
+              f"{what}: stats {str(res)[:300]}")
+        return f"stats count {res['stats']['count']}"
+    if "results" in res:
+        # crate's _version workloads: a verdict a key
+        per = res["results"]
+        check(per and all(v["valid?"] is True for v in per.values()),
+              f"{what}: per-key {str(per)[:300]}")
+        if any("version-count" in v for v in per.values()):
+            return (f"{len(per)} keys, versions read "
+                    f"{sum(v['version-count'] for v in per.values())}")
+        check(all(v["lost-count"] == 0 for v in per.values())
+              and any(v["ok-count"] > 0 for v in per.values()),
+              f"{what}: per-key sets {str(per)[:300]}")
+        return (f"{len(per)} keys, ok-count "
+                f"{sum(v['ok-count'] for v in per.values())}, none lost")
+    if "dirty-read" in res:
+        dr = res["dirty-read"]
+        check(dr["strong-read-count"] >= 1 and dr["dirty-count"] == 0
+              and dr["lost-count"] == 0,
+              f"{what}: dirty-read {str(dr)[:300]}")
+        return ", ".join(f"{k} {dr[k]}" for k in (
+            "strong-read-count", "read-count", "on-all-count",
+            "dirty-count", "lost-count"))
+    if "set" in res:
+        res = res["set"]
     if "analyzer" in res:
         # the mutex: a linearizability verdict of the host WGL engine
         check(res["analyzer"] == "wgl" and res["valid?"] is True,
@@ -5026,18 +5133,21 @@ def host_entry(res: dict, run_dir: Path, what: str) -> str:
 
 
 def drive_suites(n: int, runs: dict, smi: str) -> dict:
-    """Phases 22, 23 and 24: each suite of `runs` through its own `main`
+    """Phases 22 to 25: each suite of `runs` through its own `main`
     with the argv a user gives it, against the fakes of tests/ (loaded
-    by path), for MORE_LIMIT s under the suite's own nemesis, each path
-    with both kernels' counts set to 0 just before it and read just
-    after. A suite of CLASS_PORTS runs on `--node 127.0.0.1` with its
-    client class's port set to the fake's, and restored after. Every
-    stored run re-checked by `analyze --backend cpu` (the host oracles)
-    with its test map's checker: each entry as the host's (per key for
-    the registers), the plot entries by the matplotlib rule, the exit
-    code the whole verdict's. A run whose generator.run outlasts its
-    limit by more than SLOW_RUN s prints its slowest client op. Returns
-    per kernel, per path (launches, device ms).
+    by path), for MORE_LIMIT s (or the run's own "time-limit") under the
+    suite's own nemesis, each path with both kernels' counts set to 0
+    just before it and read just after. A suite of CLASS_PORTS runs on
+    `--node 127.0.0.1` with its client class's port set to the fake's,
+    and restored after; a fake that is a remote (it plays the nodes'
+    commands) is the run's remote. Every stored run re-checked by
+    `analyze --backend cpu` (the host oracles) with its test map's
+    checker: each entry as the host's (per key for the registers), the
+    plot entries by the matplotlib rule, the exit code the whole
+    verdict's. A run whose generator.run outlasts its limit by more than
+    SLOW_RUN s prints its slowest client op. Phase 25 then serves its
+    runs through `serve --web` (`web_check`). Returns per kernel, per
+    path (launches, device ms).
     """
     import importlib
     import threading
@@ -5056,8 +5166,10 @@ def drive_suites(n: int, runs: dict, smi: str) -> dict:
         import hashlib
         say(f"phase {n}: hashlib has ripemd160: "
             f"{'ripemd160' in hashlib.algorithms_available}")
-    for what, (suite, (fake_mod, fake_cls), workload, kernel, extra) in \
-            runs.items():
+    run_dirs = {}
+    for what, (suite, fake, workload, kernel, extra) in runs.items():
+        fake_mod, fake_cls = fake or (None, "DummyRemote")
+        limit = extra.get("time-limit", MORE_LIMIT)
         mod = importlib.import_module(f"jepsen_tpu_torch.suites.{suite}")
         make_name = f"{suite}_test"
         argv = ["test", "--store", str(base / what), "--concurrency",
@@ -5068,19 +5180,22 @@ def drive_suites(n: int, runs: dict, smi: str) -> dict:
             if suite in CLASS_PORTS else None
         if port_cls is not None:
             argv += ["--node", "127.0.0.1"]
-        with getattr(load_fake(fake_mod), fake_cls)() as srv:
+        with (getattr(load_fake(fake_mod), fake_cls)() if fake_mod
+              else contextlib.nullcontext()) as srv:
             if port_cls is not None:
                 saved_port = port_cls.port
                 port_cls.port = srv.port
+            hosts = {n: ("127.0.0.1", srv.port) for n in
+                     ("n1", "n2", "n3", "n4", "n5")} \
+                if getattr(srv, "port", None) else {}
             try:
                 ((rc, lines, remote), n_d, ms_d), n_c, ms_c = counted(
                     lambda: counted_dense(lambda: suite_main(
                         mod, make_name,
-                        {"db-hosts": {n: ("127.0.0.1", srv.port) for n in
-                                      ("n1", "n2", "n3", "n4", "n5")},
-                         "time-limit": MORE_LIMIT,
+                        {"db-hosts": hosts, "time-limit": MORE_LIMIT,
                          "nemesis-interval": MORE_INTERVAL, **extra},
-                        argv)))
+                        argv, remote=srv if hasattr(srv, "execute")
+                        else None)))
             finally:
                 if port_cls is not None:
                     port_cls.port = saved_port
@@ -5091,6 +5206,7 @@ def drive_suites(n: int, runs: dict, smi: str) -> dict:
             mod, make_name)({"workload": name, **extra})["checker"])
         run_dir, res = suite_verdict(what, rc, lines, host,
                                      device=kernel is not None, mpl=mpl)
+        run_dirs[what] = run_dir
         hist = [json.loads(ln) for ln in
                 (run_dir / "history.jsonl").read_text().splitlines()]
         n_ops = sum(1 for o in hist if isinstance(o["process"], int)
@@ -5099,11 +5215,20 @@ def drive_suites(n: int, runs: dict, smi: str) -> dict:
         fs = nemesis_ops(run_dir)
         iptables = sum("iptables -A INPUT" in p for _n, k, p in
                        remote.actions if k == "execute")
-        # postgres_rds's nemesis is the noop; one node cuts no link
-        check(fs.get("start") and set(fs) <= {"start", "stop"}
-              and (iptables > 0) == (suite != "postgres_rds"
-                                     and port_cls is None),
-              f"{what}: nemesis ops {fs}, {iptables} iptables commands")
+        if suite == "charybdefs":
+            # the fault flips follow a 5 s sleep: none in a short run,
+            # but the nemesis's setup and teardown write faultfs's ctl
+            ctl = sum(".faultfs-ctl" in p for _n, k, p in remote.actions
+                      if k == "execute")
+            check(set(fs) <= {"break-pct", "clear"} and ctl > 0,
+                  f"{what}: nemesis ops {fs}, {ctl} faultfs ctl commands")
+        else:
+            # postgres_rds's nemesis is the noop; one node cuts no link
+            check(fs.get("start") and set(fs) <= {"start", "stop"}
+                  and (iptables > 0) == (suite != "postgres_rds"
+                                         and port_cls is None),
+                  f"{what}: nemesis ops {fs}, {iptables} iptables "
+                  "commands")
         if kernel == "dense":
             keys = per_key(res)
             check(keys and keys == per_key(host["res"])
@@ -5122,7 +5247,16 @@ def drive_suites(n: int, runs: dict, smi: str) -> dict:
                 check(n_d == tiers.get("tpu-dense", 0),
                       f"{what}: {n_d} launches for tiers {tiers} (one "
                       "a dense key)")
-            if suite in FANOUT or n == 24:
+            if n == 25:
+                # the batch route: one launch a pending-slot bucket (the
+                # keys' slot peaks rounded up to even), so one for all
+                # keys when their peaks agree; logcabin's indeterminate
+                # conditional writes hold their slots to the end
+                check(1 <= n_d <= len(keys)
+                      and tiers == {"tpu-dense": len(keys)},
+                      f"{what}: {n_d} launches for tiers {tiers} (one a "
+                      "pending-slot bucket, every key tpu-dense)")
+            if suite in FANOUT or n >= 24:
                 # the fan-out's event pairs also bracket waits on the
                 # interpreter lock: the device time from one thread (for
                 # phase 24's batch route too, to compare like with like)
@@ -5168,16 +5302,19 @@ def drive_suites(n: int, runs: dict, smi: str) -> dict:
                 detail = host_entry(res, run_dir, what)
             launched = "no launch"
         secs = span_secs(run_dir)
-        say(f"{what} ({suite} {name}, {MORE_LIMIT}s, interval "
+        say(f"{what} ({suite} {name}, {limit}s, interval "
             f"{MORE_INTERVAL}s, concurrency {MORE_CONC}, {fake_cls}): "
             f"exit {rc}, {res['valid?']} as the host oracle's; {n_ops} "
             f"ops; {detail}; nemesis ops {fs}, {iptables} iptables "
             f"commands; generator.run {secs['generator.run']:.3f}s, "
             f"analyze {secs['analyze']:.3f}s; {launched} ({smi})")
-        if secs["generator.run"] > MORE_LIMIT + SLOW_RUN:
+        if secs["generator.run"] > limit + SLOW_RUN:
             say(f"{what}: generator.run {secs['generator.run']:.3f}s for a "
-                f"{MORE_LIMIT}s limit; slowest client op: "
+                f"{limit}s limit; slowest client op: "
                 f"{slowest_op(run_dir)}")
+
+    if n == 25:
+        web_check(base, run_dirs)
 
     deadline = time.monotonic() + 10
     while set(threading.enumerate()) - threads_before:
@@ -5185,9 +5322,108 @@ def drive_suites(n: int, runs: dict, smi: str) -> dict:
               f"{[t.name for t in set(threading.enumerate()) - threads_before]}")
         time.sleep(0.05)
     took = time.perf_counter() - t_phase
-    check(took < 90, f"phase {n} took {took:.1f}s")
+    check(took < PHASE_LIMIT_S.get(n, 90), f"phase {n} took {took:.1f}s")
     say(f"phase {n} in {took:.1f}s")
     return {"closure_square": cs_paths, "knossos_dense_scan": dense_paths}
+
+
+def web_get(url: str) -> tuple:
+    """(status, content type, body) of a GET; an HTTP error's too."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, r.headers["Content-Type"], r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers["Content-Type"], e.read()
+
+
+def web_check(base: Path, run_dirs: dict) -> None:
+    """Phase 25's store browser: its runs copied into one store, served
+    by `python -m jepsen_tpu_torch.cli serve --web` as a user starts it;
+    the run table names every run with its verdict, a run's listing
+    names its files, a file and the run's zip hold the store's bytes,
+    and a path with `..` is refused (404). The server is stopped
+    after."""
+    import html
+    import re
+    import urllib.error
+    import zipfile
+    from urllib.parse import quote
+    t0 = time.perf_counter()
+    store = base / "web"
+    for d in run_dirs.values():
+        shutil.copytree(d, store / d.parent.name / d.name)
+    port = free_port()
+    log = base / "web.log"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "jepsen_tpu_torch.cli", "serve", "--web",
+         "--store", str(store), "--host", "127.0.0.1", "--port",
+         str(port)], cwd=ROOT, stdout=subprocess.DEVNULL,
+        stderr=open(log, "w"))
+    url = f"http://127.0.0.1:{port}"
+    try:
+        deadline = time.monotonic() + 120
+        while True:
+            try:
+                status, _, home = web_get(url + "/")
+                break
+            except (urllib.error.URLError, ConnectionError):
+                check(proc.poll() is None and time.monotonic() < deadline,
+                      f"serve --web did not answer: {log.read_text()[-2000:]}")
+                time.sleep(0.2)
+        up = time.perf_counter() - t0
+        home = home.decode()
+        check(status == 200, f"serve --web: / gave {status}")
+        for d in run_dirs.values():
+            res = json.loads((d / "results.json").read_text())
+            word = {True: "valid", False: "INVALID"}.get(res["valid?"],
+                                                         "unknown")
+            check(f"<td>{html.escape(d.name)}</td><td>{word}</td>" in home,
+                  f"serve --web: no row for {d.parent.name}/{d.name} "
+                  f"({word})")
+        links = re.findall(r"href='/files/([^']+)'", home)
+        check(len(links) == len(run_dirs),
+              f"serve --web: {len(links)} run links, {len(run_dirs)} runs")
+        d = next(iter(run_dirs.values()))
+        (rel,) = [ln for ln in links
+                  if ln == quote(f"{d.parent.name}/{d.name}")]
+        status, _, listing = web_get(f"{url}/files/{rel}")
+        names = sorted(p.name for p in d.iterdir())
+        check(status == 200 and all(
+            f">{html.escape(nm)}" in listing.decode() for nm in names),
+            f"serve --web: the listing of {rel} lacks one of {names}")
+        status, ctype, body = web_get(f"{url}/files/{rel}/results.json")
+        check((status, ctype, body) == (
+            200, "application/json", (d / "results.json").read_bytes()),
+            f"serve --web: results.json of {rel} differs")
+        status, ctype, body = web_get(f"{url}/zip/{rel}")
+        zf = zipfile.ZipFile(io.BytesIO(body))
+        files = {str(p.relative_to(d.parent)): p.read_bytes()
+                 for p in sorted(d.rglob("*")) if p.is_file()}
+        check(status == 200 and ctype == "application/zip"
+              and sorted(zf.namelist()) == sorted(files)
+              and all(zf.read(k) == v for k, v in files.items()),
+              f"serve --web: the zip of {rel} differs from the store's "
+              f"{len(files)} files")
+        refused = [web_get(f"{url}{p}")[0] for p in (
+            "/files/../../etc/passwd", "/files/%2e%2e/%2e%2e/etc/passwd",
+            "/zip/..%2f..")]
+        check(refused == [404, 404, 404],
+              f"serve --web: the traversal guard answered {refused}")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    say(f"serve --web over phase 25's {len(run_dirs)} runs: answered in "
+        f"{up:.1f}s; the run table (a row each, its verdict), the "
+        f"listing, results.json and the zip ({len(files)} files, "
+        f"{len(body)} bytes) of {rel} as the store's; '..' refused 404 "
+        f"three ways; stopped with exit {proc.returncode}; "
+        f"{time.perf_counter() - t0:.1f}s")
 
 
 def main() -> int:
@@ -5294,7 +5530,7 @@ def main() -> int:
         paths.update(baseline["closure_square"])
         dense_paths.update(baseline["knossos_dense_scan"])
         for n, runs in ((22, MORE_RUNS), (23, QUEUE_RUNS),
-                        (24, WIRE_RUNS)):
+                        (24, WIRE_RUNS), (25, LAST_RUNS)):
             with phase_wall(n, say_it=False):
                 more = drive_suites(n, runs, smi)
             paths.update(more["closure_square"])

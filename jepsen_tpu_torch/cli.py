@@ -49,8 +49,9 @@ verdicts back, journaled per tenant; it prints one ready line and exits
 0 when SIGTERM's drain ends. `fleet` runs N such daemons behind a router
 (`serve.fleet`). Both run on `--device` (default cuda) and exit 255
 without it; `serve` also exits 255 when a fold meets a device or kernel
-failure. `serve --web` (the reference's store browser) is named and
-refused (exit 254): `web.py` is not ported.
+failure. `serve --web` serves the store browser (`web.py`: the run
+table, per-run listings, zip export) instead, on `--host` (default
+0.0.0.0) and `--port` (default 8080), until it is interrupted.
 
 `analyze-store`, the batch path: every stored run
 (with `--name`, every run of that test name) is checked, and each
@@ -1177,8 +1178,8 @@ def run_cli(test_fn: Callable[[dict, argparse.Namespace], dict],
                               "SIGTERM (default "
                               "JEPSEN_TPU_SERVE_DRAIN_S)")
     p_serve.add_argument("--web", action="store_true",
-                         help="the reference's HTTP store browser "
-                              "(not ported: exits 254)")
+                         help="serve the legacy HTTP store browser "
+                              "instead of the verdict daemon")
     p_serve.add_argument("--fleet-instance", type=int, default=None,
                          help="run as member <k> of a serve fleet "
                               "(the `fleet` subcommand spawns these): "
@@ -1299,9 +1300,12 @@ def _dispatch(test_fn, args: argparse.Namespace, tests_fn=None) -> int:
             return _analyze(test_fn, args)
         if args.command == "serve":
             if args.web:
-                print("serve --web: the store browser is not ported to "
-                      "jepsen_tpu_torch", file=sys.stderr)
-                return 254
+                from . import web
+                web.serve(Store(args.store),
+                          host=args.host or "0.0.0.0",
+                          port=args.port if args.port is not None
+                          else 8080)
+                return 0
             from .serve import run_daemon
             return run_daemon(Store(args.store),
                               socket_path=args.socket, port=args.port,

@@ -1,5 +1,5 @@
-"""The op model: the part of `jepsen_tpu/history.py` the port's encoders,
-store loader and checkers use.
+"""The op model and history functions: the port's copy of
+`jepsen_tpu/history.py`.
 
 An operation is a plain dict with "type" ("invoke" | "ok" | "fail" |
 "info"), "process", "f", "value", "time" and "index"; a history is a
@@ -16,6 +16,19 @@ Op = dict  # documentation alias
 
 INVOKE, OK, FAIL, INFO = "invoke", "ok", "fail", "info"
 NEMESIS = "nemesis"
+
+TYPES = (INVOKE, OK, FAIL, INFO)
+
+
+def op(type: str, process: Any, f: Any, value: Any = None, **kw: Any) -> Op:
+    """Construct an op map."""
+    o = {"type": type, "process": process, "f": f, "value": value}
+    o.update(kw)
+    return o
+
+
+def invoke_op(process: Any, f: Any, value: Any = None, **kw: Any) -> Op:
+    return op(INVOKE, process, f, value, **kw)
 
 
 def is_invoke(o: Op) -> bool:
@@ -49,6 +62,10 @@ def index(history: list[Op]) -> list[Op]:
             o = {**o, "index": i}
         out.append(o)
     return out
+
+
+def processes(history: Iterable[Op]) -> set:
+    return {o["process"] for o in history if "process" in o}
 
 
 # Fields whose string content is free text, not keyword-ish data.

@@ -1,5 +1,6 @@
 """The on-disk store of test runs: the part of `jepsen_tpu/store.py` the
-test runner and the batch sweep read and write.
+test runner, the batch sweep and the store browser (`web.py`) read and
+write.
 
 Layout (the reference's `store/<test-name>/<start-time>/`):
 
@@ -224,6 +225,20 @@ class Store:
 
     # -- reads ------------------------------------------------------------
 
+    def tests(self) -> dict[str, dict[str, Path]]:
+        """Map of test-name -> {start-time -> dir} (store.clj:275)."""
+        out: dict[str, dict[str, Path]] = {}
+        if not self.base.exists():
+            return out
+        for name_dir in sorted(self.base.iterdir()):
+            if not name_dir.is_dir() or name_dir.name in ("latest", "current"):
+                continue
+            runs = {d.name: d for d in sorted(name_dir.iterdir())
+                    if d.is_dir() and d.name != "latest"}
+            if runs:
+                out[name_dir.name] = runs
+        return out
+
     def iter_run_dirs(self, name: str | None = None,
                       shard: int | None = None, n_shards: int = 1):
         """Run dirs `<base>/<name>/<run>` in sorted order, one
@@ -305,6 +320,20 @@ class Store:
                 # regenerates it)
                 pass
         return test
+
+    def load_results(self, run_dir: str | os.PathLike) -> dict | None:
+        d = Path(run_dir)
+        rj = d / "results.json"
+        if rj.exists():
+            try:
+                return json.loads(rj.read_text())
+            except (OSError, json.JSONDecodeError):
+                pass
+        re_ = d / "results.edn"
+        if re_.exists():
+            v = edn.loads(re_.read_text())
+            return v if isinstance(v, dict) else None
+        return None
 
 
 class VerdictJournal:

@@ -38,28 +38,11 @@ SUITES = (
 )
 
 
-#: The suites of SUITES the port has; the others are still to port.
-PORTED = ("aerospike", "cockroach", "consul", "dgraph", "disque", "etcd",
-          "faunadb", "galera", "hazelcast", "ignite", "mongodb",
-          "mongodb_rocks", "mongodb_smartos", "mysql_cluster", "percona",
-          "postgres_rds", "rabbitmq", "raftis", "rethinkdb", "robustirc",
-          "tidb", "yugabyte", "zookeeper")
-
-
-class SuiteNotPorted(NotImplementedError):
-    """A suite of SUITES whose module the port does not have yet."""
-
-
 def load_suite(name: str):
     """Import a suite module by name (lazy: suites pull in their
-    drivers only when used). A suite of SUITES that is not in PORTED
-    raises SuiteNotPorted, naming it."""
+    drivers only when used)."""
     if name not in SUITES:
         raise ValueError(f"unknown suite {name!r}; have {SUITES}")
-    if name not in PORTED:
-        raise SuiteNotPorted(
-            f"suite {name!r} is not ported to jepsen_tpu_torch yet; "
-            f"ported: {', '.join(PORTED)}")
     return importlib.import_module(f".{name}", __package__)
 
 

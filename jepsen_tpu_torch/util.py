@@ -1,17 +1,17 @@
-"""Small shared utilities: the part of `jepsen_tpu/util.py` the port
-calls.
+"""Small shared utilities: the port's copy of `jepsen_tpu/util.py`.
 
 `real_pmap` (one thread an element; `checker.Compose` runs its
 sub-checkers through it, `control.on_nodes` its nodes), `bounded_pmap`
 (a bounded pool; `independent.checker` fans per-key checks out through
 it), `majority`/`minority` (the nemesis's grudges), the relative-time
 plumbing the test runner stamps ops with (util.clj:290-330), the retry
-and timeout helpers (util.clj:359), `chunk_vec`, `name_of`, the
-interval-set rendering of the set checker, the latency pairing and
-nemesis intervals under the plot checkers (reference util.clj:548,
-619-700), and `iso_to_epoch` (faunadb's timestamp order). Standard
-library only: the ingest pool's workers import the
-checker package.
+and timeout helpers (util.clj:359), `longest_common_prefix`,
+`pad_to_multiple`, `lazy_atom` and `named_locks` (util.clj:703-808),
+`chunk_vec`, `name_of`, the interval-set rendering of the set checker,
+the latency pairing and nemesis intervals under the plot checkers
+(reference util.clj:548, 619-700), and `iso_to_epoch` (faunadb's
+timestamp order, chronos's run times). Standard library only: the
+ingest pool's workers import the checker package.
 """
 
 from __future__ import annotations
@@ -198,6 +198,84 @@ def integer_interval_set_str(xs: Iterable[int]) -> str:
             lo = hi = x
     parts.append(f"{lo}" if lo == hi else f"{lo}..{hi}")
     return "#{" + " ".join(parts) + "}"
+
+
+def longest_common_prefix(seqs: Sequence[Sequence]) -> list:
+    """Longest common prefix of several sequences (reference util.clj:703;
+    used by set-full's duplicate detection and version-order inference)."""
+    if not seqs:
+        return []
+    shortest = min(seqs, key=len)
+    for i, v in enumerate(shortest):
+        for s in seqs:
+            if s[i] != v:
+                return list(shortest[:i])
+    return list(shortest)
+
+
+def pad_to_multiple(xs: Sequence[T], k: int) -> list[T]:
+    """xs extended to a multiple of k by replicating its last element —
+    the dp-sharding pad for ragged device batches (callers drop the
+    replica results past len(xs))."""
+    xs = list(xs)
+    if k > 1 and xs and len(xs) % k:
+        xs += [xs[-1]] * (-len(xs) % k)
+    return xs
+
+
+class LazyAtom:
+    """A thread-safe mutable ref whose initial value is computed by
+    `f()` on first use; reset bypasses initialization
+    (util.clj:730-777). swap applies a function under the lock."""
+
+    _FRESH = object()
+
+    def __init__(self, f):
+        self._f = f
+        self._lock = threading.Lock()
+        self._value = LazyAtom._FRESH
+
+    def _init(self):
+        if self._value is LazyAtom._FRESH:
+            with self._lock:
+                if self._value is LazyAtom._FRESH:
+                    self._value = self._f()
+        return self._value
+
+    def deref(self):
+        return self._init()
+
+    def swap(self, f, *args):
+        self._init()
+        with self._lock:
+            self._value = f(self._value, *args)
+            return self._value
+
+    def reset(self, v):
+        with self._lock:
+            self._value = v
+            return v
+
+
+def lazy_atom(f) -> LazyAtom:
+    return LazyAtom(f)
+
+
+def named_locks():
+    """A dynamic pool of named locks (util.clj:779-808): call the
+    returned function with any hashable name to get the canonical Lock
+    for it — e.g. to serialize concurrent daemon restarts per node.
+    Use as `with locks(node): ...`."""
+    pool: dict = {}
+    guard = threading.Lock()
+
+    def lock_for(name):
+        with guard:
+            if name not in pool:
+                pool[name] = threading.Lock()
+            return pool[name]
+
+    return lock_for
 
 
 def chunk_vec(n: int, xs: Sequence[T]) -> list[list[T]]:

@@ -104,6 +104,13 @@ print(" ".join(mods))
                       "suites.yugabyte_runner", "suites.dgraph",
                       "drivers.cql", "drivers.dgraph_http",
                       "checker.perf", "checker.clock")} <= mods
+    # the last five suites, the chronos checker, the store browser and
+    # the repl helpers
+    assert {f"jepsen_tpu_torch.{m}"
+            for m in ("suites.crate", "suites.logcabin",
+                      "suites.elasticsearch", "suites.chronos",
+                      "suites.chronos_checker", "suites.charybdefs",
+                      "web", "repl")} <= mods
 
 
 @pytest.mark.parametrize("path", port_sources(),
@@ -614,6 +621,111 @@ with fake_torch_hazelcast.FakeHazelcastServer() as s:
     c = hazelcast_proto.HzConn("127.0.0.1", s.port)
     assert c.queue_offer("q", 3) and c.queue_poll("q") == 3
 assert all(sys.modules[n] is None for n in {FORBIDDEN!r})
+left = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}
+        and m not in {FORBIDDEN!r}]
+assert not left, left
+print("ok")
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "ok"
+
+
+#: The last five suites, the chronos checker, the store browser and the
+#: repl helpers.
+LAST_MODULES = ("suites/crate", "suites/logcabin", "suites/elasticsearch",
+                "suites/chronos", "suites/chronos_checker",
+                "suites/charybdefs", "web", "repl")
+#: The jax-free fakes of the control plane (logcabin's TreeOps, the
+#: chronos scheduler and its run files).
+CONTROL_FAKES = ("fake_torch_treeops", "fake_torch_chronos")
+
+
+def test_last_suites_are_scanned():
+    """The AST and string scans above cover the five suites, the chronos
+    checker, web.py and repl.py."""
+    names = {str(p.relative_to(REPO)) for p in port_sources()}
+    assert {f"jepsen_tpu_torch/{m}.py" for m in LAST_MODULES} <= names
+
+
+def test_last_suites_import_no_torch():
+    """The five suites, the chronos checker, the store browser and the
+    repl helpers import neither torch nor jax nor jepsen_tpu: their test
+    maps, clients and checkers are host code; every name of SUITES
+    loads."""
+    code = f"""
+import sys
+for name in ("torch",) + {FORBIDDEN!r}:
+    sys.modules[name] = None          # any import of them now fails
+sys.path.insert(0, {str(REPO)!r})
+from jepsen_tpu_torch import repl, suites, web
+from jepsen_tpu_torch.suites import chronos_checker
+for name, w in (("crate", "lost-updates"), ("elasticsearch", "dirty-read"),
+                ("chronos", "schedule"), ("charybdefs", None),
+                ("logcabin", None)):
+    mod = suites.load_suite(name)
+    t = getattr(mod, name + "_test")({{"workload": w}} if w else {{}})
+    assert t["checker"] is not None and t["client"] is not None, name
+assert all(callable(suites.load_suite(n).main) for n in suites.SUITES)
+assert repl.decode(repl.encode({{"a": [1, 2]}})) == {{"a": [1, 2]}}
+assert callable(web.make_server)
+assert "torch" not in [m.split(".")[0] for m in sys.modules
+                       if sys.modules[m] is not None]
+print("ok")
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("fake", CONTROL_FAKES)
+def test_control_fakes_import_nothing_of_jax_or_the_reference(fake):
+    path = REPO / "tests" / f"{fake}.py"
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            assert n.split(".")[0] not in FORBIDDEN, (node.lineno, n)
+    assert reference_module_strings(path.read_text()) == []
+
+
+def test_control_fakes_load_with_jax_and_reference_blocked():
+    """With jax and jepsen_tpu blocked, the TreeOps remote and the
+    chronos fake load and answer the port's clients."""
+    code = f"""
+import sys, time
+for name in {FORBIDDEN!r}:
+    sys.modules[name] = None          # any import of them now fails
+sys.path[:0] = [{str(REPO)!r}, {str(REPO / "tests")!r}]
+import fake_torch_chronos, fake_torch_treeops
+from jepsen_tpu_torch.suites import chronos, logcabin
+with fake_torch_treeops.FakeTreeOpsRemote() as r:
+    test = {{"nodes": ["n1"], "remote": r}}
+    c = logcabin.LogCabinClient("n1")
+    op = lambda f, v: c.invoke(test, {{"type": "invoke", "f": f,
+                                        "value": v, "process": 0}})
+    assert op("read", None)["value"] is None
+    assert op("write", 3)["type"] == "ok"
+    assert op("cas", [3, 4])["type"] == "ok"
+    assert op("cas", [3, 1])["error"] == "cas-mismatch"
+    assert op("read", None)["value"] == 4
+with fake_torch_chronos.FakeChronos() as f:
+    test = {{"nodes": ["n1"], "remote": f,
+             "db-hosts": {{"n1": ("127.0.0.1", f.port)}}}}
+    c = chronos.ChronosClient().open(test, "n1")
+    job = {{"name": 1, "start": time.time() - 30, "count": 2,
+            "duration": 1, "epsilon": 10, "interval": 60}}
+    assert c.invoke(test, {{"type": "invoke", "f": "add-job",
+                            "value": job}})["type"] == "ok"
+    runs = c.invoke(test, {{"type": "invoke", "f": "read"}})["value"]
+    assert [r["name"] for r in runs] == [1] and runs[0]["end"]
 left = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}
         and m not in {FORBIDDEN!r}]
 assert not left, left

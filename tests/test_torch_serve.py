@@ -881,6 +881,37 @@ def test_default_device_without_cuda_exits_before_ready(cmd, tmp_path):
     assert not store.exists()
 
 
-def test_serve_web_is_named_and_refused(tmp_path, serve_env, capsys):
-    assert cli.main(["serve", "--web", "--store", str(tmp_path)]) == 254
-    assert "not ported" in capsys.readouterr().err
+def test_serve_web_is_named_and_refused(tmp_path, serve_env, monkeypatch):
+    """`serve --web` was refused (254) until `web.py` was ported; it now
+    serves the store browser on --host and --port instead of the verdict
+    daemon (no daemon's socket), and exits 0 once the server stops."""
+    from jepsen_tpu_torch import web
+    made = []
+    real = web.make_server
+
+    def make(store, host="127.0.0.1", port=8080):
+        made.append((str(store.base), host, port))
+        srv = real(store, host, 0)
+        made.append(srv)
+        return srv
+
+    monkeypatch.setattr(web, "make_server", make)
+    rc = []
+    t = threading.Thread(target=lambda: rc.append(cli.main([
+        "serve", "--web", "--store", str(tmp_path), "--host", "127.0.0.1",
+        "--port", "8123"])))
+    t.start()
+    deadline = time.monotonic() + 30
+    while len(made) < 2:
+        assert time.monotonic() < deadline, "serve --web made no server"
+        time.sleep(0.01)
+    srv = made[1]
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{srv.server_address[1]}/", timeout=10) as r:
+        status, body = r.status, r.read()
+    srv.shutdown()
+    t.join(30)
+    assert not t.is_alive() and rc == [0]
+    assert made[0] == (str(tmp_path), "127.0.0.1", 8123)
+    assert status == 200 and b"jepsen-tpu store" in body
+    assert not (tmp_path / "serve.sock").exists()

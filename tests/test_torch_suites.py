@@ -4,9 +4,8 @@
 (`set_workload`, `monotonic`, `causal_reverse`, `adya`, `comments`), and
 the CLI's `--device` and `--faults` reaching them.
 
-- The registry and the test maps: the reference's names, workloads,
-  nemesis menus and option sweeps; a suite the port lacks is named as
-  not ported.
+- The registry and the test maps: the reference's names, each loading
+  the port's own module, workloads, nemesis menus and option sweeps.
 - The workloads' generators op for op under a seeded `random`, and
   their checkers on the same histories.
 - Suite runs through `run_cli` as a suite's main calls it, against the
@@ -96,26 +95,18 @@ def no_threads_left(before: set) -> bool:
 # ---------------------------------------------------------------------------
 
 def test_suite_registry_loads_the_ported_suites():
-    """The reference's 28 names; each ported suite has its main and
-    workloads, every other one is named as not ported (not a
-    ModuleNotFoundError), and an unknown name is a ValueError."""
+    """The reference's 28 names; each loads the port's own module, with
+    its main and workloads, and an unknown name is a ValueError, as the
+    reference's `load_suite`."""
     assert port_suites.SUITES == ref_suites.SUITES
     assert len(port_suites.SUITES) == 28
     for name in port_suites.SUITES:
-        if name in port_suites.PORTED:
-            mod = port_suites.load_suite(name)
-            assert callable(mod.main), name
-            assert callable(mod.workloads), name
-            continue
-        with pytest.raises(port_suites.SuiteNotPorted,
-                           match=f"suite {name!r} is not ported"):
-            port_suites.load_suite(name)
-    assert set(port_suites.PORTED) == {
-        "aerospike", "cockroach", "consul", "dgraph", "disque", "etcd",
-        "faunadb", "galera", "hazelcast", "ignite", "mongodb",
-        "mongodb_rocks", "mongodb_smartos", "mysql_cluster", "percona",
-        "postgres_rds", "rabbitmq", "raftis", "rethinkdb", "robustirc",
-        "tidb", "yugabyte", "zookeeper"}
+        mod = port_suites.load_suite(name)
+        assert mod.__name__ == f"jepsen_tpu_torch.suites.{name}", name
+        assert callable(mod.main), name
+        assert callable(mod.workloads), name
+    assert not hasattr(port_suites, "PORTED")
+    assert not hasattr(port_suites, "SuiteNotPorted")
     with pytest.raises(ValueError, match="unknown suite"):
         port_suites.load_suite("nope")
 
