@@ -138,7 +138,7 @@ failure:
               subprocess (`python -m jepsen_tpu_torch.tools.pool_smoke`,
               which, unlike this script, imports no torch in the
               workers spawn re-imports it in). /dev/shm's size first.
-              A store of 72 list-append runs at phase 4's width (every
+              A store of 56 list-append runs at phase 4's width (every
               8th with G1c): (a) every encoding the pool delivers equals
               the serial path's, array for array and in run order
               (the cache off, so both parse; phase 5's wr store too),
@@ -406,6 +406,24 @@ failure:
               --web` over a store of the phase's runs: the run table, a
               run's listing, a file and its zip held to the store's
               bytes, `..` refused. It takes under 160 s.
+ 26. scripts  the port's smoke and gate scripts, its linter and the
+              native split: (a)-(d) `python -m jepsen_tpu_torch.obs.smoke`,
+              `.serve.smoke`, `.serve.fleet_smoke` and
+              `python -m jepsen_tpu_torch.warm_bench` (beside the serve
+              smoke), each `--device
+              cuda` in a process group of its own, each exiting 0 with
+              its contract met; every Python process under each (the
+              script, its daemons and fleet members, warm_bench's three
+              sweeps) reports its closure_square launches and their
+              CUDA-event milliseconds at exit through a
+              `sitecustomize` (SCRIPT_SITE) on its PYTHONPATH, and each
+              script must have launched the kernel (fleet members the
+              nemesis SIGKILLs report nothing); (e) `python -m
+              jepsen_tpu_torch.cli lint` exits 0 on this machine's
+              Python and `ast`; (f) the native per-key split
+              (`independent.subhistories_path`) of every phase-8
+              register run equals the Python split key for key, the
+              native path taken for each. It takes under 240 s.
 
 Every phase prints its wall (phases 1-13 through `phase_wall`), and the
 script ends with all of them in one line.
@@ -443,7 +461,9 @@ phase 21's (`suite-etcd-register`, `suite-ysql-append`,
 `suite-robustirc-set`) are driven and read the same way, and must
 launch neither kernel; so are phase 24's and phase 25's, where only
 `suite-crate-register` and `suite-logcabin-register` (knossos_dense_scan)
-and `suite-crate-wr` (closure_square) launch one.
+and `suite-crate-wr` (closure_square) launch one. Phase 26's paths
+(`obs-smoke`, `serve-smoke`, `fleet-smoke`, `warm-bench`) are each a
+script's whole process tree, counted in each process at its exit.
 
 The last lines are a `{"kernels": [...]}` record per kernel (with its
 launches and summed device milliseconds per path), the nvidia-smi line,
@@ -463,7 +483,9 @@ import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 #: torch, imported by main(): spawn re-imports this script in every
@@ -535,10 +557,10 @@ SMALL_RUNS = 8
 SMALL_LONG_T, SMALL_LONG_K, SMALL_LONG_GAP, SMALL_LONG_LIMIT = \
     3000, 16, 1003, 1000
 #: Phase 13: the pooled sweep's store (BASELINE config #4's 1k-history
-#: batch cut to 72, which keeps the whole smoke within its time: a
-#: chunk of 64 and one of 8, so ingest can overlap the device) at phase
-#: 4's width, and the kill nemesis's rate.
-POOL_RUNS = 72
+#: batch cut to 56, which keeps the whole smoke within its time now that
+#: phase 26 runs too; the kill nemesis still selects three runs of them)
+#: at phase 4's width, and the kill nemesis's rate.
+POOL_RUNS = 56
 POOL_KILL = "kill:0.05"
 #: Phase 18's two shards and the coordinator's wait in its full fleet.
 MESH_SHARDS, MESH_WAIT_S = 2, 300
@@ -5426,6 +5448,191 @@ def web_check(base: Path, run_dirs: dict) -> None:
         f"{time.perf_counter() - t0:.1f}s")
 
 
+#: Phase 26's scripts: (path name, module, the line its success prints).
+SCRIPTS = (("obs-smoke", "jepsen_tpu_torch.obs.smoke", "obs-smoke: OK"),
+           ("serve-smoke", "jepsen_tpu_torch.serve.smoke",
+            "serve-smoke: PASS"),
+           ("fleet-smoke", "jepsen_tpu_torch.serve.fleet_smoke",
+            "fleet-smoke: PASS"),
+           ("warm-bench", "jepsen_tpu_torch.warm_bench", "bench-warm: OK"))
+
+#: The `sitecustomize` phase 26 puts on its scripts' PYTHONPATH: every
+#: Python process of a script's tree times its closure_square launches
+#: with CUDA event pairs (the hook list the wrapper fills) and, at exit,
+#: writes its launches and their device milliseconds to
+#: $CHIP_SMOKE_LAUNCH_DIR/<pid>.json. A process that never imports the
+#: kernel's module (an ingest worker, the lint) writes nothing, and it
+#: imports no torch for it. Any sitecustomize it shadows runs after it.
+SCRIPT_SITE = """\
+import atexit, importlib.util, json, os, sys
+_MOD = "jepsen_tpu_torch.checker.elle.closure_square"
+_HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+class _Hook:
+    def find_spec(self, name, path=None, target=None):
+        if name != _MOD:
+            return None
+        sys.meta_path.remove(self)
+        spec = importlib.util.find_spec(name)
+        if spec is None:
+            return None
+        run = spec.loader.exec_module
+
+        def exec_module(module):
+            run(module)
+            module.closure_square.events = []
+        spec.loader.exec_module = exec_module
+        return spec
+
+
+def _report():
+    cs = sys.modules.get(_MOD)
+    if cs is None or not cs.closure_square.launches:
+        return
+    import torch
+    torch.cuda.synchronize()
+    rec = {"pid": os.getpid(), "argv": sys.argv[:3],
+           "launches": cs.closure_square.launches,
+           "device_ms": sum(a.elapsed_time(b)
+                            for a, b in cs.closure_square.events)}
+    with open(os.path.join(os.environ["CHIP_SMOKE_LAUNCH_DIR"],
+                           f"{os.getpid()}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+if os.environ.get("CHIP_SMOKE_LAUNCH_DIR"):
+    sys.meta_path.insert(0, _Hook())
+    atexit.register(_report)
+for _d in sys.path:
+    _p = os.path.join(_d, "sitecustomize.py")
+    if _d and os.path.abspath(_d) != _HERE and os.path.isfile(_p):
+        _spec = importlib.util.spec_from_file_location("_shadowed_site", _p)
+        _spec.loader.exec_module(importlib.util.module_from_spec(_spec))
+        break
+"""
+
+
+def run_script(name: str, module: str, ok_line: str, site: Path,
+               base: Path) -> tuple[int, float, float]:
+    """One phase-26 script with `--device cuda`, in a process group of
+    its own; it must exit 0 with its success line, leave no process of
+    its group behind and have launched closure_square. Returns (its
+    tree's launches, their device ms, its wall s)."""
+    launch_dir = base / f"{name}-launches"
+    launch_dir.mkdir(parents=True)
+    env = {**os.environ, "CHIP_SMOKE_LAUNCH_DIR": str(launch_dir),
+           "PYTHONPATH": os.pathsep.join(
+               [str(site), str(ROOT)]
+               + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", module, "--device", DEVICE], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    GRANDCHILDREN.append(proc.pid)
+    try:
+        out, _ = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        kill_group(proc)
+        raise SmokeFailure(f"{name} took over 300 s")
+    wall = time.perf_counter() - t0
+    (base / f"{name}.log").write_text(out)
+    check(proc.returncode == 0 and ok_line in out,
+          f"{name} exited {proc.returncode}: {out[-4000:]}")
+    deadline = time.monotonic() + 10
+    while group_alive(proc.pid):
+        check(time.monotonic() < deadline,
+              f"{name} left processes behind: {group_alive(proc.pid)}")
+        time.sleep(0.1)
+    recs = [json.loads(p.read_text()) for p in launch_dir.glob("*.json")]
+    launches = sum(r["launches"] for r in recs)
+    ms = sum(r["device_ms"] for r in recs)
+    check(launches > 0, f"{name} never launched closure_square: {recs}")
+    say(f"{name}: exit 0 in {wall:.1f}s, {launches} closure_square "
+        f"launches ({ms:.3f} ms) in {len(recs)} process(es): "
+        + ", ".join(f"{' '.join(r['argv'][1:3])} {r['launches']}"
+                    for r in sorted(recs, key=lambda r: r['pid'])))
+    return launches, ms, wall
+
+
+def native_split_check(store: Path) -> tuple[int, int]:
+    """(f): every run's native per-key split equals the Python split,
+    key for key, and took the native path. Returns (runs, keys)."""
+    from jepsen_tpu_torch import independent
+    runs = sorted({p.resolve().parent for p in store.rglob("history.jsonl")})
+    check(bool(runs), f"no register runs under {store}")
+    keys = 0
+    for run in runs:
+        hist = history_ops(run)
+        stats: dict = {}
+        nat = independent.subhistories_path(hist, run / "history.jsonl",
+                                            stats=stats)
+        pure = independent.subhistories(independent.relift_history(hist))
+        check(stats == {"native": 1},
+              f"{run.name}: the native split did not run ({stats})")
+        check(list(nat) == list(pure) and all(nat[k] == pure[k]
+                                              for k in pure),
+              f"{run.name}: the native split differs from the Python one")
+        keys += len(pure)
+    return len(runs), keys
+
+
+def phase_scripts(reg_store: Path) -> dict:
+    """Phase 26: the four scripts on the card, the lint, the native split
+    of `reg_store`'s runs. Returns the paths' closure_square
+    (launches, device ms) and each part's wall."""
+    t_phase = time.perf_counter()
+    base = WORK / "scripts"
+    site = base / "site"
+    site.mkdir(parents=True)
+    (site / "sitecustomize.py").write_text(SCRIPT_SITE)
+    # the lint is CPU only: it runs beside the scripts, a thread noting
+    # when it ends (its output is one line: the pipe never fills)
+    t_lint = time.perf_counter()
+    lint = subprocess.Popen(
+        [sys.executable, "-m", "jepsen_tpu_torch.cli", "lint"], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lint_end: list = []
+    waiter = threading.Thread(target=lambda: (
+        lint.wait(), lint_end.append(time.perf_counter())), daemon=True)
+    waiter.start()
+    paths, walls = {}, {}
+    # warm_bench (three one-process sweeps, no timing contract) runs
+    # beside the serve smoke; the fleet smoke, whose failover rides 2 s
+    # of beacon staleness, runs alone
+    beside = {"serve-smoke": "warm-bench"}
+    scripts = {name: (module, ok_line) for name, module, ok_line in SCRIPTS}
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        for name in ("obs-smoke", "serve-smoke", "fleet-smoke"):
+            other = beside.get(name)
+            fut = other and pool.submit(run_script, other, *scripts[other],
+                                        site, base)
+            n, ms, walls[name] = run_script(name, *scripts[name], site,
+                                            base)
+            paths[name] = (n, ms)
+            if fut:
+                n, ms, walls[other] = fut.result()
+                paths[other] = (n, ms)
+    out, _ = lint.communicate(timeout=300)
+    waiter.join()
+    walls["lint"] = lint_end[0] - t_lint
+    check(lint.returncode == 0, f"lint exited {lint.returncode}: "
+                                f"{out[-4000:]}")
+    say(f"lint: exit 0 on Python {sys.version.split()[0]} "
+        f"({out.strip().splitlines()[-1]}), {walls['lint']:.1f}s "
+        "beside the scripts")
+    t0 = time.perf_counter()
+    runs, keys = native_split_check(reg_store)
+    walls["split"] = time.perf_counter() - t0
+    say(f"native split: {runs} register runs, {keys} keys, equal to the "
+        f"Python split key for key, in {walls['split']:.1f}s")
+    took = time.perf_counter() - t_phase
+    check(took < 240, f"phase 26 took {took:.1f}s")
+    say(f"phase 26 in {took:.1f}s; parts (s): "
+        + json.dumps({k: round(v, 1) for k, v in walls.items()}))
+    return {"closure_square": paths, "walls": walls}
+
+
 def main() -> int:
     global torch
     import torch
@@ -5535,6 +5742,8 @@ def main() -> int:
                 more = drive_suites(n, runs, smi)
             paths.update(more["closure_square"])
             dense_paths.update(more["knossos_dense_scan"])
+        with phase_wall(26, say_it=False):
+            paths.update(phase_scripts(WORK / "reg")["closure_square"])
         for rec, ps in ((record, paths), (dense_record, dense_paths)):
             rec["launches"] = sum(n for n, _ in ps.values())
             rec["paths"] = {k: {"launches": n, "device_ms": ms}

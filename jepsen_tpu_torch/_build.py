@@ -70,8 +70,6 @@ PROTOTYPES = {
         "jt_wgl_run": (None, [_i32p, ctypes.c_int64, ctypes.c_int64,
                               ctypes.c_int64, _i64p]),
     },
-    # the history encoder's whole C surface but the per-key splitter
-    # (jt_ks_*, which no sweep of the port calls yet)
     "hist_encode": {
         "jt_ha_abi_version": (ctypes.c_int64, []),
         # (path) -> handle, NULL: the Python encoder takes the file
@@ -95,6 +93,14 @@ PROTOTYPES = {
         # (bytes, length, seed) -> XXH64
         "jt_xxh64_buf": (ctypes.c_uint64,
                          [ctypes.c_char_p, ctypes.c_int64, ctypes.c_uint64]),
+        # the per-key splitter (native_lib.split_key_ids): (path) ->
+        # handle, NULL: the Python splitter takes the file
+        "jt_ks_split_file": (ctypes.c_void_p, [ctypes.c_char_p]),
+        # (handle, out[4]): n_ops, n_keys, key names' JSON length, lifted
+        "jt_ks_dims": (None, [ctypes.c_void_p, _i64p]),
+        "jt_ks_key_ids": (_i32p, [ctypes.c_void_p]),
+        "jt_ks_key_names_json": (ctypes.c_char_p, [ctypes.c_void_p]),
+        "jt_ks_free": (None, [ctypes.c_void_p]),
     },
 }
 
@@ -215,8 +221,15 @@ def load(name: str, path: str | os.PathLike | None = None) -> ctypes.CDLL:
     key = name if path is None else f"{name}@{path}"
     with _lock:
         lib = _loaded.get(key)
+    if lib is not None:
+        return lib
+    # the compiler runs outside the lock: a first build takes seconds to
+    # minutes and would stall every other library's load behind it;
+    # concurrent builds of one source race benignly (`build`'s rename)
+    path = build(name) if path is None else Path(path)
+    with _lock:
+        lib = _loaded.get(key)
         if lib is None:
-            path = build(name) if path is None else Path(path)
             try:
                 lib = ctypes.CDLL(str(path))
                 for fn, (restype, argtypes) in PROTOTYPES[name].items():

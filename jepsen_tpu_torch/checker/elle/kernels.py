@@ -715,7 +715,7 @@ def pack_edge_matrices(per_history: list[dict], multiple: int = 128) -> dict:
     cells: dict = {name: [] for name in EDGE_CLASSES}
     for i, hist in enumerate(per_history):
         n = hist["n"]
-        e = np.asarray(hist["edges"], np.int64).reshape(-1, 3)
+        e = np.asarray(hist["edges"], np.int32).reshape(-1, 3)
         s, d, c = e[:, 0], e[:, 1], e[:, 2]
         known = np.isin(c, list(EDGE_CLASSES.values()))
         if not known.all():

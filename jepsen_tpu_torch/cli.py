@@ -1217,10 +1217,22 @@ def run_cli(test_fn: Callable[[dict, argparse.Namespace], dict],
                          help="where every member's folds run (default "
                               "cuda; cpu only when asked)")
     add_trace_opts(p_fleet)
+
+    from . import lint as _lint   # stdlib-only, import-cheap
+    p_lint = sub.add_parser(
+        "lint",
+        help="the port's static analysis (gate registry, tensor "
+             "contracts, concurrency, shm lifecycle, tracer "
+             "discipline, durability, the serve protocol, the C ABI)")
+    _lint.add_args(p_lint)
     try:
         args = parser.parse_args(argv)
     except SystemExit as e:
         return 254 if e.code not in (0, None) else 0
+    if args.command == "lint":
+        # no logging, device or trace setup: lint parses source, it
+        # never imports or executes the target package
+        return _lint.run_from_args(args)
     logging.basicConfig(level=logging.WARNING)
     from . import gates
     # every auto-backend checker of this call, and the processes it

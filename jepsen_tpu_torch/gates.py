@@ -1,8 +1,8 @@
 """The registry of the `JEPSEN_TPU_*` environment gates the port reads.
 
-The port's own copy of `jepsen_tpu/gates.py` (`Gate`, `_g`, `get`,
-`get_raw`, `is_set`, `export`), declaring only the gates the port
-reads. The names are the reference's, so one environment drives both
+The port's own copy of `jepsen_tpu/gates.py` (`Gate`, `_g`, `gate`,
+`get`, `get_raw`, `is_set`, `export`, `unset` and the README table's
+renderers), declaring only the gates the port reads. The names are the reference's, so one environment drives both
 packages.
 Every read of a `JEPSEN_TPU_*` variable in the port goes through
 `get` (or `get_raw`/`is_set`), at call time, so tests can monkeypatch
@@ -61,6 +61,14 @@ class Gate:
                 return self.default
         raw = raw.strip()
         return self.default if raw == "" else raw
+
+    def default_str(self) -> str:
+        """The README-table rendering of the default."""
+        if self.kind == "bool":
+            return "`1`" if self.default else "off"
+        if self.default is None or self.default == "":
+            return "off"
+        return f"`{self.default}`"
 
 
 GATES: dict[str, Gate] = {}
@@ -225,6 +233,8 @@ _g("JEPSEN_TPU_FRONTIER", "int", 512,
 # -- ingest / native --------------------------------------------------------
 _g("JEPSEN_TPU_NATIVE_INGEST", "bool", True,
    "`0`: Python jsonl→tensor encoder")
+_g("JEPSEN_TPU_NATIVE_SPLIT", "bool", True,
+   "`0`: Python per-key splitter for register sweeps")
 _g("JEPSEN_TPU_NO_NATIVE", "bool", False,
    "set (non-`0`): disable every ctypes-loaded helper")
 _g("JEPSEN_TPU_NATIVE_LIB_DIR", "str", None,
@@ -249,6 +259,11 @@ _g("JEPSEN_TPU_SIDECAR_V2", "bool", True,
    "`0`: write/read only v1 (unpadded) encoded sidecars — no "
    "dispatch-shaped `encoded.v2.bin`, no v1→v2 upgrade, warm sweeps "
    "pack with host copies as before")
+
+
+def gate(name: str) -> Gate:
+    """The declaration for `name` (KeyError on an unregistered gate)."""
+    return GATES[name]
 
 
 def get(name: str):
@@ -277,3 +292,38 @@ def export(name: str, value) -> None:
     if isinstance(value, bool):
         value = "1" if value else "0"
     os.environ[name] = str(value)
+
+
+def unset(name: str) -> None:
+    """Remove gate `name` from the environment."""
+    GATES[name]
+    os.environ.pop(name, None)
+
+
+# ---------------------------------------------------------------------------
+# README rendering — the port's env-gate table is generated, never
+# hand-kept.
+# ---------------------------------------------------------------------------
+
+#: Markers delimiting the port's generated block in README.md (they
+#: differ from the reference's, whose table stays beside this one);
+#: lint rule JT-GATE-003 fails when the committed block drifts from the
+#: registry.
+TABLE_BEGIN = "<!-- env-gates:begin (generated by jepsen_tpu_torch.gates) -->"
+TABLE_END = "<!-- env-gates:end (jepsen_tpu_torch.gates) -->"
+
+
+def render_env_table() -> str:
+    """The README env-gate table, one row per registered gate. Literal
+    `|` in a doc line is escaped: markdown splits cells on every
+    unescaped pipe, code spans included."""
+    lines = ["| gate | default | meaning |", "|---|---|---|"]
+    for g in GATES.values():
+        doc = g.doc.replace("|", "\\|")
+        lines.append(f"| `{g.name}` | {g.default_str()} | {doc} |")
+    return "\n".join(lines)
+
+
+def render_env_block() -> str:
+    """The full generated README block, markers included."""
+    return f"{TABLE_BEGIN}\n{render_env_table()}\n{TABLE_END}"

@@ -271,6 +271,82 @@ def subhistory(k, history: list) -> list:
     return out
 
 
+def native_split_enabled() -> bool:
+    """One home for the JEPSEN_TPU_NATIVE_SPLIT gate (default on) so
+    the register sweep and the bench's reporting can't drift apart:
+    `=0` pins the pure-Python relift+subhistories splitter."""
+    from . import gates
+
+    return gates.get("JEPSEN_TPU_NATIVE_SPLIT")
+
+
+def _subhistories_from_ids(history: list, key_ids, keys: list) -> dict:
+    """subhistories() driven by a precomputed per-op key-id array (the
+    native splitter's output): identical per-key lists, but the per-op
+    lift heuristics, Tuple construction and relift dict copies are
+    gone — only the one unavoidable value-unwrap copy per lifted op
+    remains. `key_ids[i]` is the key id of history[i]'s lifted value
+    (-1 un-lifted); `keys` maps ids to key values in first-seen order."""
+    subs: dict = {}
+    unlifted: list = []
+    get = subs.get
+    for o, kid in zip(history, key_ids):
+        if kid >= 0:
+            k = keys[kid]
+            lst = get(k)
+            if lst is None:
+                lst = subs[k] = list(unlifted)
+            d = o.copy()
+            d["value"] = o["value"][1]
+            lst.append(d)
+        else:
+            unlifted.append(o)
+            for lst in subs.values():
+                lst.append(o)
+    return subs
+
+
+def subhistories_path(history: list, path, stats: dict | None = None) -> dict:
+    """`subhistories(relift_history(history))` for a history loaded
+    from `path` (a history.jsonl), accelerated by the native per-key
+    splitter (csrc/hist_encode.cc's jt_ks_* pass) when it applies —
+    the register-sweep splitter moved out of the per-op Python loop.
+    Falls back to the pure-Python pipeline whenever the native side
+    declines the file, the JEPSEN_TPU_NATIVE_SPLIT gate is off, or the
+    id array doesn't align with `history` (e.g. the caller loaded a
+    different/edited file). `stats`, when given, counts which path
+    ACTUALLY ran per call ("native"/"python") so reporters can't
+    mistake availability for use."""
+    use_native = native_split_enabled()
+    if use_native:
+        # the cost-aware planner may DECLINE native for histories
+        # below its fitted threshold (it can never force native on
+        # past the user's gate pin); both splitters produce identical
+        # per-key lists, so the tier choice moves only time
+        from . import planner as _planner
+        pl = _planner.get()
+        if pl is not None and not pl.split_native(len(history)):
+            use_native = False
+    if use_native:
+        from . import native_lib
+        got = native_lib.split_key_ids(path)
+        if got is not None:
+            keys, key_ids = got
+            if len(key_ids) == len(history):
+                if stats is not None:
+                    stats["native"] = stats.get("native", 0) + 1
+                trace.counter("split.native").inc()
+                return _subhistories_from_ids(history, key_ids.tolist(),
+                                              keys)
+            # benign: the caller loaded an edited/different file than
+            # the one on disk — a documented fallback, not a broken lib
+            native_lib.count_fallback("split_key_ids")
+    if stats is not None:
+        stats["python"] = stats.get("python", 0) + 1
+    trace.counter("split.python").inc()
+    return subhistories(relift_history(history))
+
+
 def subhistories(history: list) -> dict:
     """Every key's subhistory in ONE pass — identical per-key lists to
     subhistory(k, ...) but O(ops + keys·unlifted) instead of the

@@ -434,8 +434,8 @@ def _h2d_bucket(item: _Staged, device: torch.device,
     with torch.cuda.stream(stream):
         if to_device is K.batch_to_device:
             item.host = {
-                k: torch.from_numpy(np.ascontiguousarray(packed[k]))
-                .pin_memory() for k in K.DEVICE_FIELDS}
+                k: torch.from_numpy(packed[k]).pin_memory()
+                for k in K.DEVICE_FIELDS}
             item.batch = {k: item.host[k].to(device, non_blocking=True)
                           .to(dt) for k, dt in K.DEVICE_FIELDS.items()}
             item.batch["shape"] = packed["shape"]
@@ -554,9 +554,10 @@ def _sync_check(sw: _Sweep, idx: list) -> list[int]:
     part = _enqueue(sw, item, observe=True)
     try:
         return _resolve(sw, idx, part)
-    except BaseException:
+    finally:
+        # drops the observatory's pending window on a raise; a no-op
+        # once _resolve has closed it
         obs_device.discard_dispatch(part, sw.tr)
-        raise
 
 
 def _oom_backdown(sw: _Sweep, idx: list, budget_cells: int, err) -> list:

@@ -47,6 +47,56 @@ from . import gates
 
 log = logging.getLogger(__name__)
 
+#: The declared metric-name registry (the reference's names the port
+#: records, and the race counters of `Linearizable`, which only the
+#: port has). The metrics surface is keyed by
+#: string, so a typo silently forks a series; lint rule JT-TRACE-002
+#: checks every `counter("...")`/`gauge`/`histogram` literal in the
+#: package against this set (and that the KIND matches), so a new
+#: metric must be declared here before it can ship.
+DECLARED_METRICS: dict[str, frozenset] = {
+    "counters": frozenset({
+        "bucket_splits", "buckets_dispatched", "buckets_resolved",
+        "cache_hits", "cache_misses", "cost_records",
+        "donated_bytes", "fleet_failovers", "fleet_fences",
+        "fleet_replayed_verdicts", "fleet_spills", "h2d_bytes",
+        "kernel.cyclic_histories", "kernel.stats_records",
+        "native_fallback", "oom_retries", "pad_waste_cells",
+        "planner.cold_starts", "planner.decisions",
+        "planner.fallbacks", "planner.pred_checked",
+        "quarantined", "race_device_agree", "race_device_disagree",
+        "race_device_error", "runs_verdicted",
+        "serve_backpressure", "serve_folds", "serve_replays",
+        "serve_requests", "serve_verdicts", "shm_bytes",
+        "shm_stale_reclaimed", "sidecar_upgrades", "split.native",
+        "split.python", "warm_copy_bytes", "watchdog_timeouts",
+        "worker_spans",
+    }),
+    "gauges": frozenset({"fleet_daemons_live",
+                         "fleet_epoch", "hbm_device_bytes",
+                         "hbm_modeled_bytes", "inflight_depth",
+                         "planner.pred_err_permille",
+                         "reorder_depth", "resident_executables",
+                         "runs_total", "serve_pending",
+                         "serve_tenants"}),
+    "histograms": frozenset({"bucket_cells",
+                             "fleet_failover_ms",
+                             "kernel.backtracks",
+                             "kernel.closure_rounds", "kernel.edges",
+                             "kernel.margin", "kernel.scc_max",
+                             "serve_fold_histories",
+                             "serve_latency_ms"}),
+}
+
+#: Sanctioned dynamic-name families: an f-string metric name must
+#: start with one of these (`phase.<key>`, `device.<kernel>`,
+#: `native_fallback.<component>`, `worker.<stage>` — the per-task
+#: stage-seconds digests ingest relays from pool workers;
+#: `planner.<lever>` — per-lever modeled-decision counters;
+#: `race_won_<side>` — which side of `Linearizable`'s race answered).
+METRIC_PREFIXES = ("phase.", "device.", "native_fallback.", "worker.",
+                   "serve.", "planner.", "fleet.", "race_won_")
+
 #: Synthetic tid for the device track (real thread idents are pthread
 #: addresses, nowhere near this; named tracks count down from here).
 DEVICE_TID = 2 ** 31 - 1

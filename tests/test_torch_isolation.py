@@ -735,3 +735,61 @@ print("ok")
                           text=True, timeout=120, cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip() == "ok"
+
+
+#: The smoke and gate scripts, the linter and the native split.
+SLICE_23 = (["jepsen_tpu_torch/native_lib.py", "jepsen_tpu_torch/warm_bench.py",
+             "jepsen_tpu_torch/obs/smoke.py", "jepsen_tpu_torch/serve/smoke.py",
+             "jepsen_tpu_torch/serve/fleet_smoke.py"]
+            + sorted(str(p.relative_to(REPO))
+                     for p in (PKG / "lint").glob("*.py")))
+
+
+def test_scripts_lint_and_split_are_scanned():
+    scanned = {str(p.relative_to(REPO)) for p in port_sources()}
+    assert len(SLICE_23) == 5 + 19
+    assert set(SLICE_23) <= scanned
+
+
+def test_lint_imports_no_torch_and_never_its_target():
+    """The linter is stdlib-only: with torch, jax and jepsen_tpu blocked
+    it loads every rule and lints the port's own sources (the gate and
+    metric registries it reads are torch-free)."""
+    code = f"""
+import sys
+for name in ("torch",) + {FORBIDDEN!r}:
+    sys.modules[name] = None          # any import of them now fails
+sys.path.insert(0, {str(REPO)!r})
+from pathlib import Path
+from jepsen_tpu_torch import lint
+from jepsen_tpu_torch.lint import rules_abi
+mod, proj = lint.all_rules()
+files = sorted(Path({str(PKG)!r}).rglob("*.py"))
+assert lint.lint_paths(files, Path({str(REPO)!r})) == []
+ctx = lint.ProjectCtx(Path({str(REPO)!r}), [])
+assert [f for r in rules_abi.RULES for f in r.check_project(ctx)] == []
+print(len(mod) + len(proj))
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.split()[-1]) == 44
+
+
+def test_scripts_and_split_load_with_jax_and_reference_blocked():
+    code = f"""
+import importlib, sys
+for name in {FORBIDDEN!r}:
+    sys.modules[name] = None          # any import of them now fails
+sys.path.insert(0, {str(REPO)!r})
+for m in ("jepsen_tpu_torch.native_lib", "jepsen_tpu_torch.warm_bench",
+          "jepsen_tpu_torch.obs.smoke", "jepsen_tpu_torch.serve.smoke",
+          "jepsen_tpu_torch.serve.fleet_smoke"):
+    assert callable(importlib.import_module(m).__dict__.get(
+        "main", getattr(importlib.import_module(m), "split_key_ids", None)))
+print("ok")
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "ok"
