@@ -138,7 +138,7 @@ failure:
               subprocess (`python -m jepsen_tpu_torch.tools.pool_smoke`,
               which, unlike this script, imports no torch in the
               workers spawn re-imports it in). /dev/shm's size first.
-              A store of 56 list-append runs at phase 4's width (every
+              A store of 32 list-append runs at phase 4's width (every
               8th with G1c): (a) every encoding the pool delivers equals
               the serial path's, array for array and in run order
               (the cache off, so both parse; phase 5's wr store too),
@@ -245,18 +245,19 @@ failure:
               The members are other processes, so their launches are
               not counted here (phase 16 shows the kernel path).
  18. mesh     `analyze-store --mesh --device cuda`, two shard processes
-              at once on the one card over a cold copy of phase 4's 64
-              runs (JEPSEN_TPU_MESH_SHARDS=2): (a) both shards with
+              at once on the one card over a cold copy of the first 32
+              of phase 4's runs (JEPSEN_TPU_MESH_SHARDS=2): (a) both shards with
               JEPSEN_TPU_COSTDB=1 and --report: each shard verdicts its
               own `shard_of` slice (its journal holds it), shard 1 exits
               its own worst and the coordinator the merged 1, the
-              summary line reads 64 verdicted and 8 invalid, every
+              summary line reads 32 verdicted and 4 invalid, every
               results.json/.edn byte-identical to phase 4's, each
               shard's costdb holds closure_square dispatches and the
               merged costdb.jsonl their sum, report.json has per_shard
               "0" and "1"; the two-shard wall printed beside phase 4's;
               (b) on a warm copy, shard 1's process group SIGKILLed
-              after its first journal line (nothing of it left 2 s on),
+              once its journal holds two lines (so its resume needs a
+              bucket of two fewer; nothing of it left 2 s on),
               shard 0 alone with JEPSEN_TPU_MESH_WAIT_S=0 exits 2 with
               shard 1 lost, shard 1 --resume (its per-run markers
               stripped: journal-only evidence) re-checks exactly its
@@ -424,6 +425,40 @@ failure:
               (`independent.subhistories_path`) of every phase-8
               register run equals the Python split key for key, the
               native path taken for each. It takes under 240 s.
+ 27. devices  several devices. (a) A mesh that repeats the one card,
+              `make_mesh([cuda:0]*8)` (4x2): phase 4's store through
+              `check_bucketed(mesh=)` (each 5000-txn history padded to
+              4 dp rows, each row's closures split into 2 column blocks:
+              `closure_square`'s `cols`), phase 5's wr runs through
+              `check_edge_batch(devices=[cuda:0]*4)`, config #1's 100
+              register histories through the dense tier and the first
+              10 of them through the packed frontier with
+              `devices=[cuda:0]*3` (ragged), one 12,000-txn history with
+              a G1c pair through `check_long_history(mesh=
+              sp_mesh([cuda:0]*4))` against its one-device result, and
+              `FoldDispatcher(mesh=)` over 8 of phase 4's and 8 of
+              phase 5's runs (phase 16's folds): every verdict equal to
+              phases 4, 5 and 8's (results.json) or the one-device
+              run's, the launches equal to the bucket logs'. (b) The
+              column-range launch held to `closure_square_ref` with the
+              same range at B=2, T=5120 with mp=2 and mp=4 (every
+              block, active absent/1/0, the blocks stitched into the
+              full round), then each block's CUDA-event median beside
+              the full launch's and its bound. (c) With more than one
+              card visible, (a) over the real cards (`make_mesh()`);
+              with one, it says so and does not run. (d) Two processes
+              on the card joined through `parallel.init_distributed`
+              (gloo, 127.0.0.1; `tools/multihost_dryrun.py`): the
+              global-dp check's gathered flags equal the one-process
+              flags, and `analyze-store --mesh --device cuda` with no
+              shard count gives results byte-identical to a one-process
+              sweep of the same store, the coordinator merging the
+              fleet; every joined process reports its closure_square
+              launches and device ms through phase 26's SCRIPT_SITE,
+              and each of the two parts must have launched the kernel
+              (paths `mesh-joined-global`, `mesh-joined-sweep`). Each
+              part prints its wall and its closure_square and
+              knossos_dense_scan launches. It takes under 150 s.
 
 Every phase prints its wall (phases 1-13 through `phase_wall`), and the
 script ends with all of them in one line.
@@ -440,6 +475,8 @@ Each path is driven with its kernels' launch counts set to 0 just before
 it and read just after; a path that launched one of them no time fails.
 Phase 11's stats sweeps count as paths of their own (`stats-<path>`),
 and so do phase 12's (`native-<path>-cold`, `native-<path>-warm`) and
+phase 27's (`mesh-append`, `mesh-wr`, `mesh-register`, `mesh-long`,
+`mesh-fold-append`, `mesh-fold-wr`; `real-*` with several cards),
 phase 13's (`pool-append-cold`, `pool-append-warm`, `pool-wr`,
 `pool-register`, `pool-kill`), counted in the sweep's own process, and
 phase 14's (`analyze-append`, `analyze-wr`, `analyze-register`,
@@ -557,13 +594,21 @@ SMALL_RUNS = 8
 SMALL_LONG_T, SMALL_LONG_K, SMALL_LONG_GAP, SMALL_LONG_LIMIT = \
     3000, 16, 1003, 1000
 #: Phase 13: the pooled sweep's store (BASELINE config #4's 1k-history
-#: batch cut to 56, which keeps the whole smoke within its time now that
-#: phase 26 runs too; the kill nemesis still selects three runs of them)
-#: at phase 4's width, and the kill nemesis's rate.
-POOL_RUNS = 56
+#: batch cut to 32, which keeps the whole smoke within its time now that
+#: phases 26 and 27 run too; the kill nemesis still selects three runs
+#: of them: 12, 20 and 29) at phase 4's width, and the kill nemesis's
+#: rate.
+POOL_RUNS = 32
 POOL_KILL = "kill:0.05"
-#: Phase 18's two shards and the coordinator's wait in its full fleet.
-MESH_SHARDS, MESH_WAIT_S = 2, 300
+#: Phase 27: the repeated mesh's size (8 entries: 4x2), the wr and
+#: register dp splits, the long history's txns and its sp_mesh width,
+#: the packed frontier's cut of config #1, the fold sizes.
+MESH_N, WR_DP, REG_DP, SP_MP = 8, 4, 3, 4
+LONG_MESH_T, PACKED_CUT, FOLD_RUNS = 12_000, 10, 8
+#: Phase 18's two shards, the coordinator's wait in its full fleet, and
+#: the runs of phase 4's store its fleet sweeps (the first 32 of 64,
+#: 4 of them with G1c: a cut that keeps the smoke within its time).
+MESH_SHARDS, MESH_WAIT_S, MESH_RUNS = 2, 300, 32
 #: Phase 4's one-process wall, kept for phase 18 to print beside its
 #: two-shard wall.
 MAIN_WALL: dict = {}
@@ -3656,9 +3701,10 @@ def phase_fleet(verdicts: dict) -> dict:
 
 
 def mesh_store(src: Path, dst: Path, sidecars: bool) -> None:
-    """A copy of a synth store's histories (with their encoded sidecars
-    when `sidecars`): no results, markers, journals or telemetry."""
-    for run in sorted((src / "synth").iterdir()):
+    """A copy of the first MESH_RUNS histories of a synth store (with
+    their encoded sidecars when `sidecars`): no results, markers,
+    journals or telemetry."""
+    for run in sorted((src / "synth").iterdir())[:MESH_RUNS]:
         d = dst / "synth" / run.name
         d.mkdir(parents=True)
         for f in run.iterdir():
@@ -3766,13 +3812,15 @@ def journal_keys(store: Path, k: int) -> list[str]:
 
 
 def same_results(store: Path, verdicts: dict, what: str) -> None:
-    """Every run's results.json/.edn byte-identical to phase 4's."""
+    """Every run's results.json/.edn byte-identical to phase 4's, and a
+    run of phase 18's share of phase 4's store has them."""
     got = run_files(store)
-    check(got.keys() == verdicts["append"].keys(),
-          f"{what}: results files {sorted(set(got) ^ set(verdicts['append']))}")
+    want = {f: b for f, b in verdicts["append"].items()
+            if (store / f).parent.is_dir()}
+    check(got.keys() == want.keys() and len(got) == 2 * MESH_RUNS,
+          f"{what}: results files {sorted(set(got) ^ set(want))}")
     for f, b in got.items():
-        check(b == verdicts["append"][f], f"{what}: {f} differs from "
-                                          "phase 4's")
+        check(b == want[f], f"{what}: {f} differs from phase 4's")
 
 
 def phase_mesh(verdicts: dict, name: str, smi: str) -> dict:
@@ -3785,7 +3833,7 @@ def phase_mesh(verdicts: dict, name: str, smi: str) -> dict:
 
     t_phase = time.perf_counter()
     runs = sorted(f"synth/{p.name}"
-                  for p in (WORK / "store" / "synth").iterdir())
+                  for p in (WORK / "store" / "synth").iterdir())[:MESH_RUNS]
     mine = {k: [r for r in runs if shard_of(r, MESH_SHARDS) == k]
             for k in range(MESH_SHARDS)}
     check(all(mine.values()), f"degenerate split {mine}")
@@ -3814,8 +3862,8 @@ def phase_mesh(verdicts: dict, name: str, smi: str) -> dict:
               f"shard {k}'s journal holds other runs than its own")
         paths[f"mesh-shard{k}"] = (r["launches"], r["device_ms"])
     s = mesh_summary(res[0], "the coordinator")
-    check(s["runs_verdicted"] == STORE_RUNS
-          and s["invalid"] == STORE_RUNS // BAD_EVERY
+    check(s["runs_verdicted"] == MESH_RUNS
+          and s["invalid"] == MESH_RUNS // BAD_EVERY
           and s["unaccounted"] == 0 and not s["lost_shards"],
           f"mesh summary {s}")
     same_results(store, verdicts, "mesh (a)")
@@ -3852,15 +3900,17 @@ def phase_mesh(verdicts: dict, name: str, smi: str) -> dict:
                 "per_shard": {k: v.get("shares")
                               for k, v in rep["per_shard"].items()}}
 
-    # (b) shard 1 killed after its first journal line; shard 0 alone
-    # finds it lost; shard 1 re-assigned with --resume; shard 0 resumes
-    # and merges the complete fleet
+    # (b) shard 1 killed once it has journaled two runs (one run fewer
+    # can leave its buckets of two, and so its launches, as they were);
+    # shard 0 alone finds it lost; shard 1 re-assigned with --resume;
+    # shard 0 resumes and merges the complete fleet
     store = base / "b"
     mesh_store(base / "a", store, sidecars=True)
     jp = shard_journal_path(store, 1)
     p1 = start_shard(store, 1, base / "b1.log")
     deadline = time.monotonic() + 300
-    while not (jp.exists() and jp.stat().st_size) and p1.poll() is None:
+    while (jp.read_bytes().count(b"\n") if jp.exists() else 0) < 2 \
+            and p1.poll() is None:
         check(time.monotonic() < deadline, "shard 1 journaled nothing")
         time.sleep(0.001)
     kill_group(p1)
@@ -3897,7 +3947,7 @@ def phase_mesh(verdicts: dict, name: str, smi: str) -> dict:
                                "--report", JEPSEN_TPU_MESH_WAIT_S=0),
                    base / "b0r.log", "shard 0 --resume")
     s = mesh_summary(rc, "shard 0 --resume")
-    check(rc["rc"] == 1 and s["runs_verdicted"] == STORE_RUNS
+    check(rc["rc"] == 1 and s["runs_verdicted"] == MESH_RUNS
           and s["unaccounted"] == 0 and not s["lost_shards"]
           and not s["incomplete_shards"] and rc["launches"] == 0,
           f"shard 0 --resume exited {rc['rc']}: {s}")
@@ -5633,6 +5683,225 @@ def phase_scripts(reg_store: Path) -> dict:
     return {"closure_square": paths, "walls": walls}
 
 
+def store_encodings(store: Path, checker: str) -> list:
+    """(run dir, encoding) of every run of a phase's store, read
+    serially (its sidecars are warm)."""
+    from jepsen_tpu_torch import ingest
+    from jepsen_tpu_torch.store import Store
+    dirs = sorted(Store(store).iter_run_dirs())
+    return [p for chunk in ingest.iter_encode_chunks(
+        dirs, checker=checker, processes=0) for p in chunk]
+
+
+def rendered(checker: str, enc, cycles) -> dict:
+    """A verdict as the sweep writes it into results.json."""
+    from jepsen_tpu_torch.checker import elle
+    from jepsen_tpu_torch.checker.elle import wr
+    res = wr.render_wr_verdict(enc, cycles, wr.WR_PROHIBITED) \
+        if checker == "wr" \
+        else elle.render_verdict(enc, cycles, elle.APPEND_PROHIBITED)
+    res["checker"] = checker
+    return json.loads(json.dumps(res))
+
+
+def mesh_paths(tag: str, mesh, wr_devs: list, reg_devs: list, sp,
+               encs: dict, verdicts: dict, config1: list) -> tuple:
+    """Phase 27 (a) over `mesh` (and the dp lists and `sp` for the other
+    paths); returns the closure_square and knossos_dense_scan paths
+    (launches, device ms) and each part's wall."""
+    from jepsen_tpu_torch import parallel
+    from jepsen_tpu_torch.checker.elle import encode, kernels, synth, wr
+    from jepsen_tpu_torch.checker.knossos import dense
+    from jepsen_tpu_torch.checker.knossos import kernels as kkernels
+    from jepsen_tpu_torch.parallel import folding
+
+    paths, dpaths, walls = {}, {}, {}
+
+    def part(key: str, fn, kernel=None):
+        t0 = time.perf_counter()
+        out, n, ms = counted(fn, kernel)
+        torch.cuda.synchronize()
+        walls[key] = round(time.perf_counter() - t0, 3)
+        (dpaths if kernel is not None else paths)[f"{tag}-{key}"] = (n, ms)
+        check(n > 0, f"phase 27 {tag}-{key} never launched its kernel")
+        return out, n
+
+    pairs = encs["append"]
+    log: list = []
+    got, n = part("append", lambda: parallel.check_bucketed(
+        [e for _, e in pairs], mesh=mesh, bucket_log=log))
+    for (d, enc), cyc in zip(pairs, got):
+        same_as_phase(verdicts, "append", Path(d), rendered(
+            "append", enc, cyc), f"phase 27 {tag} append")
+    launch_split(log, n)
+    say(f"27 {tag}: phase 4's {len(pairs)} runs over {mesh}: "
+        f"{walls['append']}s, {len(log)} dispatches of "
+        f"{sorted({b['histories'] for b in log})} histories at T_pad "
+        f"{sorted({b['t_pad'] for b in log})}, {n} closure_square "
+        f"launches; verdicts equal to phase 4's")
+
+    wpairs = encs["wr"]
+    got, n = part("wr", lambda: kernels.check_edge_batch(
+        [wr.to_edge_dict(e) for _, e in wpairs], devices=wr_devs))
+    for (d, enc), cyc in zip(wpairs, got):
+        same_as_phase(verdicts, "wr", Path(d), rendered("wr", enc, cyc),
+                      f"phase 27 {tag} wr")
+    say(f"27 {tag}: phase 5's {len(wpairs)} wr runs through "
+        f"check_edge_batch over {len(wr_devs)} devices: {walls['wr']}s, "
+        f"{n} closure_square launches; verdicts equal to phase 5's")
+
+    dencs = [dense.encode_dense_history(h) for h in config1]
+    one = dense.check_encoded_dense_batch(dencs, device=DEVICE)
+    got, n = part("register", lambda: dense.check_encoded_dense_batch(
+        dencs, devices=reg_devs), dense.knossos_dense_scan)
+    check(got == one and all(r["valid?"] is True for r in got),
+          f"phase 27 {tag}: the dense tier over {len(reg_devs)} devices "
+          "differs from one device's")
+    from jepsen_tpu_torch.checker.knossos import encode as kenc
+    kencs = [kenc.encode_register_history(h) for h in config1[:PACKED_CUT]]
+    t0 = time.perf_counter()
+    pk = kkernels.check_encoded_batch(kencs, device=DEVICE, packed=True,
+                                      devices=reg_devs)
+    walls["packed"] = round(time.perf_counter() - t0, 3)
+    check(pk == kkernels.check_encoded_batch(kencs, device=DEVICE,
+                                             packed=True),
+          f"phase 27 {tag}: the packed frontier over {len(reg_devs)} "
+          "devices differs from one device's")
+    say(f"27 {tag}: config #1's {len(dencs)} histories, dense tier over "
+        f"{len(reg_devs)} devices {walls['register']}s ({n} "
+        f"knossos_dense_scan launches), packed frontier on "
+        f"{len(kencs)} {walls['packed']}s ({[r['valid?'] for r in pk]}); "
+        "equal to one device")
+
+    h = synth.synth_append_history(LONG_MESH_T, 64, seed=27, g1c=True)
+    enc = encode.encode_history(h)
+    want = parallel.check_long_history(enc, DEVICE)
+    got, n = part("long", lambda: parallel.check_long_history(enc,
+                                                             mesh=sp))
+    check(got == want and "G1c" in got,
+          f"phase 27 {tag}: the {LONG_MESH_T}-txn history over {sp} gave "
+          f"{got}, one device {want}")
+    say(f"27 {tag}: one {LONG_MESH_T}-txn history over {sp}: "
+        f"{walls['long']}s, {n} closure_square launches, {got} as on one "
+        "device")
+
+    for checker, src in (("append", pairs), ("wr", wpairs)):
+        fold = src[:FOLD_RUNS]
+        got, n = part(f"fold-{checker}", lambda: folding.FoldDispatcher(
+            mesh=mesh).verdicts([e for _, e in fold], checker))
+        for (d, _e), res in zip(fold, got):
+            same_as_phase(verdicts, checker, Path(d),
+                          json.loads(json.dumps(res)),
+                          f"phase 27 {tag} fold")
+    say(f"27 {tag}: FoldDispatcher(mesh=) folds of {FOLD_RUNS} append and "
+        f"{FOLD_RUNS} wr runs: {walls['fold-append']}s, "
+        f"{walls['fold-wr']}s; verdicts equal to phases 4 and 5")
+    return paths, dpaths, walls
+
+
+def phase_devices(name: str, verdicts: dict) -> dict:
+    """Phase 27: several devices (module doc). Returns the paths of both
+    kernels, the column blocks' timings and each part's wall."""
+    from jepsen_tpu_torch import parallel
+    from jepsen_tpu_torch.checker.knossos import synth as ksynth
+    from jepsen_tpu_torch.devices import default_devices
+    from jepsen_tpu_torch.tools import closure_square_cols as cols
+    from jepsen_tpu_torch.tools import multihost_dryrun as mh
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(
+        DEVICE)
+    t0 = time.perf_counter()
+    encs = {"append": store_encodings(WORK / "store", "append"),
+            "wr": store_encodings(WORK / "wr", "wr")}
+    config1 = ksynth.synth_register_batch(B=KN_B, n_ops=KN_OPS,
+                                          n_procs=KN_CONC, info_prob=0.0,
+                                          seed=1)
+    walls = {"load": round(time.perf_counter() - t0, 3)}
+    paths, dpaths, w = mesh_paths(
+        "mesh", parallel.make_mesh([dev] * MESH_N), [dev] * WR_DP,
+        [dev] * REG_DP, parallel.sp_mesh([dev] * SP_MP), encs, verdicts,
+        config1)
+    walls.update(w)
+
+    t0 = time.perf_counter()
+    for ln in cols.check_cases(dev, [(MAIN_B, MAIN_T, 2),
+                                     (MAIN_B, MAIN_T, 4)]):
+        say(f"27 (b) {ln}")
+    blocks = cols.time_blocks(dev, name, [(MAIN_B, MAIN_T, 2),
+                                          (MAIN_B, MAIN_T, 4)])
+    walls["blocks"] = round(time.perf_counter() - t0, 3)
+    for rec in blocks:
+        say(f"27 (b) B={rec['B']} T={rec['T']} mp={rec['mp']}: full "
+            f"launch {rec['full_ms']} ms (bound {rec['full_bound_ms']}); "
+            + "; ".join(f"cols {b['cols']} {b['ms']} ms (bound "
+                        f"{b['bound_ms']}, {b['bound_by']})"
+                        for b in rec["blocks"]))
+
+    real = torch.cuda.device_count() if DEVICE == "cuda" else 1
+    if real > 1:
+        devs = default_devices()
+        p, dp, w = mesh_paths("real", parallel.make_mesh(devs), devs, devs,
+                              parallel.sp_mesh(devs), encs, verdicts,
+                              config1)
+        paths.update(p)
+        dpaths.update(dp)
+        walls.update({f"real-{k}": v for k, v in w.items()})
+        say(f"27 (c) {real} devices visible: (a) ran over the real cards "
+            f"({parallel.make_mesh(devs)})")
+    else:
+        say("27 (c) one device visible: the real several-device part did "
+            "not run")
+
+    # (d): the joined processes report their closure_square launches
+    # and device ms through phase 26's sitecustomize
+    site = WORK / "multihost-site"
+    site.mkdir(parents=True)
+    (site / "sitecustomize.py").write_text(SCRIPT_SITE)
+
+    def joined(key: str, fn):
+        launch_dir = WORK / f"multihost-{key}-launches"
+        launch_dir.mkdir(parents=True)
+        t0 = time.perf_counter()
+        out = fn({"CHIP_SMOKE_LAUNCH_DIR": str(launch_dir),
+                  "PYTHONPATH": os.pathsep.join(
+                      [str(site), str(ROOT)]
+                      + [p for p in [os.environ.get("PYTHONPATH")] if p])})
+        walls[key] = round(time.perf_counter() - t0, 3)
+        recs = [json.loads(p.read_text()) for p in launch_dir.glob("*.json")]
+        n = sum(r["launches"] for r in recs)
+        ms = sum(r["device_ms"] for r in recs)
+        check(n > 0 and ms > 0, f"27 (d) {key}: the joined processes "
+              f"launched no closure_square: {recs}")
+        paths[f"mesh-{key}"] = (n, ms)
+        return out, f"{n} closure_square launches ({ms:.3f} ms) in " \
+            f"{len(recs)} process(es): " + ", ".join(
+                str(r["launches"]) for r in sorted(recs,
+                                                   key=lambda r: r["pid"]))
+
+    want = parallel.check_bucketed(mh.global_batch(), dev)
+    lines, said = joined("joined-global", lambda env: mh.global_dp(
+        2, f"{dev},{dev}", timeout=300, extra=env))
+    for ln in lines:
+        check(json.loads(ln.split("flags=", 1)[1]) == want,
+              f"27 (d) the gathered flags differ from one process's: {ln}")
+        say(f"27 (d) {ln.split(' flags=')[0]}: flags equal to one process's")
+    say(f"27 (d) global dp: {walls['joined-global']}s, {said}")
+    res, said = joined("joined-sweep", lambda env: mh.mesh_sweep(
+        2, DEVICE, work=WORK / "multihost", timeout=300, extra=env))
+    check(res["rcs"][0] == res["rc"] == 1 and res["compared"] == 12,
+          f"27 (d) the joined sweep: {res}")
+    say(f"27 (d) analyze-store --mesh, 2 joined processes, no shard count: "
+        f"{res['runs']} runs, {res['compared']} files byte-identical to "
+        f"one process's sweep, exits {res['rcs']} (one process "
+        f"{res['rc']}), {walls['joined-sweep']}s, {said}")
+    took = time.perf_counter() - t_phase
+    say(f"phase 27 in {took:.1f}s; parts (s): {json.dumps(walls)}")
+    check(took < 150, f"phase 27 took {took:.1f}s")
+    return {"closure_square": paths, "knossos_dense_scan": dpaths,
+            "blocks": blocks, "walls": walls}
+
+
 def main() -> int:
     global torch
     import torch
@@ -5744,6 +6013,11 @@ def main() -> int:
             dense_paths.update(more["knossos_dense_scan"])
         with phase_wall(26, say_it=False):
             paths.update(phase_scripts(WORK / "reg")["closure_square"])
+        with phase_wall(27, say_it=False):
+            several = phase_devices(name, verdicts)
+        paths.update(several["closure_square"])
+        dense_paths.update(several["knossos_dense_scan"])
+        record["column_blocks"] = several["blocks"]
         for rec, ps in ((record, paths), (dense_record, dense_paths)):
             rec["launches"] = sum(n for n, _ in ps.values())
             rec["paths"] = {k: {"launches": n, "device_ms": ms}

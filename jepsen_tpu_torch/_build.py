@@ -51,6 +51,14 @@ PROTOTYPES = {
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+        # (m, mT, out, outT, changed, active, B, T, c0, c1, device,
+        #  stream): the output columns [c0, c1) only
+        "closure_square_cols_launch": (
+            ctypes.c_int,
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_void_p]),
         "closure_square_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
     "knossos_dense": {

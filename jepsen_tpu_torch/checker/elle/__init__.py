@@ -73,9 +73,10 @@ def cycle_anomalies_tpu(enc: EncodedHistory, realtime: bool = False,
                         process_order: bool = False, device=None,
                         square=None, bucket_log: list | None = None
                         ) -> dict:
-    """The device path's anomaly flags for one history, on `device`
-    (`parallel.check_long_history`: the dense closure, or the SCC
-    condensation past its limit); `square` and `bucket_log` as there."""
+    """The device path's anomaly flags for one history, on `device`'s
+    visible devices (`parallel.check_long_history`: the dense closure
+    over their `sp_mesh`, or the SCC condensation past its limit);
+    `square` and `bucket_log` as there."""
     from ... import parallel
     return parallel.check_long_history(
         enc, device, realtime=realtime, process_order=process_order,
@@ -176,8 +177,10 @@ class AppendChecker(Checker):
     def check_batch(self, test, histories: list, opts) -> list[dict]:
         """Check MANY histories in one bucketed device sweep
         (`parallel.check_bucketed`) — the route `independent.checker`
-        takes. Flagged histories re-run the host oracle for witness
-        cycles; verdicts match check() minus store artifacts. A history
+        takes, over `parallel.dp_mesh` of the visible devices of the
+        checker's `device` kind. Flagged histories re-run the host oracle
+        for witness cycles; verdicts match check() minus store
+        artifacts. A history
         the dispatcher abandoned (a `supervisor.Quarantined`: OOM
         backdown exhausted, watchdog) gets its unknown verdict."""
         from ...devices import resolve_backend
@@ -190,10 +193,12 @@ class AppendChecker(Checker):
             return [render_verdict(e, cycle_anomalies_cpu(e, **kw),
                                    self.prohibited) for e in encs]
         from ... import parallel
-        from ...devices import resolve_device
+        from ...devices import default_devices
+        # dp over every visible device of the checker's kind (one card:
+        # the single-device path)
         cycles_list = parallel.check_bucketed(
-            encs, resolve_device(self.device), square=self.square,
-            bucket_log=self.bucket_log, **kw)
+            encs, mesh=parallel.dp_mesh(default_devices(self.device)),
+            square=self.square, bucket_log=self.bucket_log, **kw)
         out = []
         for enc, cycles in zip(encs, cycles_list):
             if hasattr(cycles, "verdict"):

@@ -299,10 +299,12 @@ def check_condensed(enc: EncodedHistory, device=None, *,
                     device_scc_limit: int = DEVICE_SCC_LIMIT,
                     square=None, bucket_log: list | None = None,
                     condense_log: list | None = None,
-                    stats_out: list | None = None) -> dict:
+                    stats_out: list | None = None,
+                    devices=None) -> dict:
     """Check ONE long history via SCC condensation on `device` (default
-    cuda). Returns the same {anomaly: True} flag dict as the dense
-    device path.
+    cuda), or with several `devices` its SCC batches split over them (a
+    1-D dp mesh, `kernels.check_edge_batch_bucketed`). Returns the same
+    {anomaly: True} flag dict as the dense device path.
 
     Valid histories (no nontrivial SCC) cost one numpy edge build plus
     one strong-components pass — no device work at all. Anomalous ones
@@ -322,7 +324,7 @@ def check_condensed(enc: EncodedHistory, device=None, *,
     from ...devices import resolve_device
     from . import kernels as K
 
-    dev = resolve_device(device)
+    dev = resolve_device(device if not devices else devices[0])
     t0 = time.perf_counter()
     members, (src, dst, cls) = condense(enc, realtime=realtime,
                                         process_order=process_order)
@@ -385,7 +387,8 @@ def check_condensed(enc: EncodedHistory, device=None, *,
         # warm starts get for free.
         blog: list = []
         for res in K.check_edge_batch_bucketed(
-                per_scc, dev, classify=True, realtime=realtime,
+                per_scc, dev, devices=devices, classify=True,
+                realtime=realtime,
                 process_order=False, fused=False, square=square,
                 bucket_log=blog):
             flags.update(res)

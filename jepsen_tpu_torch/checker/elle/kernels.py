@@ -24,7 +24,8 @@ first word of the classification closures, their flags masked by it.
 So a check enqueues its work and returns at once: the host reads
 nothing back until the caller resolves the flags and the round counts
 (`read_rounds`). Every function takes tensors on one device and runs
-there.
+there, but for `mp`: the devices of one mesh row, over which each
+closure round is split into column blocks (`_closure_batched`).
 
 With `with_stats` (the kernel-stats path, `JEPSEN_TPU_KERNEL_STATS`,
 decided by the caller: nothing here reads the gate) a check also
@@ -411,11 +412,63 @@ def _has_cycle(m: torch.Tensor, mT: torch.Tensor,
     return _any(m & mT & nI)
 
 
+def mp_parts(T: int, mp: int) -> int:
+    """How many of `mp` devices a T-wide closure round gives a column
+    block (`closure_square.column_blocks`): its launches a round."""
+    return sum(1 for c0, c1 in cs.column_blocks(T, mp) if c0 < c1)
+
+
+class _ColumnSplit:
+    """The closure rounds of one mesh row of devices `mp` (the first is
+    the row's own, where `m` lies): each device holds the whole matrix
+    and squares its column block (`closure_square`'s `cols`); then
+    every device copies the other blocks of the round from their
+    devices (a strided copy, a peer copy between cards) and the round's
+    active word is ORed across the row, so each has the next round's
+    matrix and word. The copies are stream-ordered on the devices
+    (torch waits on both devices' streams around a copy between them):
+    nothing is read back, and a loop still enqueues every round."""
+
+    def __init__(self, m: torch.Tensor, mT: torch.Tensor, act: torch.Tensor,
+                 mp: list, square: Square | None):
+        T = m.shape[-1]
+        self.parts = [(torch.device(d), c) for d, c in
+                      zip(mp, cs.column_blocks(T, len(mp))) if c[0] < c[1]]
+        self.square = cs.closure_square if square is None else square
+        self.first = m.device
+        # per part: its matrix, its rows of the transpose, its words
+        self.state = [[m.to(d), mT.to(d),
+                       act if j == 0 and d == m.device
+                       else act.to(d, copy=True)]
+                      for j, (d, _c) in enumerate(self.parts)]
+
+    def round(self, i: int):
+        """Round i: (the whole next matrix on the first device, None,
+        the [B] changed flags there)."""
+        outs = [self.square(st[0], st[1], st[2][i:i + 2], cols=cols)
+                for (_d, cols), st in zip(self.parts, self.state)]
+        for o, _oT, _ch in outs:
+            for (_d, (c0, c1)), (o2, _o2T, _ch2) in zip(self.parts, outs):
+                if o2 is not o:
+                    o[:, :, c0:c1].copy_(o2[:, :, c0:c1])
+        word = torch.zeros(1, dtype=self.state[0][2].dtype,
+                           device=self.first)
+        changed = torch.zeros_like(outs[0][2], device=self.first)
+        for st, (_o, _oT, ch) in zip(self.state, outs):
+            word |= st[2][i + 1:i + 2].to(self.first)
+            changed |= ch.to(self.first)
+        for st, (o, oT, _ch) in zip(self.state, outs):
+            st[2][i + 1:i + 2].copy_(word)
+            st[0], st[1] = o, oT
+        return self.state[0][0], None, changed
+
+
 def _closure_batched(m: torch.Tensor, steps: int,
                      square: Square | None = None,
                      rounds: list | None = None,
                      active: torch.Tensor | None = None,
-                     stats: list | None = None) -> torch.Tensor:
+                     stats: list | None = None,
+                     mp: list | None = None) -> torch.Tensor:
     """Transitive closure of [B,T,T] boolean adjacencies: `m | eye`
     squared to the batch-level fixpoint, at most `steps` rounds. Path
     lengths double each round, so convergence takes ~log2(diameter)
@@ -435,7 +488,11 @@ def _closure_batched(m: torch.Tensor, steps: int,
     matrix last changed, and the first round at which it held a cycle
     (0: already in `m`; -1: never). They are updated on the device
     after each round from its changed flags and its transpose, with the
-    same launches and no host read."""
+    same launches and no host read.
+
+    `mp`, when given (the devices of a mesh row, `m`'s first), splits
+    every round's columns over them (`_ColumnSplit`): the same rounds
+    and words, `mp_parts` launches a round."""
     T = m.shape[-1]
     m = m | torch.eye(T, dtype=torch.bool, device=m.device)
     mT = m.transpose(1, 2).contiguous()
@@ -444,17 +501,22 @@ def _closure_batched(m: torch.Tensor, steps: int,
         act[0] = 1
     else:
         act[:1].copy_(active.reshape(1))
+    split = _ColumnSplit(m, mT, act, mp, square) if mp else None
     if stats is not None:
         nI = ~torch.eye(T, dtype=torch.bool, device=m.device)
         hist_rounds = torch.zeros(m.shape[0], dtype=torch.int32,
                                   device=m.device)
         cyc = torch.where(_has_cycle(m, mT, nI), 0, -1).to(torch.int32)
     for i in range(steps):
-        m, mT, changed = _square(m, mT, act[i:i + 2], square)
+        if split is not None:
+            m, mT, changed = split.round(i)
+        else:
+            m, mT, changed = _square(m, mT, act[i:i + 2], square)
         if stats is not None:
             hist_rounds = torch.where(changed, i + 1, hist_rounds)
-            cyc = torch.where((cyc < 0) & _has_cycle(m, mT, nI), i + 1,
-                              cyc)
+            cyc = torch.where(
+                (cyc < 0) & _has_cycle(m, m.transpose(1, 2) if mT is None
+                                       else mT, nI), i + 1, cyc)
     if rounds is not None:
         rounds.append((act[:steps] != 0).sum(dtype=torch.int32))
     if stats is not None:
@@ -528,7 +590,8 @@ def classify_matrices_impl(ww, wr, rw, invoke_index, complete_index, process,
                            fused: bool = True, square: Square | None = None,
                            rounds: list | None = None,
                            with_stats: bool = False,
-                           edge_counts: torch.Tensor | None = None):
+                           edge_counts: torch.Tensor | None = None,
+                           mp: list | None = None):
     """Closure + anomaly classification over [B,T,T] boolean edge
     matrices -> [B] int32 flag words. Process-order and realtime edges
     fold into the ww class, masked to each history's live rows.
@@ -538,7 +601,8 @@ def classify_matrices_impl(ww, wr, rw, invoke_index, complete_index, process,
     the last seeded one in the two-pass chain) supplies the round
     telemetry, and `edge_counts` ([B,3], from `_edges_batched`) the
     ww/wr/rw counts; None (host-built matrices, which hold no shortcut
-    edges) counts the incoming matrices."""
+    edges) counts the incoming matrices. `mp` splits every closure
+    round over a mesh row's devices (`_closure_batched`)."""
     T = ww.shape[-1]
     dev = ww.device
     B = ww.shape[0]
@@ -578,12 +642,13 @@ def classify_matrices_impl(ww, wr, rw, invoke_index, complete_index, process,
         ww = ww | rt_add
 
     def closure(m, active=None):
-        return _closure_batched(m, steps, square, rounds, active)
+        return _closure_batched(m, steps, square, rounds, active, mp=mp)
 
     def widest(m):
         """The widest closure, with its round telemetry under stats."""
         tel: list | None = [] if with_stats else None
-        return _closure_batched(m, steps, square, rounds, stats=tel), tel
+        return _closure_batched(m, steps, square, rounds, stats=tel,
+                                mp=mp), tel
 
     def result(flags, c_full, tel):
         if not with_stats:
@@ -631,7 +696,7 @@ def check_batched_impl(appends, reads, invoke_index, complete_index, process,
                        process_order: bool, fused: bool = True,
                        square: Square | None = None,
                        rounds: list | None = None,
-                       with_stats: bool = False):
+                       with_stats: bool = False, mp: list | None = None):
     """THE cycle-check kernel: packed [B,...] tensors -> [B] int32 flag
     words (`(flags, stats)` with `with_stats`). `n_live` is the
     per-history real txn count ([B]); rows beyond it are excluded from
@@ -643,21 +708,23 @@ def check_batched_impl(appends, reads, invoke_index, complete_index, process,
         steps=steps, classify=classify, realtime=realtime,
         process_order=process_order, fused=fused, square=square,
         rounds=rounds, with_stats=with_stats,
-        edge_counts=counts[0] if counts else None)
+        edge_counts=counts[0] if counts else None, mp=mp)
 
 
 def check_batch_device(batch: dict, *, classify: bool = True,
                        realtime: bool = False, process_order: bool = False,
                        fused: bool = True, square: Square | None = None,
                        rounds: list | None = None,
-                       with_stats: bool = False):
-    """Single-device entry over a device-resident packed batch (from
+                       with_stats: bool = False, mp: list | None = None):
+    """Entry over a device-resident packed batch (from
     `batch_to_device`): [B] int32 flag words, on the batch's device,
     enqueued with no read of the device (`(flags, stats)`, the
     [B, N_STATS] matrix, with `with_stats`). `square` replaces the
     squaring (e.g. with `closure_square_ref` to run the plain version on
-    cuda); `rounds` collects each closure's device round counter
-    (`read_rounds` reads them)."""
+    cuda; with `mp` it takes `cols=` too); `rounds` collects each
+    closure's device round counter (`read_rounds` reads them); `mp`, the
+    devices of a mesh row (the batch's first), splits the closure rounds
+    over them."""
     shape: BatchShape = batch["shape"]
     return check_batched_impl(
         batch["appends"], batch["reads"], batch["invoke_index"],
@@ -665,7 +732,7 @@ def check_batch_device(batch: dict, *, classify: bool = True,
         n_keys=shape.n_keys, max_pos=shape.max_pos, n_txns=shape.n_txns,
         steps=closure_steps(shape.n_txns), classify=classify,
         realtime=realtime, process_order=process_order, fused=fused,
-        square=square, rounds=rounds, with_stats=with_stats)
+        square=square, rounds=rounds, with_stats=with_stats, mp=mp)
 
 
 def classify_matrices_device(batch: dict, *, classify: bool = True,
@@ -674,17 +741,18 @@ def classify_matrices_device(batch: dict, *, classify: bool = True,
                              fused: bool = True,
                              square: Square | None = None,
                              rounds: list | None = None,
-                             with_stats: bool = False):
-    """Single-device entry over a device-resident packed edge batch
-    (from `edge_batch_to_device`): [B] int32 flag words, on the batch's
-    device. `square`, `rounds` and `with_stats` as in
+                             with_stats: bool = False,
+                             mp: list | None = None):
+    """Entry over a device-resident packed edge batch (from
+    `edge_batch_to_device`): [B] int32 flag words, on the batch's
+    device. `square`, `rounds`, `with_stats` and `mp` as in
     `check_batch_device`."""
     return classify_matrices_impl(
         batch["ww"], batch["wr"], batch["rw"], batch["invoke_index"],
         batch["complete_index"], batch["process"], batch["n_txns"],
         steps=closure_steps(batch["T"]), classify=classify,
         realtime=realtime, process_order=process_order, fused=fused,
-        square=square, rounds=rounds, with_stats=with_stats)
+        square=square, rounds=rounds, with_stats=with_stats, mp=mp)
 
 
 #: The edge classes an edge batch takes (graph.WW, graph.WR, graph.RW),
@@ -693,7 +761,8 @@ def classify_matrices_device(batch: dict, *, classify: bool = True,
 EDGE_CLASSES = {"ww": 0, "wr": 1, "rw": 2}
 
 
-def pack_edge_matrices(per_history: list[dict], multiple: int = 128) -> dict:
+def pack_edge_matrices(per_history: list[dict], multiple: int = 128,
+                       t_pad: int | None = None) -> dict:
     """Pack host-built sparse edges for the device-side scatter.
 
     per_history: dicts with keys n (txn count), edges ((src, dst, cls)
@@ -704,10 +773,12 @@ def pack_edge_matrices(per_history: list[dict], multiple: int = 128) -> dict:
     cells to set (self-loops dropped), the [B,T] timing arrays, the [B]
     txn counts and T, the padded txn count. The [B,T,T] matrices
     themselves are made on the device (`edge_batch_to_device`), so only
-    the index lists cross to it. An edge of another class, or with an
-    end outside [0, n), raises ValueError."""
+    the index lists cross to it. `t_pad` fixes T (a mesh row packed to
+    its bucket's T). An edge of another class, or with an end outside
+    [0, n), raises ValueError."""
     B = len(per_history)
-    T = pad_to(max((h["n"] for h in per_history), default=1), multiple)
+    T = pad_to(max((h["n"] for h in per_history), default=1), multiple) \
+        if t_pad is None else t_pad
     invoke_idx = np.zeros((B, T), np.int64)
     complete_idx = np.zeros((B, T), np.int64)
     process = np.full((B, T), -1, np.int32)
@@ -760,6 +831,7 @@ def edge_batch_to_device(packed: dict, device: torch.device) -> dict:
 
 
 def check_edge_batch(per_history: list[dict], device=None, *,
+                     devices=None,
                      realtime: bool = False, process_order: bool = False,
                      classify: bool = True, fused: bool | None = None,
                      square: Square | None = None,
@@ -767,33 +839,51 @@ def check_edge_batch(per_history: list[dict], device=None, *,
     """Device cycle check over host-built edge lists: per-history
     {anomaly-name: True} dicts (the rw-register path, and the per-SCC
     classify stage of the condensed long-history path), on `device`
-    (default cuda; see devices.resolve_device). `fused` defaults to the
-    JEPSEN_TPU_FUSED_CLASSIFY gate. The wait for the flags is bounded
-    by the dispatch watchdog (`parallel._block_flags`: WatchdogTimeout
-    after two timeouts). `square` as in `check_batch_device`.
-    `stats_out`, when given, is extended with one `stats_row` dict per
-    history (the check then also computes the stats matrix)."""
-    if not per_history:
+    (default cuda; see devices.resolve_device), or split over several
+    `devices` (a 1-D dp mesh, a ragged batch padded by replicating its
+    last entry). One dispatch (`parallel.check_once`), its wait bounded
+    by the dispatch watchdog (WatchdogTimeout after two timeouts).
+    `fused` defaults to the JEPSEN_TPU_FUSED_CLASSIFY gate, `square` as
+    in `check_batch_device`. `stats_out`, when given, is extended with
+    one `stats_row` dict per history (the check then also computes the
+    stats matrix)."""
+    return _check_once(per_history, device, devices, stats_out,
+                       classify=classify, realtime=realtime,
+                       process_order=process_order,
+                       fused=fused_classify_enabled() if fused is None
+                       else fused, square=square)
+
+
+def check_encoded_batch(encs: list[EncodedHistory], device=None, *,
+                        devices=None, realtime: bool = False,
+                        process_order: bool = False, classify: bool = True,
+                        square: Square | None = None,
+                        stats_out: list | None = None) -> list[dict]:
+    """`check_edge_batch` for encoded histories: one dispatch of all of
+    them, the edges built on the device, the fused classify by its
+    gate."""
+    return _check_once(encs, device, devices, stats_out, classify=classify,
+                       realtime=realtime, process_order=process_order,
+                       fused=fused_classify_enabled(), square=square)
+
+
+def _check_once(items: list, device, devices, stats_out: list | None,
+                **kw) -> list[dict]:
+    if not items:
         return []
     from ...devices import resolve_device
-    from ...parallel import _block_flags, _done_event
-    dev = resolve_device(device)
-    packed = pack_edge_matrices(per_history)
-    batch = edge_batch_to_device(packed, dev)
-    out = classify_matrices_device(
-        batch, classify=classify, realtime=realtime,
-        process_order=process_order,
-        fused=fused_classify_enabled() if fused is None else fused,
-        square=square, with_stats=stats_out is not None)
-    flags, stats = out if stats_out is not None else (out, None)
-    _block_flags(_done_event(dev))
-    if stats is not None:
-        stats_out.extend(stats_row(r, n_txns=h["n"], t_pad=packed["T"])
-                         for r, h in zip(stats.tolist(), per_history))
-    return [flags_to_names(w) for w in flags.tolist()]
+    from ...parallel import check_once
+    words = check_once(items, list(devices) if devices
+                       else [resolve_device(device)], kw=kw,
+                       with_stats=stats_out is not None)
+    if stats_out is not None:
+        stats_out.extend(st for _w, st in words)
+        words = [w for w, _st in words]
+    return [flags_to_names(w) for w in words]
 
 
 def check_edge_batch_bucketed(per_history: list[dict], device=None, *,
+                              devices=None,
                               realtime: bool = False,
                               process_order: bool = False,
                               classify: bool = True,
@@ -812,13 +902,18 @@ def check_edge_batch_bucketed(per_history: list[dict], device=None, *,
     policy (the wr sweep's `cli._wr_chunk_with_backdown`, the long run's
     quarantine). `bucket_log` as in `parallel.check_bucketed`;
     `stats_out`, when given, is extended with one `stats_row` dict per
-    history, in input order, once every bucket has resolved."""
+    history, in input order, once every bucket has resolved. With
+    several `devices` every bucket is split over them (a 1-D dp mesh,
+    buckets planned with its padding headroom)."""
     if not per_history:
         return []
     from ...devices import resolve_device
-    from ...parallel import check_bucketed_async
+    from ...parallel import Mesh, check_bucketed_async
+    mesh = Mesh([[d] for d in devices]) \
+        if devices is not None and len(devices) > 1 else None
     pv = check_bucketed_async(
-        per_history, resolve_device(device), classify=classify,
+        per_history, resolve_device(device if not devices else devices[0]),
+        mesh=mesh, classify=classify,
         realtime=realtime, process_order=process_order,
         budget_cells=budget_cells, fused=fused, max_inflight=1,
         square=square, bucket_log=bucket_log, supervise=False,

@@ -428,7 +428,8 @@ def check_dense_device(regs: torch.Tensor, comp: torch.Tensor, *,
 def check_encoded_dense_batch(encs: list[DenseEncoded],
                               device: torch.device | str = "cuda",
                               scan=None,
-                              stats_out: list | None = None) -> list[dict]:
+                              stats_out: list | None = None,
+                              devices=None) -> list[dict]:
     """Check dense-encoded histories on `device`; exact verdicts
     `{"valid?", "analyzer": "tpu-dense", "op-count"}` (the reference's
     analyzer name, a byte of the stored verdict).
@@ -439,24 +440,39 @@ def check_encoded_dense_batch(encs: list[DenseEncoded],
     `scan_dense_ref` in place of the kernel). `stats_out`, when given,
     is extended with one dict per history, the reference's: engine,
     frontier_peak (the grid's peak occupancy), grid_configs, rounds and
-    n_slots."""
+    n_slots.
+
+    With several `devices` each bucket is split over them (a 1-D dp
+    mesh): padded to a multiple of their count by replicating its last
+    history, packed once, each device scanning its contiguous rows (the
+    kernel launches on each row's device); the replicas' verdicts are
+    dropped."""
     if not encs:
         return []
+    from ...util import pad_to_multiple
+    from .kernels import dp_slices
+    devices = list(devices) if devices else [device]
     buckets: dict[int, list[int]] = {}
     for i, e in enumerate(encs):
         buckets.setdefault(e.n_slots + (e.n_slots & 1), []).append(i)
     out: list[dict | None] = [None] * len(encs)
     sout: list = [None] * len(encs)
     for _slots, idxs in sorted(buckets.items()):
-        batch = pack_dense_batch([encs[i] for i in idxs])
+        group = pad_to_multiple([encs[i] for i in idxs], len(devices))
+        batch = pack_dense_batch(group)
         shape: DenseBatchShape = batch["shape"]
-        res = check_dense_device(
-            torch.from_numpy(batch["regs"]).to(device),
-            torch.from_numpy(batch["comp"]).to(device),
-            n_values=shape.n_values, n_slots=shape.n_slots,
-            scan=scan, with_stats=stats_out is not None)
-        valid, peak, rounds = (x.tolist() for x in res) \
-            if stats_out is not None else (res.tolist(), None, None)
+        regs = torch.from_numpy(batch["regs"])
+        comp = torch.from_numpy(batch["comp"])
+        parts = []
+        for dev, rows in dp_slices(len(group), devices):
+            res = check_dense_device(
+                regs[rows].to(dev), comp[rows].to(dev),
+                n_values=shape.n_values, n_slots=shape.n_slots,
+                scan=scan, with_stats=stats_out is not None)
+            parts.append(res if stats_out is not None else (res,))
+        valid, *rest = [sum((x.tolist() for x in col), [])
+                        for col in zip(*parts)]
+        peak, rounds = rest if rest else (None, None)
         for j, i in enumerate(idxs):
             out[i] = {"valid?": bool(valid[j]), "analyzer": "tpu-dense",
                       "op-count": encs[i].n_ops}

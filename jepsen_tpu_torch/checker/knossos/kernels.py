@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from ...util import pad_to_multiple
 from .encode import (CAS, COMPLETE_EV, INVOKE_EV, READ, WRITE,
                      EncodedRegisterHistory, RegisterBatchShape,
                      pack_register_batch)
@@ -209,11 +210,20 @@ def check_batch_device(events: torch.Tensor, *, frontier: int = 512,
     return _scan_history(events, frontier, n_slots, with_stats)
 
 
+def dp_slices(n: int, devices) -> list[tuple[torch.device, slice]]:
+    """A batch of n rows split over `devices` (a 1-D dp mesh, n a
+    multiple of their count): (device, its contiguous rows) each."""
+    per = n // len(devices)
+    return [(torch.device(d), slice(k * per, (k + 1) * per))
+            for k, d in enumerate(devices)]
+
+
 def check_encoded_batch(encs: list[EncodedRegisterHistory],
                         frontier: int = 512,
                         device: torch.device | str = "cuda",
                         packed: bool | None = None,
-                        stats_out: list | None = None) -> list[dict]:
+                        stats_out: list | None = None,
+                        devices=None) -> list[dict]:
     """Check encoded register histories on `device`. Returns
     knossos-shaped verdicts: {"valid?": True|False, "analyzer":
     "tpu-jit", "op-count"}, or {"valid?": "unknown", ...,
@@ -227,29 +237,40 @@ def check_encoded_batch(encs: list[EncodedRegisterHistory],
     a confident wrong verdict. `stats_out`, when given, is extended with
     one dict per history (engine, frontier_peak, frontier, rounds,
     configs, overflow, n_slots — the reference's), and the batch takes
-    this frontier, the only one that carries the telemetry."""
+    this frontier, the only one that carries the telemetry.
+
+    With several `devices` the batch is split over them (a 1-D dp mesh):
+    padded to a multiple of their count by replicating its last
+    history, packed once, each device scanning its contiguous rows; the
+    replicas' verdicts are dropped."""
     if not encs:
         return []
+    n = len(encs)
+    devices = list(devices) if devices else [device]
+    encs = pad_to_multiple(encs, len(devices))
     batch = pack_register_batch(encs)
     shape: RegisterBatchShape = batch["shape"]
-    events = torch.from_numpy(batch["events"]).to(device)
+    events = torch.from_numpy(batch["events"])
 
     from .packed import check_batch_device_packed, packable
     fits = all(packable(e.n_values, shape.n_slots) for e in encs)
     with_stats = stats_out is not None
-    st = None
-    if (fits if packed is None else (packed and fits)) and not with_stats:
-        valid, overflow = check_batch_device_packed(
-            events, frontier=frontier, n_slots=shape.n_slots)
-    else:
-        valid, overflow, *st = check_batch_device(
-            events, frontier=frontier, n_slots=shape.n_slots,
-            with_stats=with_stats)
-        st = [x.tolist() for x in st]
-    valid = valid.cpu().tolist()
-    overflow = overflow.cpu().tolist()
+    use_packed = (fits if packed is None else (packed and fits)) \
+        and not with_stats
+    parts = []
+    for dev, rows in dp_slices(len(encs), devices):
+        ev = events[rows].to(dev)
+        if use_packed:
+            parts.append(check_batch_device_packed(
+                ev, frontier=frontier, n_slots=shape.n_slots))
+        else:
+            parts.append(check_batch_device(
+                ev, frontier=frontier, n_slots=shape.n_slots,
+                with_stats=with_stats))
+    cols = [sum((x.tolist() for x in col), []) for col in zip(*parts)]
+    valid, overflow, *st = cols
     out = []
-    for i, e in enumerate(encs):
+    for i, e in enumerate(encs[:n]):
         if overflow[i]:
             out.append({"valid?": "unknown", "analyzer": "tpu-jit",
                         "cause": ":frontier-overflow"})

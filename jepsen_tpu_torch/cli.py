@@ -105,9 +105,13 @@ per-shard files and `.shard-<k>.done` last; shard 0 then merges the
 fleet and prints one `{"mesh": true, ...}` summary line. Shards may run
 at once on one card, each in its own process. A lost, crashed or
 incompletely journaled shard makes the merged exit code at least 2.
-A coordinator address (`JAX_COORDINATOR_ADDRESS`) without
-`JEPSEN_TPU_MESH_SHARDS` is refused (exit 255): the port joins no
-`jax.distributed` job.
+With a coordinator address (`JAX_COORDINATOR_ADDRESS` or
+`COORDINATOR_ADDRESS`, with `JAX_NUM_PROCESSES` and `JAX_PROCESS_ID`)
+and no `JEPSEN_TPU_MESH_SHARDS`, a `--mesh` shard joins the job (a
+`torch.distributed` gloo group) and takes its rank and size as its
+shard; a join that fails exits 255. A sweep without `--mesh` joins no
+job: a process holds only its own cards, so a joined job spreads a
+sweep through `--mesh` alone.
 
 `--backend cpu` sweeps append and wr runs through the host oracles
 (`cycle_anomalies_cpu`: witness cycles where the device path records
@@ -791,6 +795,22 @@ def _analyze_store_impl(store: Store, checker: str, dev, name, resume: bool,
         # (more than one core, or JEPSEN_TPU_PIPELINE)
         procs = max(1, os.cpu_count() or 1) \
             if dev is not None and dev.type == "cuda" else None
+        # the dispatch mesh: dp over this process's devices of dev's
+        # kind (a shard's own; one device is the single-device path),
+        # built at the first device dispatch: a store of fallback runs
+        # needs none
+        mesh_box: list = []
+
+        def get_mesh():
+            if not mesh_box:
+                from .devices import default_devices
+                mesh_box.append(parallel.dp_mesh(default_devices(dev)))
+            return mesh_box[0]
+
+        def spread() -> dict:
+            m = get_mesh()
+            return {} if m.size == 1 else {"devices": list(m.devices.flat)}
+
         huge, fallback = [], []
         for chunk in _parse_timed(ingest.iter_encode_chunks(
                 run_dirs, checker=checker, processes=procs)):
@@ -826,11 +846,12 @@ def _analyze_store_impl(store: Store, checker: str, dev, name, resume: bool,
             elif checker == "wr":
                 cycles_per = _wr_chunk_with_backdown(
                     good, kernels, wr, stats_out=souts, device=dev,
-                    square=square, bucket_log=bucket_log)
+                    square=square, bucket_log=bucket_log, **spread())
             else:
                 cycles_per = parallel.check_bucketed(
-                    [e for _, e in good], dev, square=square,
-                    bucket_log=bucket_log, stats_out=souts)
+                    [e for _, e in good], dev, mesh=get_mesh(),
+                    square=square, bucket_log=bucket_log,
+                    stats_out=souts)
             for i, ((d, enc), cycles) in enumerate(zip(good, cycles_per)):
                 emit(d, render(enc, cycles))
                 if souts is not None and i < len(souts):

@@ -48,6 +48,15 @@
 //    sets active[1], the next round's word. A loop thus enqueues every
 //    round of a closure and reads nothing back until it resolves.
 //
+//  * A column range for a model-parallel split. closure_square_cols_launch
+//    computes only the output columns [c0, c1) of each history (c0 a
+//    multiple of BN, c1 one too or T): out[b,:,c0:c1] and its transpose
+//    outT[b,c0:c1,:], reading all of m and rows c0..c1 of mT, with the
+//    changed flag over those columns. Its grid walks B * T/BM *
+//    (c1-c0)/BN tiles; a skipped round copies just that block. Several
+//    devices, each given one block, together compute the whole round;
+//    the full round is the range [0, T).
+//
 // Input bytes must be 0 or 1; output bytes are 0 or 1; changed[b] is
 // set to 1 where out[b] != m[b] and left as the caller zeroed it
 // elsewhere. T must be a multiple of 128, layouts [B,T,T] contiguous.
@@ -208,20 +217,39 @@ closure_square_kernel(const __grid_constant__ CUtensorMap tm_m,
                       uint4* __restrict__ out_words,
                       uint4* __restrict__ outT_words,
                       uint8_t* __restrict__ changed, int* active, int B,
-                      int T) {
+                      int T, int c0, int c1) {
   if (active != nullptr && *reinterpret_cast<volatile int*>(active) == 0) {
-    // a skipped round: out = m, outT = mT, nothing else written. The
-    // word is uniform across the grid, so every thread takes this branch
-    // or none does, before any barrier is touched.
-    const size_t n = static_cast<size_t>(B) * T * T / 16;
+    // a skipped round: out = m, outT = mT over the launch's columns,
+    // nothing else written. The word is uniform across the grid, so
+    // every thread takes this branch or none does, before any barrier
+    // is touched.
     const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
-    for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-         i < n; i += stride) {
-      const uint4 a = m_words[i];
-      const uint4 c = mT_words[i];
-      out_words[i] = a;
-      outT_words[i] = c;
+    const size_t first = static_cast<size_t>(blockIdx.x) * blockDim.x +
+                         threadIdx.x;
+    if (c0 == 0 && c1 == T) {
+      const size_t n = static_cast<size_t>(B) * T * T / 16;
+      for (size_t i = first; i < n; i += stride) {
+        const uint4 a = m_words[i];
+        const uint4 c = mT_words[i];
+        out_words[i] = a;
+        outT_words[i] = c;
+      }
+      return;
+    }
+    // out: columns c0..c1 of every row; outT: rows c0..c1, contiguous
+    const size_t row_words = static_cast<size_t>(T) / 16;
+    const size_t span = static_cast<size_t>(c1 - c0) / 16;
+    const size_t n_out = static_cast<size_t>(B) * T * span;
+    for (size_t i = first; i < n_out; i += stride) {
+      const size_t w = (i / span) * row_words + c0 / 16 + i % span;
+      out_words[w] = m_words[w];
+    }
+    const size_t block = span * T;           // words of one history's rows
+    const size_t n_outT = static_cast<size_t>(B) * block;
+    for (size_t i = first; i < n_outT; i += stride) {
+      const size_t w = (i / block) * row_words * T +
+                       static_cast<size_t>(c0) * row_words + i % block;
+      outT_words[w] = mT_words[w];
     }
     return;
   }
@@ -234,7 +262,7 @@ closure_square_kernel(const __grid_constant__ CUtensorMap tm_m,
   const uint32_t bar_epi = bar_empty + STAGES * 8;    // the m tile
 
   const int tm = T / BM;
-  const int tn = (T + BN - 1) / BN;
+  const int tn = (c1 - c0 + BN - 1) / BN;
   const int n_tiles = B * tm * tn;
   const int nk = T / BK;
   const int wg = threadIdx.x / 128;
@@ -265,7 +293,7 @@ closure_square_kernel(const __grid_constant__ CUtensorMap tm_m,
           tma_load(&tm_m, s_base + OFF_A + stage * A_BYTES, full, kb * BK,
                    mi * BM, b);
           tma_load(&tm_mT, s_base + OFF_B + stage * B_BYTES, full, kb * BK,
-                   ni * BN, b);
+                   c0 + ni * BN, b);
           if (++stage == STAGES) {
             stage = 0;
             phase ^= 1;
@@ -293,8 +321,8 @@ closure_square_kernel(const __grid_constant__ CUtensorMap tm_m,
       int b, mi, ni;
       tile_coords(t, tm, tn, b, mi, ni);
       const int i0 = mi * BM;
-      const int j0 = ni * BN;
-      const int halves = (j0 + 128 < T) ? 2 : 1;  // live 128-col halves
+      const int j0 = c0 + ni * BN;
+      const int halves = (j0 + 128 < c1) ? 2 : 1;  // live 128-col halves
       if (ct == 0) {
         // the previous tile's stores must have read the staging buffers
         asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
@@ -335,7 +363,7 @@ closure_square_kernel(const __grid_constant__ CUtensorMap tm_m,
       // epilogue: threshold, compare with m's tile, stage out and out^T
       mbar_wait(bar_epi, epi_phase);
       epi_phase ^= 1;
-      const int live_cols = T - j0;
+      const int live_cols = c1 - j0;
       uint32_t diff = 0;
 #pragma unroll
       for (int c = 0; c < 32; ++c) {
@@ -440,18 +468,14 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* base, int B,
 
 }  // namespace
 
-// Launch one closure round on `stream` (a cudaStream_t of `device`): m and
-// mT (= m transposed per history) are device pointers to B contiguous
-// T x T byte matrices; out and outT receive the round and its transpose;
-// changed (B bytes, zeroed by the caller) gets 1 where out[b] != m[b].
-// active (null, or two device int32 words) makes the round conditional:
-// skipped when active[0] == 0 (out = m, outT = mT), and a changed
-// history sets active[1]. Returns a cudaError_t (0 on success); it never
-// synchronises.
-extern "C" int closure_square_launch(const void* m, const void* mT, void* out,
-                                     void* outT, void* changed, void* active,
-                                     int B, int T, int device, void* stream) {
-  if (B <= 0 || T <= 0 || T % BM != 0) {
+namespace {
+
+// one closure round over the output columns [c0, c1) (see below)
+int launch(const void* m, const void* mT, void* out, void* outT,
+           void* changed, void* active, int B, int T, int c0, int c1,
+           int device, void* stream) {
+  if (B <= 0 || T <= 0 || T % BM != 0 || c0 < 0 || c0 % BN != 0 ||
+      c1 <= c0 || c1 > T || (c1 % BN != 0 && c1 != T)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // this library carries its own (static) CUDA runtime, whose current
@@ -476,15 +500,46 @@ extern "C" int closure_square_launch(const void* m, const void* mT, void* out,
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long n_tiles =
-      static_cast<long long>(B) * (T / BM) * ((T + BN - 1) / BN);
+      static_cast<long long>(B) * (T / BM) * ((c1 - c0 + BN - 1) / BN);
   const int grid = static_cast<int>(n_tiles < sms ? n_tiles : sms);
   closure_square_kernel<<<grid, THREADS, SMEM_BYTES,
                           static_cast<cudaStream_t>(stream)>>>(
       tm_m, tm_mT, tm_out, tm_outT, static_cast<const uint4*>(m),
       static_cast<const uint4*>(mT), static_cast<uint4*>(out),
       static_cast<uint4*>(outT), static_cast<uint8_t*>(changed),
-      static_cast<int*>(active), B, T);
+      static_cast<int*>(active), B, T, c0, c1);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Launch one closure round on `stream` (a cudaStream_t of `device`): m and
+// mT (= m transposed per history) are device pointers to B contiguous
+// T x T byte matrices; out and outT receive the round and its transpose;
+// changed (B bytes, zeroed by the caller) gets 1 where out[b] != m[b].
+// active (null, or two device int32 words) makes the round conditional:
+// skipped when active[0] == 0 (out = m, outT = mT), and a changed
+// history sets active[1]. Returns a cudaError_t (0 on success); it never
+// synchronises.
+extern "C" int closure_square_launch(const void* m, const void* mT, void* out,
+                                     void* outT, void* changed, void* active,
+                                     int B, int T, int device, void* stream) {
+  return launch(m, mT, out, outT, changed, active, B, T, 0, T, device,
+                stream);
+}
+
+// closure_square_launch over the output columns [c0, c1) of each history
+// only: out[b,:,c0:c1], outT[b,c0:c1,:] (both [B,T,T] buffers, the rest
+// left as it was), changed[b] = 1 where those columns changed, a skipped
+// round copying just that block. c0 is a multiple of 256 (the column
+// tile), c1 one too or T; a bad range returns cudaErrorInvalidValue.
+extern "C" int closure_square_cols_launch(const void* m, const void* mT,
+                                          void* out, void* outT,
+                                          void* changed, void* active, int B,
+                                          int T, int c0, int c1, int device,
+                                          void* stream) {
+  return launch(m, mT, out, outT, changed, active, B, T, c0, c1, device,
+                stream);
 }
 
 // The CUDA runtime's text for an error code returned above.

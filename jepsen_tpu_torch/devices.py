@@ -3,8 +3,9 @@ analysis backend.
 
 Counterpart of `jepsen_tpu/devices.py` (`default_devices`,
 `accelerator_available`, `resolve_backend`): there the analysis backend
-is whatever JAX platform answers; here it is one explicit
-`torch.device`. The default is the GPU. The CPU is used only when the
+is whatever JAX platform answers; here it is an explicit
+`torch.device`, and `default_devices` every visible card of its kind
+(what a mesh spreads over). The default is the GPU. The CPU is used only when the
 caller names it (the tests do), never as a silent substitute for a
 missing card. Torch is imported where a device is resolved, so the
 backend rules load without it.
@@ -38,6 +39,22 @@ def resolve_device(requested: str | torch.device | None = None
             "no CUDA device is available (torch.cuda.is_available() is "
             "false); pass device 'cpu' to run on the CPU")
     return dev
+
+
+def default_devices(requested: str | torch.device | None = None
+                    ) -> list[torch.device]:
+    """The devices a mesh spreads over (the reference's
+    `default_devices`): every visible CUDA device, in order, as
+    `cuda:k` — `CUDA_VISIBLE_DEVICES` restricts them — or just the one
+    `requested` names when it carries an index (`cuda:1`), or `[cpu]`
+    when it names the CPU. Raises DeviceUnavailable when CUDA is asked
+    for (the default) and there is no card: never the CPU instead."""
+    import torch
+    dev = resolve_device(requested)
+    if dev.type == "cpu" or dev.index is not None:
+        return [dev]
+    return [torch.device("cuda", k)
+            for k in range(torch.cuda.device_count())]
 
 
 #: The checker backends, the reference's names.

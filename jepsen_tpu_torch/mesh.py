@@ -19,13 +19,15 @@ default 0). The same pair re-assigns a dead shard:
 `JEPSEN_TPU_MESH_SHARD=<k> ... --resume`. Without a count the sweep is
 one shard, a mesh of one, with a per-shard journal.
 
-The reference has a second route, a `jax.distributed` job
-(`JAX_COORDINATOR_ADDRESS` or `COORDINATOR_ADDRESS`), whose process
-index and count become the shard's. The port has no distributed job to
-join, so `resolve_shard` names that route and refuses it when a
-coordinator address is set without `JEPSEN_TPU_MESH_SHARDS`: degrading
-to a whole-store sweep would have every host of the job sweep
-everything and race the same journals.
+The second route is a joined job: with a coordinator address set
+(`JAX_COORDINATOR_ADDRESS` or `COORDINATOR_ADDRESS`, the reference's
+variables, with `JAX_NUM_PROCESSES` and `JAX_PROCESS_ID`) and no shard
+count, the process joins it (`parallel.init_distributed`, a
+`torch.distributed` gloo group, the port's `jax.distributed`) and its
+rank and the group's size become the shard's; `JEPSEN_TPU_MESH_SHARD`
+still overrides the index. A join that fails raises: degrading to a
+whole-store sweep would have every host of the job sweep everything and
+race the same journals (the CLI exits 255).
 
 The split itself (`store.shard_of` over the key `<name>/<run>`) is the
 reference's to the byte, so both packages partition one store alike and
@@ -58,31 +60,45 @@ def resolve_shard() -> tuple[int, int]:
     """(shard index, shard count) of this process, as the module doc
     says. An index out of range is an error (wrapping a mistyped
     re-assignment onto another live shard would race its journal), and
-    so is a bare index with no count, or a coordinator address with no
-    count (the refused `jax.distributed` route)."""
+    so is a bare index with no count; a coordinator address with no
+    count joins the job, and a join that fails raises RuntimeError."""
     override = gates.get("JEPSEN_TPU_MESH_SHARD")
     shards = gates.get("JEPSEN_TPU_MESH_SHARDS")
-    if shards is not None and shards > 0:
-        shard = 0 if override is None else override
-        if not 0 <= shard < shards:
+
+    def ranged(shard: int, count: int) -> tuple[int, int]:
+        if not 0 <= shard < count:
             raise ValueError(
                 f"JEPSEN_TPU_MESH_SHARD={shard} out of range for "
-                f"a {shards}-shard mesh (indices are 0..{shards - 1})")
-        return shard, shards
+                f"a {count}-shard mesh (indices are 0..{count - 1})")
+        return shard, count
+
+    if shards is not None and shards > 0:
+        return ranged(0 if override is None else override, shards)
     if any(os.environ.get(v) for v in COORDINATOR_VARS):
-        raise RuntimeError(
-            "mesh shard identity unresolvable: a coordinator address "
-            "is set (JAX_COORDINATOR_ADDRESS/COORDINATOR_ADDRESS), but "
-            "jepsen_tpu_torch does not join a jax.distributed job — "
-            "refusing to degrade to a full-store single-shard sweep "
-            "(every host would sweep everything, racing the same "
-            "journals). Set JEPSEN_TPU_MESH_SHARDS/_SHARD for "
-            "coordinator-free identity instead.")
+        from . import parallel
+        try:
+            parallel.init_distributed()
+            import torch.distributed as dist
+            rank, size = dist.get_rank(), dist.get_world_size()
+        except Exception as e:
+            raise RuntimeError(
+                "mesh shard identity unresolvable: a coordinator address "
+                "is set (JAX_COORDINATOR_ADDRESS/COORDINATOR_ADDRESS) but "
+                "joining its job (torch.distributed over gloo, the port's "
+                f"jax.distributed) failed: {e} — refusing to degrade to a "
+                "full-store single-shard sweep (every host would sweep "
+                "everything, racing the same journals). Set "
+                "JEPSEN_TPU_MESH_SHARDS/_SHARD for coordinator-free "
+                "identity instead.") from e
+        # the re-assignment override applies inside a joined job too: a
+        # replacement process can take a dead one's shard
+        return ranged(rank if override is None else override, size)
     if override is not None:
         raise ValueError(
             f"JEPSEN_TPU_MESH_SHARD={override} set with no shard "
-            "count: set JEPSEN_TPU_MESH_SHARDS too — a bare index "
-            "cannot define a partition")
+            "count: set JEPSEN_TPU_MESH_SHARDS too (or join a job "
+            "through a coordinator address) — a bare index cannot "
+            "define a partition")
     return 0, 1
 
 

@@ -31,7 +31,11 @@ dispatch). In three parts:
     and this one does not.) Pending windows are keyed by the dispatch
     object itself, not by the id of its flags tensor, whose id a freed
     tensor can hand to another bucket in flight. The same bracket
-    publishes the residency gauges (`parallel.residency`).
+    publishes the residency gauges (`parallel.residency`). A dispatch
+    over a mesh has one event pair a device of it (`open_mesh_window`),
+    each read on its own device — `elapsed_time` never spans two cards —
+    and its window is the longest of them; its record's key carries the
+    reference's single-device flag (a mesh key never has `use_pallas`).
   * **persist** — `flush()` appends one JSON line per record to
     `<store>/costdb.jsonl` (`store.append_costdb`); `merge_records`
     folds the records of several shards into one deduplicated set.
@@ -139,13 +143,16 @@ def formulation(device, square=None) -> str:
     return "cuda-int8" if device.type == "cuda" else "closure_square_ref"
 
 
-def dispatch_cost_key(kw: dict, shape, with_stats: bool, device) -> tuple:
+def dispatch_cost_key(kw: dict, shape, with_stats: bool, device,
+                      single_device: bool = True) -> tuple:
     """THE cost key of one bucket dispatch (`_KEY_FIELDS`), with the
-    kernel-stats marker appended only when on, as the reference's."""
+    kernel-stats marker appended only when on, as the reference's. A
+    mesh dispatch (`single_device` false) keys `use_pallas` false, as the
+    reference's mesh dispatches never take its Pallas kernel."""
     hand = kw.get("square") is None and device.type == "cuda"
     return (kw.get("classify", True), kw.get("realtime", False),
             kw.get("process_order", False), kw.get("fused"),
-            hand, hand, False,
+            hand and single_device, hand, False,
             shape.n_keys, shape.max_pos, shape.n_txns) \
         + (("stats",) if with_stats else ())
 
@@ -157,12 +164,16 @@ def _device_kind(device) -> str:
     return torch.cuda.get_device_name(device)
 
 
-def observe(key_parts: tuple, batch: dict, device, form: str) -> tuple:
+def observe(key_parts: tuple, batch: dict, device, form: str,
+            B: int | None = None, nbytes: int | None = None) -> tuple:
     """Open the record of (key_parts, batch size) unless it exists;
-    returns (its key, whether it was opened now)."""
+    returns (its key, whether it was opened now). `B` and `nbytes`
+    override the batch's own size and bytes (a mesh dispatch's batch is
+    its first row)."""
     global _poll_device
     shape = batch["shape"]
-    B = int(batch["appends"].shape[0])
+    if B is None:
+        B = int(batch["appends"].shape[0])
     key = (tuple(key_parts), B)
     with _LOCK:
         if key in _records:
@@ -183,7 +194,8 @@ def observe(key_parts: tuple, batch: dict, device, form: str) -> tuple:
         "analysis": "shapes",
         "cost": None,
         "memory": None,
-        "argument_bytes_actual": _input_bytes(batch),
+        "argument_bytes_actual": _input_bytes(batch) if nbytes is None
+        else nbytes,
         "windows": {"dispatches": 0, "device_secs": 0.0,
                     "min_secs": None, "max_secs": None, "histories": 0},
     }
@@ -241,6 +253,36 @@ def open_window(kw: dict, batch: dict, with_stats: bool, device,
     return None
 
 
+def open_mesh_window(kw: dict, batches: list, with_stats: bool,
+                     devices: list) -> Window | None:
+    """`open_window` of a dispatch sharded over a mesh: `batches` are its
+    rows', `devices` every device of the mesh once. The start event is
+    one a device, recorded on each device's current stream (after the
+    rows' waits for their copies), and the record is keyed as a mesh
+    dispatch, its size the whole padded batch; the first device is the
+    one `hbm_device_bytes` polls."""
+    if not enabled():
+        return None
+    with _guard("open"):
+        first = batches[0]
+        nbytes = sum(_input_bytes(b) for b in batches)
+        key, _fresh = observe(
+            dispatch_cost_key(kw, first["shape"], with_stats, devices[0],
+                              single_device=False),
+            first, devices[0], formulation(devices[0], kw.get("square")),
+            B=sum(int(b["appends"].shape[0]) for b in batches),
+            nbytes=nbytes)
+        start = None
+        if devices[0].type == "cuda":
+            import torch
+            start = tuple(torch.cuda.Event(enable_timing=True)
+                          for _ in devices)
+            for ev, d in zip(start, devices):
+                ev.record(torch.cuda.current_stream(d))
+        return Window(key, nbytes, start, None)
+    return None
+
+
 def begin_dispatch(part, win: Window | None, tr=None) -> None:
     """After the check is enqueued: remember the window of dispatch
     `part` (its `done` event ends it), add its bytes to the in-flight
@@ -292,14 +334,22 @@ def close_dispatch(part, histories: int, tr=None) -> None:
         return
     key, _nbytes, start = ent
     with _guard("close_dispatch"):
-        if start is not None:
+        if isinstance(start, tuple):
+            # one pair a device, each read on its own device
+            secs = max(s.elapsed_time(d) for s, d in zip(start, part.done)) \
+                / 1e3
+        elif start is not None:
             secs = start.elapsed_time(part.done) / 1e3
         else:
             secs = max(0.0, time.perf_counter() - part.t_disp)
         from ..checker.elle import kernels as K
         rounds = K.read_rounds(part.rounds)
         launches = K.closure_steps(part.t_pad) * len(part.rounds)
-        flops, nbytes = _closure_work(key[1], part.t_pad, rounds, launches)
+        # a mesh dispatch's rows each square their own histories: the
+        # work of each round counter is its row's (a dispatch without
+        # rows is one row of the record's batch)
+        flops, nbytes = _closure_work(getattr(part, "b_row", key[1]),
+                                      part.t_pad, rounds, launches)
         with _LOCK:
             rec = _records.get(key)
             if rec is not None:

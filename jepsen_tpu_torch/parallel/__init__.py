@@ -42,13 +42,42 @@ to quarantine or the OOM backdown — with two CUDA events on the compute
 stream. With `JEPSEN_TPU_PLANNER` the cost-aware planner (`planner`)
 composes `check_bucketed_async`'s buckets and picks `check_bucketed`'s
 fused or two-pass classify. Neither touches an edge batch or
-`check_long_history`, as in the reference. The reference's mesh is not
-ported.
+`check_long_history`, as in the reference.
+
+Several devices: a `Mesh` is a dp×mp grid of torch devices with the
+reference's axes — dp over histories, mp over the columns of each
+history's closure matrices — built by `make_mesh`, `host_local_mesh`
+and `sp_mesh` with the reference's shapes, and by `dp_mesh` (N×1, the
+mesh the port's own sweeps and folds build). A mesh may repeat a device
+(a card, or the CPU, standing in for several, as the reference's tests
+use virtual XLA devices). `check_bucketed_async(..., mesh=)` pads each
+bucket to a multiple of dp by replicating its last history (the
+replicas' results are dropped), splits it into dp contiguous rows,
+copies each row to its row's first device (pinned memory, a copy stream
+per device: `shard_batch`) and enqueues each row's check there
+(`sharded_check_fn`); a row of several devices squares each closure
+round as one column block per device (`closure_square`'s `cols`) and
+exchanges the blocks and the round's active word between them on the
+device (`kernels._closure_batched`). The rows' flags are gathered onto
+the mesh's first device, and the dispatch's done event is one per
+device, each waited on by the watchdog. A bucket whose padding would
+pass the budget is dispatched unsharded on the first device, and a mesh
+of one device is the single-device path itself. Nothing here is a
+compiled graph: the reference's jit memo has no counterpart.
+
+A process holds only its own devices. Several processes join a job
+through `init_distributed` (the reference's coordinator variables, a
+`torch.distributed` gloo group); `analyze-store --mesh` takes its shard
+identity from it (`mesh.resolve_shard`), and `check_joined` spreads one
+batch over the processes: each rank checks its contiguous slice on its
+own mesh and the flags are all-gathered over gloo (host bytes; no
+device collective).
 """
 
 from __future__ import annotations
 
 import logging
+import math
 import queue as _queue
 import threading
 import time
@@ -58,6 +87,7 @@ import numpy as np
 import torch
 
 from .. import gates
+from ..util import pad_to_multiple
 from .. import planner as _planner
 from .. import supervisor as sv
 from .. import trace
@@ -72,24 +102,186 @@ log = logging.getLogger(__name__)
 DENSE_TXN_LIMIT = 32_768
 
 
+def factor2(n: int) -> tuple[int, int]:
+    """Split n into (a, b), a*b == n, as square as possible, a >= b."""
+    b = int(math.isqrt(n))
+    while n % b:
+        b -= 1
+    return n // b, b
+
+
+class Mesh:
+    """A dp×mp grid of `torch.device`s with named axes, the port's
+    counterpart of the reference's `jax.sharding.Mesh`: `devices` is a
+    [dp, mp] numpy object array, which may repeat a device. Row r of the
+    grid checks the r-th contiguous slice of a batch; its devices split
+    each closure round's columns."""
+
+    def __init__(self, devices, axis_names: tuple[str, str] = ("dp", "mp")):
+        rows = [list(r) for r in devices]
+        if not rows or not rows[0] or any(len(r) != len(rows[0])
+                                          for r in rows):
+            raise ValueError("a mesh is a non-empty rectangular grid of "
+                             "devices")
+        grid = np.empty((len(rows), len(rows[0])), dtype=object)
+        for i, row in enumerate(rows):
+            for j, d in enumerate(row):
+                grid[i, j] = torch.device(d)
+        self.devices = grid
+        self.axis_names = tuple(axis_names)
+
+    @property
+    def shape(self) -> dict:
+        """{axis name: size}, as the reference's `Mesh.shape`."""
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    def rows(self) -> list[list[torch.device]]:
+        """The dp rows, each the list of its mp devices."""
+        return [list(r) for r in self.devices]
+
+    def distinct(self) -> list[torch.device]:
+        """Each device of the grid once, in grid order."""
+        out: list = []
+        for d in self.devices.flat:
+            if d not in out:
+                out.append(d)
+        return out
+
+    def __repr__(self) -> str:
+        return (f"Mesh({self.shape}, "
+                f"[{', '.join(map(str, self.devices.flat))}])")
+
+
+def make_mesh(devices: Sequence | None = None,
+              axes: tuple[str, str] = ("dp", "mp")) -> Mesh:
+    """A 2-D mesh (`factor2`'s dp×mp) over `devices` (default: every
+    visible CUDA device, `devices.default_devices`)."""
+    from ..devices import default_devices
+    devices = list(devices if devices is not None else default_devices())
+    dp, mp = factor2(len(devices))
+    return Mesh([devices[r * mp:(r + 1) * mp] for r in range(dp)], axes)
+
+
+def host_local_mesh(requested=None) -> Mesh:
+    """The reference's mesh over this process's own devices of the kind
+    `requested` names (default cuda). A process here holds only its own
+    devices, so this is `make_mesh` over them. The port's own sweeps
+    dispatch over `dp_mesh` of the same devices instead."""
+    from ..devices import default_devices
+    return make_mesh(default_devices(requested))
+
+
+def dp_mesh(devices: Sequence | None = None) -> Mesh:
+    """An N×1 mesh over each distinct device of `devices` (default:
+    every visible CUDA device): dp alone, each history's closure whole
+    on one device. The mesh the port's own bucketed dispatch builds
+    (the `analyze-store` sweeps, `AppendChecker`, `serve`'s folds): the
+    column split exchanges the whole matrix every round, a cost no
+    measured traffic has justified, so it is left to a caller that asks
+    for it (`make_mesh`, and `sp_mesh` for one long history)."""
+    from ..devices import default_devices
+    devices = list(devices if devices is not None else default_devices())
+    return Mesh([[d] for d in Mesh([devices]).distinct()])
+
+
+def sp_mesh(devices: Sequence | None = None) -> Mesh:
+    """A 1×N mesh giving every device to one history: its closure
+    rounds split their columns over all of them (the reference's
+    sequence-parallel mesh for long histories)."""
+    from ..devices import default_devices
+    devices = list(devices if devices is not None else default_devices())
+    return Mesh([devices])
+
+
+#: Seconds a join waits for the other processes before it fails.
+JOIN_TIMEOUT_S = 300.0
+
+
+def init_distributed() -> bool:
+    """Join a multi-process job when a coordinator address is set
+    (JAX_COORDINATOR_ADDRESS, else COORDINATOR_ADDRESS, as host:port),
+    with JAX_NUM_PROCESSES processes of which this is JAX_PROCESS_ID —
+    the reference's variables, so one environment drives both
+    packages: a `torch.distributed` process group over gloo at
+    `tcp://<address>`, rank 0 serving the rendezvous. Returns False
+    without an address (a single-process run), True once joined;
+    idempotent. A join that fails (no process count, a rendezvous that
+    outlasts JOIN_TIMEOUT_S) raises."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from ..mesh import COORDINATOR_VARS
+    addr = next((os.environ[v] for v in COORDINATOR_VARS
+                 if os.environ.get(v)), None)
+    if not addr:
+        return False
+    if dist.is_initialized():
+        return True
+    count = os.environ.get("JAX_NUM_PROCESSES")
+    if not count:
+        raise RuntimeError(
+            f"coordinator address {addr} set without JAX_NUM_PROCESSES: "
+            "a torch.distributed group needs its size")
+    rank = int(os.environ.get("JAX_PROCESS_ID") or 0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{addr}", world_size=int(count),
+        rank=rank, timeout=datetime.timedelta(seconds=JOIN_TIMEOUT_S))
+    return True
+
+
+def check_joined(encs: Sequence, device=None, *, mesh: Mesh | None = None,
+                 **kw) -> list:
+    """`check_bucketed` of one batch spread over a joined job: rank k of
+    n checks the k-th contiguous slice of `encs` (the batch padded to a
+    multiple of n by replicating its last history) on its own `mesh`
+    (or `device`), and every rank gets every verdict, the flag words
+    all-gathered over the gloo group (host bytes). Without a joined
+    group it is `check_bucketed` itself."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        return check_bucketed(encs, device, mesh=mesh, **kw)
+    n, k = dist.get_world_size(), dist.get_rank()
+    padded = pad_to_multiple(list(encs), n)
+    per = len(padded) // n
+    mine = check_bucketed(padded[k * per:(k + 1) * per], device, mesh=mesh,
+                          **kw)
+    gathered: list = [None] * n
+    dist.all_gather_object(gathered, mine)
+    return [v for part in gathered for v in part][:len(encs)]
+
+
 class _Sweep:
     """What every bucket of one dispatch shares: the histories (encoded
     histories, or host-built edge dicts: `edges`), the device, the
     kernel options, the caller's bucket log, whether the supervisor
     recovers from failures here (`supervise`) or leaves every one to the
     caller, whether the checks compute the stats matrix (`with_stats`),
-    the caller's `phases` dict, and the tracer its spans and counters go
+    the caller's `phases` dict, the tracer its spans and counters go
     to (the null tracer for edge dicts, which the reference does not
-    trace)."""
+    trace), and the mesh its buckets spread over (None: `device` alone;
+    a mesh's unsharded buckets run on its first device, `device`)."""
 
     __slots__ = ("encs", "device", "kw", "bucket_log", "edges", "supervise",
-                 "with_stats", "phases", "tr")
+                 "with_stats", "phases", "tr", "mesh", "streams")
 
     def __init__(self, encs: Sequence, device: torch.device, kw: dict,
                  bucket_log: list | None, supervise: bool = True,
-                 with_stats: bool = False, phases: dict | None = None):
+                 with_stats: bool = False, phases: dict | None = None,
+                 mesh: Mesh | None = None):
         self.encs = encs
         self.device = device
+        self.mesh = mesh
+        # one copy stream a CUDA device, made here: the pack-h2d thread
+        # and the calling thread both look them up
+        self.streams = {d: torch.cuda.Stream(d) for d in
+                        ([device] + (mesh.distinct() if mesh else []))
+                        if d.type == "cuda"}
         self.kw = kw
         self.bucket_log = bucket_log
         self.edges = bool(len(encs)) and isinstance(encs[0], dict)
@@ -103,21 +295,29 @@ class _Sweep:
         caller that owns the policy."""
         return not self.supervise or sv.strict_enabled()
 
+    def copy_stream(self, device: torch.device):
+        """The CUDA stream the sweep's copies to `device` go on, one per
+        device (None on the CPU)."""
+        return self.streams[device] if device.type == "cuda" else None
+
 
 class _Staged:
     """One bucket of sweep `sw` on its way to the device: packed on the
     host (`packed`), then copied (`batch`, with `ready` the copy's CUDA
     event and `host` its pinned buffers, kept until the bucket
-    resolves)."""
+    resolves). A bucket `sharded` over the sweep's mesh holds one of each
+    per dp row, the row's slice on the row's first device."""
 
-    __slots__ = ("sw", "bucket", "t0", "packed", "batch", "ready", "host")
+    __slots__ = ("sw", "bucket", "t0", "packed", "batch", "ready", "host",
+                 "sharded")
 
     def __init__(self, sw: _Sweep, bucket: list[int], t0: float,
-                 packed: dict):
+                 packed, sharded: bool = False):
         self.sw = sw
         self.bucket = bucket
         self.t0 = t0
         self.packed = packed
+        self.sharded = sharded
         self.batch = self.ready = self.host = None
 
 
@@ -125,15 +325,20 @@ class _Dispatch:
     """One bucket enqueued on the device and not yet read: its [B] flag
     words, closure round counters and, under stats, its [B, N_STATS]
     stats matrix (device tensors), the CUDA event recorded after its
-    last launch (None on the CPU), its padded T, pack start and enqueue
-    end (for the bucket log and the device window), and its pinned host
-    buffers."""
+    last launch (None on the CPU; over a mesh, a tuple of one a card),
+    its padded T, pack start and enqueue end (for the bucket log and the
+    device window), and its pinned host buffers. Over a mesh the flags
+    and stats are the rows' gathered onto its first device (replicas
+    included, dropped when read), `rounds` every row's closures,
+    `launches` the closure_square launches it enqueued and `b_row` the
+    histories a row checks."""
 
     __slots__ = ("flags", "rounds", "stats", "done", "t_pad", "t0",
-                 "t_disp", "host")
+                 "t_disp", "host", "launches", "b_row")
 
     def __init__(self, flags, rounds, done, t_pad: int, t0: float,
-                 host=None, stats=None):
+                 host=None, stats=None, launches: int | None = None,
+                 b_row: int | None = None):
         self.flags = flags
         self.rounds = rounds
         self.stats = stats
@@ -142,8 +347,13 @@ class _Dispatch:
         self.t0 = t0
         self.t_disp = time.perf_counter()
         self.host = host
+        self.launches = K.closure_steps(t_pad) * len(rounds) \
+            if launches is None else launches
+        self.b_row = int(flags.shape[0]) if b_row is None else b_row
 
     def is_ready(self) -> bool:
+        if isinstance(self.done, tuple):
+            return all(d.query() for d in self.done)
         return self.done is None or self.done.query()
 
 
@@ -159,9 +369,14 @@ def _done_event(device: torch.device, timing: bool = False):
 
 
 def _device_ready(done, timeout: float | None) -> bool:
-    """Wait for `done` (see `_done_event`), at most `timeout` seconds
-    (None: no bound): True once the work before it has completed. The
-    one place a dispatch waits on the device."""
+    """Wait for `done` (see `_done_event`; a tuple of them: every one),
+    at most `timeout` seconds (None: no bound): True once the work before
+    it has completed. The one place a dispatch waits on the device."""
+    if isinstance(done, tuple):
+        end = None if timeout is None else time.monotonic() + timeout
+        return all(_device_ready(
+            d, None if end is None else max(0.0, end - time.monotonic()))
+            for d in done)
     if done is None:
         return True
     if timeout is None:
@@ -208,7 +423,8 @@ def _acc_phase(sw: _Sweep, key: str, t0: float) -> None:
         sw.phases[key] = sw.phases.get(key, 0.0) + dt
 
 
-def check_long_history(enc, device=None, *, classify: bool = True,
+def check_long_history(enc, device=None, *, mesh: Mesh | None = None,
+                       classify: bool = True,
                        realtime: bool = False, process_order: bool = False,
                        dense_limit: int = DENSE_TXN_LIMIT,
                        square: K.Square | None = None,
@@ -218,30 +434,35 @@ def check_long_history(enc, device=None, *, classify: bool = True,
     """Check ONE encoded history on `device` (default cuda); returns
     {anomaly: True} flags.
 
-    Up to `dense_limit` txns: the dense closure, one bucket, its wait
-    bounded by the dispatch watchdog (a timeout raises WatchdogTimeout
-    to the caller), its device window named "long-history". Beyond it:
-    host SCC condensation feeding the device classification per
-    nontrivial SCC (`condense.check_condensed`, which also takes
-    `condense_log`) — the 100k-op path, exact because every anomaly
-    query is answered inside one SCC. `square` and `bucket_log` as in
-    `check_bucketed`. `stats_out`, when given, gets one stats dict for
-    the history: from the device on the dense path
-    (`kernels.stats_row`), from the condensation past it
-    (`condense.condensed_stats`)."""
-    from ..devices import resolve_device
-    dev = resolve_device(device)
+    Up to `dense_limit` txns: the dense closure, one bucket, on `mesh`
+    (default `sp_mesh` over `device`'s visible devices: every closure
+    round split into column blocks, one a device; one device is the
+    single-device path), its wait bounded by the dispatch watchdog (a
+    timeout raises WatchdogTimeout to the caller), its device window
+    named "long-history". Beyond it: host SCC condensation feeding the
+    device classification per nontrivial SCC (`condense.check_condensed`
+    over the mesh's devices, which also takes `condense_log`) — the
+    100k-op path, exact because every anomaly query is answered inside
+    one SCC. `square` and `bucket_log` as in `check_bucketed`.
+    `stats_out`, when given, gets one stats dict for the history: from
+    the device on the dense path (`kernels.stats_row`), from the
+    condensation past it (`condense.condensed_stats`)."""
+    from ..devices import default_devices, resolve_device
+    if mesh is None:
+        mesh = sp_mesh(default_devices(device))
+    dev = resolve_device(mesh.devices.flat[0])
     if enc.n > dense_limit:
         from ..checker.elle import condense
         return condense.check_condensed(
             enc, dev, classify=classify, realtime=realtime,
             process_order=process_order, square=square,
             bucket_log=bucket_log, condense_log=condense_log,
-            stats_out=stats_out)
+            stats_out=stats_out, devices=list(mesh.devices.flat))
     sw = _Sweep([enc], dev, dict(
         classify=classify, realtime=realtime, process_order=process_order,
         fused=K.fused_classify_enabled(), square=square), bucket_log,
-        with_stats=stats_out is not None)
+        with_stats=stats_out is not None,
+        mesh=mesh if mesh.size > 1 else None)
     staged = _h2d_bucket(_prep_bucket(sw, [0]), dev)
     (w,) = _resolve(sw, [0], _enqueue(sw, staged, sw.with_stats),
                     "long-history", txns=enc.n)
@@ -258,13 +479,15 @@ def _size_of(e) -> int:
 
 
 def bucket_by_length(encs: Sequence, *, multiple: int = 128,
-                     budget_cells: int = 1 << 27) -> list[list[int]]:
+                     budget_cells: int = 1 << 27,
+                     dp: int = 1) -> list[list[int]]:
     """Partition history indices into buckets of similar padded txn
-    count. Each bucket satisfies B * T_pad² <= budget_cells, where T_pad
-    is the bucket max rounded up to `multiple` and B the bucket size.
-    Returns buckets of indices into encs, longest histories first.
-    Elements may be EncodedHistory-like (`.n`) or packed edge dicts
-    (`["n"]`)."""
+    count. Each bucket satisfies B_pad * T_pad² <= budget_cells, where
+    T_pad is the bucket max rounded up to `multiple` and B_pad the
+    bucket size rounded up to a multiple of `dp` (a mesh dispatch pads
+    ragged buckets so, so that headroom is budgeted here). Returns
+    buckets of indices into encs, longest histories first. Elements may
+    be EncodedHistory-like (`.n`) or packed edge dicts (`["n"]`)."""
     order = sorted(range(len(encs)), key=lambda i: -_size_of(encs[i]))
     buckets: list[list[int]] = []
     cur: list[int] = []
@@ -272,7 +495,8 @@ def bucket_by_length(encs: Sequence, *, multiple: int = 128,
     for i in order:
         tpad = max(K.pad_to(max(_size_of(encs[i]), 1), multiple), 1)
         t = max(cur_tpad, tpad)
-        if cur and (len(cur) + 1) * t * t > budget_cells:
+        b_pad = -(-(len(cur) + 1) // dp) * dp
+        if cur and b_pad * t * t > budget_cells:
             buckets.append(cur)
             cur, cur_tpad = [], 0
             t = tpad
@@ -349,16 +573,17 @@ def pack_thread_enabled() -> bool:
     return gates.get("JEPSEN_TPU_PACK_THREAD")
 
 
-def _est_cells(encs: Sequence, bucket: list[int]) -> int:
+def _est_cells(encs: Sequence, bucket: list[int], dp: int = 1) -> int:
     """The padded footprint bucket_by_length budgeted for this bucket
-    (B x T_pad²), computable before packing, so the dispatcher can spot
-    buckets over the per-slot budget (only a single history too big to
-    subdivide can be)."""
+    (B rounded up to a multiple of dp x T_pad²), computable before
+    packing, so the dispatcher can spot buckets over the per-slot budget
+    (only a single history too big to subdivide can be)."""
     tpad = max(K.pad_to(max(_size_of(encs[i]) for i in bucket), 128), 1)
-    return len(bucket) * tpad * tpad
+    return -(-len(bucket) // dp) * dp * tpad * tpad
 
 
-def _prep_bucket(sw: _Sweep, bucket: list[int]) -> _Staged:
+def _prep_bucket(sw: _Sweep, bucket: list[int],
+                 budget_cells: float = math.inf) -> _Staged:
     """Host-side packing of one bucket (the "pack" phase): its histories
     padded into numpy arrays (`kernels.pack_batch`), or its edge dicts
     into cell lists (`kernels.pack_edge_matrices`). Runs on the pack-h2d
@@ -367,20 +592,36 @@ def _prep_bucket(sw: _Sweep, bucket: list[int]) -> _Staged:
     (`pad_waste_cells`: B·T_pad² less its histories' own cells) and its
     footprint (`bucket_cells`).
 
-    A bucket whose histories all carry v2-sidecar views that fit its
-    planned shape is packed as those views (`kernels.pack_batch_views`):
-    no host tensor is built. Otherwise pack_batch copies, and the bytes
-    it copied for warm (cache-loaded) histories count as
-    `warm_copy_bytes`, as the reference counts them."""
+    On a mesh the bucket is padded to a multiple of dp by replicating
+    its last history, unless that padding would pass `budget_cells`
+    (then it goes unsharded, on the mesh's first device), and packed as
+    dp rows of one shape, one a mesh row.
+
+    A single-device bucket whose histories all carry v2-sidecar views
+    that fit its planned shape is packed as those views
+    (`kernels.pack_batch_views`): no host tensor is built. Otherwise
+    pack_batch copies, and the bytes it copied for warm (cache-loaded)
+    histories count as `warm_copy_bytes`, as the reference counts
+    them."""
     t0 = time.perf_counter()
     group = [sw.encs[i] for i in bucket]
+    tpad = max(K.pad_to(max(_size_of(e) for e in group), 128), 1)
+    parts = None
+    if sw.mesh is not None:
+        dp = sw.mesh.devices.shape[0]
+        padded = pad_to_multiple(group, dp)
+        if len(padded) * tpad * tpad <= budget_cells:
+            group, per = padded, len(padded) // dp
+            parts = [group[r * per:(r + 1) * per] for r in range(dp)]
     if sw.edges:
-        packed = K.pack_edge_matrices(group)
+        packed = K.pack_edge_matrices(group) if parts is None else \
+            [K.pack_edge_matrices(p, t_pad=tpad) for p in parts]
     else:
         shape = K.BatchShape.plan(group)
-        packed = K.pack_batch_views(group, shape)
+        packed = None if parts else K.pack_batch_views(group, shape)
         if packed is None:
-            packed = K.pack_batch(group, shape)
+            packed = K.pack_batch(group, shape) if parts is None else \
+                [K.pack_batch(p, shape) for p in parts]
             if sw.tr.enabled:
                 warm = sum(
                     e.appends.nbytes + e.reads.nbytes
@@ -390,13 +631,13 @@ def _prep_bucket(sw: _Sweep, bucket: list[int]) -> _Staged:
                 if warm:
                     sw.tr.counter("warm_copy_bytes").inc(warm)
     if sw.tr.enabled:
-        t_pad = packed["T"] if sw.edges else packed["shape"].n_txns
-        cells = len(group) * t_pad * t_pad
+        cells = len(group) * tpad * tpad
+        # replicas padded in count as waste too: less the bucket's own
         sw.tr.counter("pad_waste_cells").inc(
-            cells - sum(max(_size_of(e), 1) ** 2 for e in group))
+            cells - sum(max(_size_of(sw.encs[i]), 1) ** 2 for i in bucket))
         sw.tr.histogram("bucket_cells").observe(cells)
     _acc_phase(sw, "pack", t0)
-    return _Staged(sw, bucket, t0, packed)
+    return _Staged(sw, bucket, t0, packed, parts is not None)
 
 
 def _h2d_bucket(item: _Staged, device: torch.device,
@@ -415,36 +656,103 @@ def _h2d_bucket(item: _Staged, device: torch.device,
     t0 = time.perf_counter()
     sw = item.sw
     packed, item.packed = item.packed, None
+    if item.sharded:
+        item.batch, item.ready, item.host = shard_batch(
+            sw.mesh, packed, sw.copy_stream, sw.tr)
+    else:
+        item.batch, item.ready, item.host = _to_device(packed, device,
+                                                       stream, sw.tr)
+    _acc_phase(sw, "h2d", t0)
+    return item
+
+
+def _to_device(packed: dict, device: torch.device, stream, tr):
+    """One packed batch to `device` on `stream`: (the device batch, the
+    copy's CUDA event or None, its pinned host buffers or None); counts
+    `h2d_bytes` (see `_h2d_bucket`)."""
     if "T" in packed:
         to_device = K.edge_batch_to_device
     elif packed.get("views"):
         to_device = K.views_to_device
-        if sw.tr.enabled:
-            sw.tr.counter("h2d_bytes").inc(
+        if tr.enabled:
+            tr.counter("h2d_bytes").inc(
                 sum(v.nbytes for k in K.VIEW_FILLS for v in packed[k]))
     else:
         to_device = K.batch_to_device
-        if sw.tr.enabled:
-            sw.tr.counter("h2d_bytes").inc(
+        if tr.enabled:
+            tr.counter("h2d_bytes").inc(
                 sum(np.asarray(packed[k]).nbytes for k in K.DEVICE_FIELDS))
     if device.type != "cuda":
-        item.batch = to_device(packed, device)
-        _acc_phase(sw, "h2d", t0)
-        return item
+        return to_device(packed, device), None, None
+    host = None
     with torch.cuda.stream(stream):
         if to_device is K.batch_to_device:
-            item.host = {
-                k: torch.from_numpy(packed[k]).pin_memory()
-                for k in K.DEVICE_FIELDS}
-            item.batch = {k: item.host[k].to(device, non_blocking=True)
-                          .to(dt) for k, dt in K.DEVICE_FIELDS.items()}
-            item.batch["shape"] = packed["shape"]
+            host = {k: torch.from_numpy(packed[k]).pin_memory()
+                    for k in K.DEVICE_FIELDS}
+            batch = {k: host[k].to(device, non_blocking=True).to(dt)
+                     for k, dt in K.DEVICE_FIELDS.items()}
+            batch["shape"] = packed["shape"]
         else:
-            item.batch = to_device(packed, device)
-        item.ready = torch.cuda.Event()
-        item.ready.record()
-    _acc_phase(sw, "h2d", t0)
-    return item
+            batch = to_device(packed, device)
+        ready = torch.cuda.Event()
+        ready.record(stream)
+    return batch, ready, host
+
+
+def shard_batch(mesh: Mesh, packed: list, streams, tr) -> tuple:
+    """Each dp row's slice of a packed batch (`packed`, one packed dict
+    a row: `_prep_bucket`'s) to its row's first device, from pinned host
+    memory on that device's copy stream (`streams(device)`; None on the
+    CPU). Returns (per-row device batches, per-row copy events — None
+    on the CPU — and per-row pinned buffers)."""
+    out = [_to_device(p, row[0], streams(row[0]), tr)
+           for p, row in zip(packed, mesh.rows())]
+    return tuple(list(x) for x in zip(*out))
+
+
+def sharded_check_fn(mesh: Mesh, *, classify: bool = True,
+                     realtime: bool = False, process_order: bool = False,
+                     fused: bool | None = None,
+                     square: K.Square | None = None,
+                     with_stats: bool = False):
+    """The check of one mesh-sharded batch: a callable taking the dp
+    rows' device batches (`shard_batch`'s) and a list for the closures'
+    round counters, that enqueues each row's check on its row's devices
+    (`kernels.check_batch_device` or `classify_matrices_device`; a row
+    of several devices splits every closure round's columns over them)
+    and returns (the rows' flag words gathered onto the mesh's first
+    device, their stats matrices likewise or None, the closure_square
+    launches enqueued). Nothing is read back. It is not compiled, so
+    there is no memo of it."""
+    fused = K.fused_classify_enabled() if fused is None else fused
+    rows = mesh.rows()
+    first = rows[0][0]
+    kw = dict(classify=classify, realtime=realtime,
+              process_order=process_order, fused=fused, square=square,
+              with_stats=with_stats)
+
+    def check(batches: list, rounds: list | None = None):
+        flags, stats, launches = [], [], 0
+        for devs, batch in zip(rows, batches):
+            rr: list = []
+            edges = "T" in batch
+            t_pad = batch["T"] if edges else batch["shape"].n_txns
+            entry = K.classify_matrices_device if edges \
+                else K.check_batch_device
+            out = entry(batch, rounds=rr,
+                        mp=devs if len(devs) > 1 else None, **kw)
+            f, st = out if with_stats else (out, None)
+            launches += K.closure_steps(t_pad) * len(rr) \
+                * K.mp_parts(t_pad, len(devs))
+            flags.append(f.to(first))
+            if st is not None:
+                stats.append(st.to(first))
+            if rounds is not None:
+                rounds.extend(r.to(first) for r in rr)
+        return (torch.cat(flags), torch.cat(stats) if with_stats else None,
+                launches)
+
+    return check
 
 
 def _enqueue(sw: _Sweep, item: _Staged, with_stats: bool = False,
@@ -459,6 +767,8 @@ def _enqueue(sw: _Sweep, item: _Staged, with_stats: bool = False,
     the reference's observed points) the cost observatory, when its
     gate is on, opens the dispatch's window: a start event after the
     wait, and a timing end event (`obs.device`)."""
+    if item.sharded:
+        return _enqueue_rows(sw, item, with_stats, observe)
     batch, item.batch = item.batch, None
     compute = None
     if item.ready is not None:
@@ -488,6 +798,41 @@ def _enqueue(sw: _Sweep, item: _Staged, with_stats: bool = False,
     return part
 
 
+def _enqueue_rows(sw: _Sweep, item: _Staged, with_stats: bool,
+                  observe: bool) -> _Dispatch:
+    """`_enqueue` of a bucket sharded over a mesh: each row's compute
+    stream waits for its copy, the rows' checks are enqueued
+    (`sharded_check_fn`) and their flags gathered onto the mesh's first
+    device, then a done event is recorded on every device of the mesh.
+    The cost observatory's window, when observed, is one CUDA-event pair
+    a device (`obs.device.open_mesh_window`)."""
+    mesh = sw.mesh
+    batches, item.batch = item.batch, None
+    for row, batch, ready in zip(mesh.rows(), batches, item.ready):
+        if ready is not None:
+            compute = torch.cuda.current_stream(row[0])
+            compute.wait_event(ready)
+            for v in batch.values():
+                if isinstance(v, torch.Tensor):
+                    v.record_stream(compute)
+    devices = mesh.distinct()
+    win = obs_device.open_mesh_window(sw.kw, batches, with_stats, devices) \
+        if observe and not sw.edges else None
+    rounds: list = []
+    flags, stats, launches = sharded_check_fn(mesh, **sw.kw,
+                                              with_stats=with_stats)(
+        batches, rounds)
+    first = batches[0]
+    t_pad = first["T"] if sw.edges else first["shape"].n_txns
+    done = tuple(_done_event(d, timing=win is not None) for d in devices)
+    part = _Dispatch(flags, rounds, None if done[0] is None else done,
+                     t_pad, item.t0, item.host, stats, launches=launches,
+                     b_row=len(first["n_txns"]))
+    item.host = None
+    obs_device.begin_dispatch(part, win, sw.tr)
+    return part
+
+
 def _resolve(sw: _Sweep, idx: list, part: _Dispatch,
              window: str = "bucket", **args) -> list:
     """Wait for one dispatch (bounded by the watchdog) and read its flag
@@ -504,7 +849,8 @@ def _resolve(sw: _Sweep, idx: list, part: _Dispatch,
     # the observatory's window ends here too (a no-op for a dispatch
     # it never began): read after the host has seen the end event
     obs_device.close_dispatch(part, len(idx), sw.tr)
-    words = part.flags.tolist()
+    # a mesh dispatch's padded replicas are dropped here
+    words = part.flags.tolist()[:len(idx)]
     if part.stats is not None:
         words = [(w, K.stats_row(r, n_txns=_size_of(sw.encs[i]),
                                  t_pad=part.t_pad))
@@ -513,7 +859,7 @@ def _resolve(sw: _Sweep, idx: list, part: _Dispatch,
         sw.bucket_log.append({
             "histories": len(words), "t_pad": part.t_pad,
             "closure_rounds": K.read_rounds(part.rounds),
-            "launches": K.closure_steps(part.t_pad) * len(part.rounds),
+            "launches": part.launches,
             "seconds": time.perf_counter() - part.t0})
     return words
 
@@ -543,13 +889,14 @@ def _drop_frames(err: BaseException) -> None:
         err = err.__context__
 
 
-def _sync_check(sw: _Sweep, idx: list) -> list[int]:
+def _sync_check(sw: _Sweep, idx: list, budget_cells: int) -> list[int]:
     """One synchronous bucket check — the OOM-backdown retry path: pack,
-    copy, enqueue, wait. Raises on OOM or watchdog timeout; the caller
-    owns the split/quarantine policy. Stats-free, as the reference's
-    retries are: a re-planned history keeps its verdict and drops its
+    copy, enqueue, wait (on a mesh, padded within `budget_cells`).
+    Raises on OOM or watchdog timeout; the caller owns the
+    split/quarantine policy. Stats-free, as the reference's retries
+    are: a re-planned history keeps its verdict and drops its
     telemetry."""
-    item = _h2d_bucket(_prep_bucket(sw, idx), sw.device)
+    item = _h2d_bucket(_prep_bucket(sw, idx, budget_cells), sw.device)
     sv.maybe_inject_oom()
     part = _enqueue(sw, item, observe=True)
     try:
@@ -583,7 +930,7 @@ def _oom_backdown(sw: _Sweep, idx: list, budget_cells: int, err) -> list:
     out: list = []
     for half in (idx[:mid], idx[mid:]):
         try:
-            out.extend(_sync_check(sw, half))
+            out.extend(_sync_check(sw, half, half_budget))
         except BaseException as e:
             if isinstance(e, sv.WatchdogTimeout) and not sw.fail_fast():
                 out.extend(_quarantine_bucket(sw, half, "watchdog", e))
@@ -614,7 +961,8 @@ def _finish_part(sw: _Sweep, idx: list, part: _Dispatch,
         raise
 
 
-def check_bucketed_async(encs: Sequence, device: torch.device, *,
+def check_bucketed_async(encs: Sequence, device=None, *,
+                         mesh: Mesh | None = None,
                          classify: bool = True, realtime: bool = False,
                          process_order: bool = False,
                          budget_cells: int = 1 << 27,
@@ -654,6 +1002,11 @@ def check_bucketed_async(encs: Sequence, device: torch.device, *,
     for a caller that owns the policy (the wr sweep's chunk backdown,
     the long-run quarantine).
 
+    With `mesh` (more than one device) every bucket is planned with dp
+    padding headroom and sharded over the mesh (module doc); `device` is
+    then the mesh's first device. A mesh of one device is `device` =
+    that device, the single-device path itself.
+
     `fused` defaults to the JEPSEN_TPU_FUSED_CLASSIFY gate; `square` and
     `bucket_log` as in `check_bucketed`. `phases` (a dict) accumulates
     the host seconds of each phase: "pack", "h2d", "feed" (the calling
@@ -662,7 +1015,11 @@ def check_bucketed_async(encs: Sequence, device: torch.device, *,
     also computes its stats matrix, and `.stats()` of the result holds
     the per-history dicts."""
     t_plan = time.perf_counter()
-    device = torch.device(device)
+    if mesh is not None:
+        device = mesh.devices.flat[0]
+        if mesh.size == 1:
+            mesh = None
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and device.index is None:
         # the pack-h2d thread names its device explicitly
         device = torch.device("cuda", torch.cuda.current_device())
@@ -672,9 +1029,10 @@ def check_bucketed_async(encs: Sequence, device: torch.device, *,
     sw = _Sweep(encs, device, dict(
         classify=classify, realtime=realtime, process_order=process_order,
         fused=K.fused_classify_enabled() if fused is None else fused,
-        square=square), bucket_log, supervise, with_stats, phases)
+        square=square), bucket_log, supervise, with_stats, phases, mesh)
     tr = sw.tr
-    copies = torch.cuda.Stream(device) if device.type == "cuda" else None
+    copies = sw.copy_stream(device)
+    dp = mesh.devices.shape[0] if mesh is not None else 1
     eff_budget = max(1, budget_cells // depth)
     pl = None if sw.edges else _planner.get()
     if pl is not None:
@@ -682,14 +1040,15 @@ def check_bucketed_async(encs: Sequence, device: torch.device, *,
         # predicted device seconds and keeps the winner's composition;
         # without a model it answers bucket_by_length's own (multiple
         # 128), and composition never changes a verdict
-        buckets = pl.plan_buckets(encs, budget_cells=eff_budget)
+        buckets = pl.plan_buckets(encs, budget_cells=eff_budget, dp=dp)
     else:
-        buckets = bucket_by_length(encs, budget_cells=eff_budget)
+        buckets = bucket_by_length(encs, budget_cells=eff_budget, dp=dp)
     # Singleton buckets whose one history alone exceeds the per-slot
     # budget cannot share the envelope: peel them off to dispatch
     # strictly alone after the pipelined buckets drain.
-    oversized = [b for b in buckets if _est_cells(encs, b) > eff_budget]
-    buckets = [b for b in buckets if _est_cells(encs, b) <= eff_budget]
+    oversized = [b for b in buckets
+                 if _est_cells(encs, b, dp) > eff_budget]
+    buckets = [b for b in buckets if _est_cells(encs, b, dp) <= eff_budget]
     _acc_phase(sw, "pack", t_plan)
 
     def finish(idx, part):
@@ -760,7 +1119,7 @@ def check_bucketed_async(encs: Sequence, device: torch.device, *,
                     # packing must not kill the producer, and with it
                     # every later bucket's verdict
                     try:
-                        item = _prep_bucket(sw, b)
+                        item = _prep_bucket(sw, b, eff_budget)
                     except BaseException as e:
                         out.put((failed, b, e))
                         continue
@@ -809,18 +1168,20 @@ def check_bucketed_async(encs: Sequence, device: torch.device, *,
             while len(inflight) >= depth:
                 resolve_oldest()
             try:
-                item = _h2d_bucket(_prep_bucket(sw, bucket), device,
-                                   copies)
+                item = _h2d_bucket(_prep_bucket(sw, bucket, eff_budget),
+                                   device, copies)
             except BaseException as e:
                 handle_failed(bucket, e)
                 continue
             dispatch(item)
     for bucket in oversized:
-        # strictly alone: drain everything first
+        # strictly alone: drain everything first (its mesh padding may
+        # use the whole budget: nothing shares the envelope with it)
         while inflight:
             resolve_oldest()
         try:
-            item = _h2d_bucket(_prep_bucket(sw, bucket), device, copies)
+            item = _h2d_bucket(_prep_bucket(sw, bucket, budget_cells),
+                               device, copies)
         except BaseException as e:
             handle_failed(bucket, e)
             continue
@@ -828,7 +1189,8 @@ def check_bucketed_async(encs: Sequence, device: torch.device, *,
     return PendingVerdicts(len(encs), parts, finish, sw)
 
 
-def check_bucketed(encs: Sequence, device: torch.device, *,
+def check_bucketed(encs: Sequence, device=None, *,
+                   mesh: Mesh | None = None,
                    classify: bool = True, realtime: bool = False,
                    process_order: bool = False,
                    budget_cells: int = 1 << 27,
@@ -850,6 +1212,7 @@ def check_bucketed(encs: Sequence, device: torch.device, *,
     classification closures; quarantined histories pass straight
     through. Verdicts are identical either way.
 
+    `mesh` spreads the buckets over a dp×mp mesh (`check_bucketed_async`).
     `square` replaces the closure squaring (see kernels.check_batch_device).
     `bucket_log`, when given, gets one dict per bucket checked (its
     history count, padded T, the rounds each closure ran, the launches it
@@ -878,7 +1241,7 @@ def check_bucketed(encs: Sequence, device: torch.device, *,
     if two_pass is None:
         two_pass = classify and not fused
     if classify and two_pass:
-        detect = check_bucketed(encs, device, classify=False,
+        detect = check_bucketed(encs, device, mesh=mesh, classify=False,
                                 realtime=realtime,
                                 process_order=process_order,
                                 budget_cells=budget_cells, square=square,
@@ -889,7 +1252,7 @@ def check_bucketed(encs: Sequence, device: torch.device, *,
         if not flagged:
             return detect
         full = check_bucketed([encs[i] for i in flagged], device,
-                              classify=True, realtime=realtime,
+                              mesh=mesh, classify=True, realtime=realtime,
                               process_order=process_order,
                               budget_cells=budget_cells, two_pass=False,
                               fused=False, square=square,
@@ -899,7 +1262,7 @@ def check_bucketed(encs: Sequence, device: torch.device, *,
             out[i] = r
         return out
     pv = check_bucketed_async(
-        encs, device, classify=classify, realtime=realtime,
+        encs, device, mesh=mesh, classify=classify, realtime=realtime,
         process_order=process_order, budget_cells=budget_cells,
         fused=fused, square=square, bucket_log=bucket_log, phases=phases,
         with_stats=stats_out is not None)
@@ -907,3 +1270,22 @@ def check_bucketed(encs: Sequence, device: torch.device, *,
     if stats_out is not None:
         stats_out.extend(pv.stats())
     return res
+
+
+def check_once(items: Sequence, devices: Sequence, *, kw: dict,
+               with_stats: bool = False) -> list:
+    """One dispatch of every item (encoded histories, or edge dicts) over
+    a 1-D dp split of `devices` (the batch padded by replicating its
+    last item, the replicas dropped; one device: the single-device
+    path), waited on under the dispatch watchdog and read: the flag
+    words in order, or (word, `kernels.stats_row` dict) pairs with
+    `with_stats`. Unsupervised: a failure raises to the caller.
+    `kw` holds the check's options (classify, realtime, process_order,
+    fused, square)."""
+    devices = [torch.device(d) for d in devices]
+    mesh = Mesh([[d] for d in devices]) if len(devices) > 1 else None
+    sw = _Sweep(items, devices[0], kw, None, supervise=False,
+                with_stats=with_stats, mesh=mesh)
+    idx = list(range(len(items)))
+    staged = _h2d_bucket(_prep_bucket(sw, idx), devices[0])
+    return _resolve(sw, idx, _enqueue(sw, staged, with_stats))

@@ -144,12 +144,17 @@ class FoldDispatcher:
     (`valid? unknown`, cause attached), except one that
     `supervisor.must_end_sweep` names, which raises to the owner.
 
-    `device` is a `torch.device` (or its name). Under
-    JEPSEN_TPU_BACKEND=cpu every history goes to the host oracles and
-    the device is not used."""
+    `device` is a `torch.device` (or its name). `mesh` (a
+    `parallel.Mesh`) spreads each fold's buckets over its devices, as
+    the reference's dispatcher over its mesh; its first device is then
+    the fold's device (long histories, the wr edge batches over all of
+    its devices). Under JEPSEN_TPU_BACKEND=cpu every history goes to the
+    host oracles and no device is used."""
 
-    def __init__(self, device=None, budget_cells: int = DEFAULT_FOLD_CELLS):
-        self.device = device
+    def __init__(self, device=None, *, mesh=None,
+                 budget_cells: int = DEFAULT_FOLD_CELLS):
+        self.mesh = mesh
+        self.device = mesh.devices.flat[0] if mesh is not None else device
         self.budget_cells = budget_cells
         self.phases: dict = {}
         #: when a list, `check_bucketed`'s bucket log: one dict per
@@ -228,7 +233,7 @@ class FoldDispatcher:
                     ds: list | None = [] if want_stats else None
                     got = parallel.check_bucketed(
                         [encs[i] for i in dense], self.device,
-                        budget_cells=self.budget_cells,
+                        mesh=self.mesh, budget_cells=self.budget_cells,
                         bucket_log=self.bucket_log, phases=self.phases,
                         stats_out=ds)
                     for j, (i, cy) in enumerate(zip(dense, got)):
@@ -241,7 +246,7 @@ class FoldDispatcher:
                     hs: list | None = [] if want_stats else None
                     try:
                         cycles_per[i] = parallel.check_long_history(
-                            e, self.device,
+                            e, self.device, mesh=self.mesh,
                             dense_limit=parallel.DENSE_TXN_LIMIT,
                             bucket_log=self.bucket_log, stats_out=hs)
                         if hs:
@@ -275,10 +280,14 @@ class FoldDispatcher:
                 # the two dispatch owners cannot drift
                 from ..cli import _wr_chunk_with_backdown
                 ws: list | None = [] if want_stats else None
+                # (a fake kernel module may not take `devices`: passed
+                # only for a mesh)
+                spread = {} if self.mesh is None \
+                    else {"devices": list(self.mesh.devices.flat)}
                 cycles_per = _wr_chunk_with_backdown(
                     [(None, e) for e in encs], elle_kernels, elle_wr,
                     stats_out=ws, device=self.device,
-                    bucket_log=self.bucket_log)
+                    bucket_log=self.bucket_log, **spread)
                 if ws is not None:
                     fold_stats[:len(ws)] = ws
             out = []

@@ -392,16 +392,18 @@ class Planner:
 
     # -- lever: bucket geometry -------------------------------------------
 
-    def plan_buckets(self, encs, *, budget_cells: int) -> list[list[int]]:
+    def plan_buckets(self, encs, *, budget_cells: int,
+                     dp: int = 1) -> list[list[int]]:
         """Bucket composition for one dispatch pipeline: race the
         candidate pad multiples on predicted total device seconds
         (per-history model cost + per-dispatch overhead) and keep the
         winner's buckets. Every candidate satisfies the same
         B_pad·T_pad² ≤ budget envelope, and composition only moves
         histories between dispatches — verdicts cannot change.
-        Fallback: `bucket_by_length` at multiple 128, bit-exact."""
+        Fallback: `bucket_by_length` at multiple 128, bit-exact. `dp`
+        as bucket_by_length's (a mesh's padding headroom)."""
         from .parallel import bucket_by_length
-        base = bucket_by_length(encs, budget_cells=budget_cells)
+        base = bucket_by_length(encs, budget_cells=budget_cells, dp=dp)
         if self.plan is None:
             self._decide("geometry", fallback=True)
             return base
@@ -423,7 +425,7 @@ class Planner:
             return base
         for m in GEOMETRY_CANDIDATES[1:]:
             cand = bucket_by_length(encs, multiple=m,
-                                    budget_cells=budget_cells)
+                                    budget_cells=budget_cells, dp=dp)
             cost = predicted_total(cand)
             if cost is not None and cost < best_cost:
                 best, best_cost = cand, cost

@@ -248,8 +248,13 @@ class VerdictDaemon:
         obs.install_events(base)
         if self.budget_cells is None:
             self.budget_cells = folding.DEFAULT_FOLD_CELLS
+        # folds spread (dp) over every visible device of the daemon's
+        # kind (one card: the single-device path)
+        from .. import parallel
+        from ..devices import default_devices
         self._dispatcher = folding.FoldDispatcher(
-            self.device, budget_cells=self.budget_cells)
+            mesh=parallel.dp_mesh(default_devices(self.device)),
+            budget_cells=self.budget_cells)
         # load the store's fitted dispatch plan (JEPSEN_TPU_PLANNER):
         # admission pricing then uses model-predicted cost instead of
         # the T_pad² proxy; gate off (or no plan.json yet) is a no-op

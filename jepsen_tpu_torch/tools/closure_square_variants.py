@@ -34,7 +34,7 @@ def variants(src: str) -> dict[str, str]:
         assert old in src
         return src.replace(old, f"constexpr int GROUP_M = {g};")
 
-    a = src.index("      const int live_cols = T - j0;")
+    a = src.index("      const int live_cols = c1 - j0;")
     b = src.index('      asm volatile("fence.proxy.async.shared::cta;"')
     no_epilogue = (src[:a] + "      uint32_t diff = 0;\n#pragma unroll\n"
                    "      for (int c = 0; c < 128; ++c) diff |= d[c];\n"

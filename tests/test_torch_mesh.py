@@ -18,8 +18,10 @@ against one unsharded sweep; a cut shard resumed from its own journal;
 a lost, a crashed and a stale shard; an empty shard and an empty store;
 an index out of range and one without a count; and `JEPSEN_TPU_MESH=1`
 without `--mesh`. Then two of the port's own: a coordinator address
-without a shard count is refused by name, and a shard process SIGKILLed
-mid-sweep resumes its assignment.
+whose job cannot be joined (no process count, or nobody answering
+within a short join timeout) is refused by name with exit 255 — the
+joined route itself is tests/test_torch_multidevice.py's — and a shard
+process SIGKILLed mid-sweep resumes its assignment.
 
 Tolerance: exact for exit codes, the printed verdict and mesh summary
 lines (as parsed JSON), the shards' journals, every run's results.json,
@@ -537,23 +539,37 @@ def test_mesh_gate_alone_shards_the_sweep(pristine, tmp_path):
 
 # -- the port's own -------------------------------------------------------------
 
+def _unanswered() -> str:
+    """127.0.0.1 at a port nothing listens on."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return f"127.0.0.1:{s.getsockname()[1]}"
+
+
+@pytest.mark.parametrize("job", ["no-count", "no-answer"])
 @pytest.mark.parametrize("var", ["JAX_COORDINATOR_ADDRESS",
                                  "COORDINATOR_ADDRESS"])
-def test_coordinator_address_without_count_is_refused(var, pristine,
-                                                      tmp_path):
-    """The reference would join a jax.distributed job here; the port
-    names that route and refuses it, writing nothing."""
+def test_coordinator_address_without_count_is_refused(var, job, pristine,
+                                                      tmp_path,
+                                                      monkeypatch):
+    """A coordinator address with no shard count joins its job (the
+    reference's route). A job that cannot be joined — no process count,
+    or a rendezvous nobody answers within the (shortened) join timeout
+    — is refused by name, exit 255, writing nothing."""
+    from jepsen_tpu_torch import parallel
+    monkeypatch.setattr(parallel, "JOIN_TIMEOUT_S", 2.0)
     store = tmp_path / "store"
     shutil.copytree(pristine, store)
     before = sorted(p.relative_to(store) for p in store.rglob("*"))
+    env = {var: _unanswered(), "JEPSEN_TPU_MESH_SHARDS": None,
+           **({"JAX_NUM_PROCESSES": "2", "JAX_PROCESS_ID": "1"}
+              if job == "no-answer" else {})}
     with pytest.raises(RuntimeError, match="mesh shard identity "
                        "unresolvable.*JEPSEN_TPU_MESH_SHARDS"):
-        with scoped_env({var: "localhost:1234",
-                         "JEPSEN_TPU_MESH_SHARDS": None}):
+        with scoped_env(env):
             mesh.resolve_shard()
-    rc, lines, err = run("port", store, ["--mesh"],
-                         JEPSEN_TPU_MESH_SHARDS=None,
-                         **{var: "localhost:1234"})
+    rc, lines, err = run("port", store, ["--mesh"], **env)
     assert (rc, lines) == (255, [])
     assert "coordinator address" in err and "jax.distributed" in err
     assert sorted(p.relative_to(store) for p in store.rglob("*")) == before
