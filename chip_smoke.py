@@ -63,8 +63,9 @@ failure:
               every valid? equal to the native WGL oracle's; then the
               conc-20 populations (high concurrency, and value-rich),
               which take all three tiers (dense, frontier, WGL), equal
-              to the oracle, with the plain frontier and its packed twin
-              timed alone on the frontier's histories
+              to the oracle, the frontier tier through the hand kernel
+              knossos_frontier_scan (launched, its launches and device ms
+              a path of their own: `conc20`)
   9. store    the rest of `analyze-store` on cuda over one mixed store:
               32 list-append runs at phase 4's width (every 8th with
               G1c), 16 lifted CAS-register runs (phase 8's shape), and
@@ -433,7 +434,10 @@ failure:
               `check_edge_batch(devices=[cuda:0]*4)`, config #1's 100
               register histories through the dense tier and the first
               10 of them through the packed frontier with
-              `devices=[cuda:0]*3` (ragged), one 12,000-txn history with
+              `devices=[cuda:0]*3` (ragged; knossos_frontier_scan
+              launched once on each dp slice: path `mesh-packed`;
+              `mesh-packed-one` the one-device run it is held to), one
+              12,000-txn history with
               a G1c pair through `check_long_history(mesh=
               sp_mesh([cuda:0]*4))` against its one-device result, and
               `FoldDispatcher(mesh=)` over 8 of phase 4's and 8 of
@@ -459,6 +463,19 @@ failure:
               (paths `mesh-joined-global`, `mesh-joined-sweep`). Each
               part prints its wall and its closure_square and
               knossos_dense_scan launches. It takes under 150 s.
+ 28. frontier  the bounded frontier's hand kernel, knossos_frontier_scan
+              (csrc/knossos_frontier.cu), held to its plain versions run
+              on the card (`_scan_history`, `_scan_history_packed`):
+              (a) the shape sweep of tools/knossos_frontier_check.py's
+              CASES, F from 4 to 4,096 (both tiers), S from 1 to 24
+              (two arrays) and 27 (packed), packed, two arrays and two
+              arrays with stats, pad tails, info ops, overflowing
+              histories, and blocks striding over histories on the
+              global tier: valid, overflow, rounds, peak and explored
+              equal; (b) conc-20's frontier histories from phase 8 in
+              each variant: every output equal, the kernel's median ms
+              (CUDA events) beside the plain version's ms, the rounds
+              and the bound. It takes under 30 s.
 
 Every phase prints its wall (phases 1-13 through `phase_wall`), and the
 script ends with all of them in one line.
@@ -475,8 +492,9 @@ Each path is driven with its kernels' launch counts set to 0 just before
 it and read just after; a path that launched one of them no time fails.
 Phase 11's stats sweeps count as paths of their own (`stats-<path>`),
 and so do phase 12's (`native-<path>-cold`, `native-<path>-warm`) and
-phase 27's (`mesh-append`, `mesh-wr`, `mesh-register`, `mesh-long`,
-`mesh-fold-append`, `mesh-fold-wr`; `real-*` with several cards),
+phase 27's (`mesh-append`, `mesh-wr`, `mesh-register`, `mesh-packed`,
+`mesh-packed-one`, `mesh-long`, `mesh-fold-append`, `mesh-fold-wr`; `real-*` with several
+cards),
 phase 13's (`pool-append-cold`, `pool-append-warm`, `pool-wr`,
 `pool-register`, `pool-kill`), counted in the sweep's own process, and
 phase 14's (`analyze-append`, `analyze-wr`, `analyze-register`,
@@ -501,6 +519,12 @@ launch neither kernel; so are phase 24's and phase 25's, where only
 and `suite-crate-wr` (closure_square) launch one. Phase 26's paths
 (`obs-smoke`, `serve-smoke`, `fleet-smoke`, `warm-bench`) are each a
 script's whole process tree, counted in each process at its exit.
+knossos_frontier_scan's count is set to 0 before phase 4 and read after
+phase 27 (its total must be launched); within that, phase 8's `conc20`
+and phase 27's `mesh-packed-one` and `mesh-packed` are read as
+differences of the running count, and `phases 4-27 other` is the rest
+(a frontier key of a sweep, a fan-out or a suite). Phase 28's comparisons come after
+and do not count.
 
 The last lines are a `{"kernels": [...]}` record per kernel (with its
 launches and summed device milliseconds per path), the nvidia-smi line,
@@ -513,7 +537,6 @@ from __future__ import annotations
 import contextlib
 import io
 import json
-import math
 import os
 import shutil
 import signal
@@ -562,8 +585,6 @@ KN_B, KN_OPS, KN_CONC = 100, 1000, 10
 #: each conc-20 population's size and ops.
 REG_RUNS, REG_OPS, REG_KEYS, REG_BAD_EVERY = 64, 1000, 50, 8
 C20_B, C20_OPS = 20, 400
-#: The frontier tier's arena (kernels.check_encoded_batch's default).
-FRONTIER = 512
 #: Phase 6: long list-append runs (synth.LONG_RUN_KINDS) and the
 #: anomaly types each must come out with. The future run's classes are
 #: those the host classifier (graph.classify_cycles) finds in its SCC.
@@ -1002,6 +1023,40 @@ def counted_dense(fn):
     return counted(fn, dense.knossos_dense_scan)
 
 
+def frontier_kernel():
+    from jepsen_tpu_torch.checker.knossos import kernels
+    return kernels.knossos_frontier_scan
+
+
+def frontier_start() -> None:
+    """knossos_frontier_scan's count to 0 and an event pair recorded
+    around each launch from here on (phases 4-27)."""
+    k = frontier_kernel()
+    k.launches, k.events = 0, []
+
+
+def frontier_mark() -> tuple[int, int]:
+    """The running (launches, event pairs) of knossos_frontier_scan."""
+    k = frontier_kernel()
+    return k.launches, len(k.events)
+
+
+def frontier_since(mark: tuple[int, int]) -> tuple[int, float]:
+    """The launches since `mark` and their summed device ms."""
+    torch.cuda.synchronize()
+    k = frontier_kernel()
+    n0, e0 = mark
+    return k.launches - n0, sum(a.elapsed_time(b) for a, b in k.events[e0:])
+
+
+def frontier_stop() -> tuple[int, float]:
+    """The launches since frontier_start and their device ms; the event
+    pairs stop."""
+    out = frontier_since((0, 0))
+    frontier_kernel().events = None
+    return out
+
+
 def copy_runs(src: Path, dst: Path, runs: list[str]) -> None:
     for run in runs:
         shutil.copytree(src / run, dst / run)
@@ -1337,14 +1392,14 @@ def tiers(log: list) -> str:
                      for t in log)
 
 
-def phase_register(name: str) -> dict:
-    """The register checker on the card (`name` the card's, for the
-    frontier's bound); returns per path (launches, device milliseconds)
-    of knossos_dense_scan."""
+def phase_register() -> dict:
+    """The register checker on the card; returns per path (launches,
+    device milliseconds) of knossos_dense_scan ("dense") and of
+    knossos_frontier_scan ("frontier"), and conc-20's frontier
+    histories ("frontier_encs", for phase 28)."""
     from jepsen_tpu_torch.checker import Linearizable, models
-    from jepsen_tpu_torch.checker.knossos import dense, kernels, synth
+    from jepsen_tpu_torch.checker.knossos import dense, synth
     from jepsen_tpu_torch.checker.knossos import encode as kenc
-    from jepsen_tpu_torch.checker.knossos import packed as kpacked
 
     paths = {}
     t0 = time.perf_counter()
@@ -1421,9 +1476,11 @@ def phase_register(name: str) -> dict:
     c = Linearizable(models.cas_register(), device=DEVICE)
     tl = []
     t0 = time.perf_counter()
+    mark = frontier_mark()
     got, launches, dense_ms = counted_dense(
         lambda: c.check_batch({}, hs, {}, tier_log=tl))
     wall = time.perf_counter() - t0
+    n_front, front_ms = frontier_since(mark)
     want = oracle(hs)
     tally: dict = {}
     for r in got:
@@ -1433,55 +1490,21 @@ def phase_register(name: str) -> dict:
     check(set(tally) == {"tpu-dense", "tpu-jit", "wgl"},
           f"conc-20 should take all three tiers: {tally}")
     check(launches > 0, "conc-20 never launched the kernel")
+    check(n_front > 0, "conc-20's frontier tier never launched "
+          "knossos_frontier_scan")
     paths["conc20"] = (launches, dense_ms)
-    # the frontier tier alone: its histories through the plain frontier
-    # and its packed twin
+    # the frontier tier's histories, timed alone in phase 28
     front = [r["analyzer"] == "tpu-jit" for r in got]
     encs = [kenc.encode_register_history(h)
             for h, f in zip(hs, front) if f]
-    timed, rounds = {}, {}
-    for packed, fixpoint in ((False, kernels._expand_fixpoint),
-                             (True, kpacked._expand_fixpoint_packed)):
-        res, timed[packed] = event_ms(lambda: kernels.check_encoded_batch(
-            encs, device=DEVICE, packed=packed))
-        check([r["valid?"] for r in res]
-              == [v for v, f in zip(want, front) if f],
-              f"the frontier (packed={packed}) differs from the oracle")
-        fixpoint.rounds = log = []       # again, untimed, counting rounds
-        try:
-            kernels.check_encoded_batch(encs, device=DEVICE, packed=packed)
-        finally:
-            fixpoint.rounds = None
-        rounds[packed] = sum(int(r.sum()) for r in log)
-    # each frontier's bound: its events read once, valid and overflow
-    # written once; per round it ran on a history (its exit test is its
-    # own, so the two differ), one sort and one dedupe pass over the
-    # F * (S+1) candidates (N log2 N + N compares, the least a comparison
-    # sort does), at the 32-bit rate
-    fs = kernels.pack_register_batch(encs)["shape"]
-    n_cand = FRONTIER * (fs.n_slots + 1)
-    f_bytes = 4 * 6 * len(encs) * fs.n_events + 2 * len(encs)
-    bounds = {}
-    for packed, n in rounds.items():
-        f_ops = n * (n_cand * math.ceil(math.log2(n_cand)) + n_cand)
-        bounds[packed] = (f_ops / word_peak(name) * 1e3,
-                          f_bytes / peaks(name)[1] * 1e3, f_ops)
     say(f"conc-20 ({2 * C20_B} histories): check_batch {wall:.3f}s wall, "
         f"tiers {tally} ({tiers(tl)}), {launches} knossos_dense_scan "
-        f"launches taking {dense_ms} ms of device time; the frontier's "
-        f"{len(encs)} histories alone (S={max(e.n_slots for e in encs)}, "
-        f"E={max(e.n_events for e in encs)}): _scan_history "
-        f"{timed[False]} ms, _scan_history_packed {timed[True]} ms "
-        "(CUDA events around the call; its rounds read one flag each "
-        "from the host); "
-        + "; ".join(f"{label}: {rounds[k]} rounds, bound {max(b[:2])} ms "
-                    f"(operations {b[0]}: {b[2]} compares; bytes {b[1]}: "
-                    f"{f_bytes} B)"
-                    for k, label, b in ((False, "_scan_history", bounds[False]),
-                                        (True, "_scan_history_packed",
-                                         bounds[True])))
-        + "; every valid? equal to the native WGL's")
-    return paths
+        f"launches taking {dense_ms} ms of device time, {n_front} "
+        f"knossos_frontier_scan launches taking {front_ms} ms; every "
+        f"valid? equal to the native WGL's; {len(encs)} histories answered "
+        "by the frontier tier")
+    return {"dense": paths, "frontier": {"conc20": (n_front, front_ms)},
+            "frontier_encs": encs}
 
 
 def write_mixed_store(base: Path) -> None:
@@ -5707,8 +5730,9 @@ def rendered(checker: str, enc, cycles) -> dict:
 def mesh_paths(tag: str, mesh, wr_devs: list, reg_devs: list, sp,
                encs: dict, verdicts: dict, config1: list) -> tuple:
     """Phase 27 (a) over `mesh` (and the dp lists and `sp` for the other
-    paths); returns the closure_square and knossos_dense_scan paths
-    (launches, device ms) and each part's wall."""
+    paths); returns the closure_square, knossos_dense_scan and
+    knossos_frontier_scan paths (launches, device ms) and each part's
+    wall."""
     from jepsen_tpu_torch import parallel
     from jepsen_tpu_torch.checker.elle import encode, kernels, synth, wr
     from jepsen_tpu_torch.checker.knossos import dense
@@ -5759,19 +5783,26 @@ def mesh_paths(tag: str, mesh, wr_devs: list, reg_devs: list, sp,
           "differs from one device's")
     from jepsen_tpu_torch.checker.knossos import encode as kenc
     kencs = [kenc.encode_register_history(h) for h in config1[:PACKED_CUT]]
+    mark = frontier_mark()
+    one = kkernels.check_encoded_batch(kencs, device=DEVICE, packed=True)
+    fpaths = {f"{tag}-packed-one": frontier_since(mark)}
     t0 = time.perf_counter()
+    mark = frontier_mark()
     pk = kkernels.check_encoded_batch(kencs, device=DEVICE, packed=True,
                                       devices=reg_devs)
+    n_f, ms_f = frontier_since(mark)
     walls["packed"] = round(time.perf_counter() - t0, 3)
-    check(pk == kkernels.check_encoded_batch(kencs, device=DEVICE,
-                                             packed=True),
-          f"phase 27 {tag}: the packed frontier over {len(reg_devs)} "
-          "devices differs from one device's")
+    fpaths[f"{tag}-packed"] = (n_f, ms_f)
+    check(pk == one, f"phase 27 {tag}: the packed frontier over "
+          f"{len(reg_devs)} devices differs from one device's")
+    check(n_f == len(reg_devs), f"phase 27 {tag}: {n_f} "
+          f"knossos_frontier_scan launches for {len(reg_devs)} dp slices")
     say(f"27 {tag}: config #1's {len(dencs)} histories, dense tier over "
         f"{len(reg_devs)} devices {walls['register']}s ({n} "
         f"knossos_dense_scan launches), packed frontier on "
-        f"{len(kencs)} {walls['packed']}s ({[r['valid?'] for r in pk]}); "
-        "equal to one device")
+        f"{len(kencs)} {walls['packed']}s ({n_f} knossos_frontier_scan "
+        f"launches, {ms_f} ms; {[r['valid?'] for r in pk]}); equal to one "
+        "device")
 
     h = synth.synth_append_history(LONG_MESH_T, 64, seed=27, g1c=True)
     enc = encode.encode_history(h)
@@ -5796,12 +5827,12 @@ def mesh_paths(tag: str, mesh, wr_devs: list, reg_devs: list, sp,
     say(f"27 {tag}: FoldDispatcher(mesh=) folds of {FOLD_RUNS} append and "
         f"{FOLD_RUNS} wr runs: {walls['fold-append']}s, "
         f"{walls['fold-wr']}s; verdicts equal to phases 4 and 5")
-    return paths, dpaths, walls
+    return paths, dpaths, fpaths, walls
 
 
 def phase_devices(name: str, verdicts: dict) -> dict:
-    """Phase 27: several devices (module doc). Returns the paths of both
-    kernels, the column blocks' timings and each part's wall."""
+    """Phase 27: several devices (module doc). Returns the paths of the
+    three kernels, the column blocks' timings and each part's wall."""
     from jepsen_tpu_torch import parallel
     from jepsen_tpu_torch.checker.knossos import synth as ksynth
     from jepsen_tpu_torch.devices import default_devices
@@ -5818,7 +5849,7 @@ def phase_devices(name: str, verdicts: dict) -> dict:
                                           n_procs=KN_CONC, info_prob=0.0,
                                           seed=1)
     walls = {"load": round(time.perf_counter() - t0, 3)}
-    paths, dpaths, w = mesh_paths(
+    paths, dpaths, fpaths, w = mesh_paths(
         "mesh", parallel.make_mesh([dev] * MESH_N), [dev] * WR_DP,
         [dev] * REG_DP, parallel.sp_mesh([dev] * SP_MP), encs, verdicts,
         config1)
@@ -5841,11 +5872,12 @@ def phase_devices(name: str, verdicts: dict) -> dict:
     real = torch.cuda.device_count() if DEVICE == "cuda" else 1
     if real > 1:
         devs = default_devices()
-        p, dp, w = mesh_paths("real", parallel.make_mesh(devs), devs, devs,
-                              parallel.sp_mesh(devs), encs, verdicts,
-                              config1)
+        p, dp, fp, w = mesh_paths("real", parallel.make_mesh(devs), devs,
+                                  devs, parallel.sp_mesh(devs), encs,
+                                  verdicts, config1)
         paths.update(p)
         dpaths.update(dp)
+        fpaths.update(fp)
         walls.update({f"real-{k}": v for k, v in w.items()})
         say(f"27 (c) {real} devices visible: (a) ran over the real cards "
             f"({parallel.make_mesh(devs)})")
@@ -5899,7 +5931,47 @@ def phase_devices(name: str, verdicts: dict) -> dict:
     say(f"phase 27 in {took:.1f}s; parts (s): {json.dumps(walls)}")
     check(took < 150, f"phase 27 took {took:.1f}s")
     return {"closure_square": paths, "knossos_dense_scan": dpaths,
-            "blocks": blocks, "walls": walls}
+            "knossos_frontier_scan": fpaths, "blocks": blocks,
+            "walls": walls}
+
+
+def phase_frontier(name: str, encs: list) -> dict:
+    """Phase 28: knossos_frontier_scan against its plain versions on
+    the card over the shape sweep, then conc-20's frontier histories
+    (`encs`, from phase 8) timed in each variant. Returns the kernel's
+    record for the kernels line (launches filled in by main)."""
+    from jepsen_tpu_torch.tools import knossos_frontier_check as kfc
+
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(
+        DEVICE)
+    lines = kfc.check_cases(dev)
+    for ln in lines:
+        say(f"28 (a) {ln}")
+    t_cases = time.perf_counter() - t0
+    say(f"28 (a) knossos_frontier_scan == its plain versions on {len(lines)}"
+        f" case variants ({len(kfc.CASES) + 1} batches), valid, overflow, "
+        f"rounds, peak and explored exact; {t_cases:.1f}s")
+    timed = kfc.time_variants(dev, name, encs)
+    for label, rec in timed.items():
+        say(f"28 (b) conc-20's {rec['B']} frontier histories (F={rec['F']}, "
+            f"S={rec['S']}, E={rec['E']}), {label}, {rec['tier']} tier: "
+            f"kernel median {rec['ms']} ms, plain {rec['plain_ms']} ms, "
+            f"{rec['rounds']} rounds (equal), bound {rec['bound_ms']} ms "
+            f"({rec['bound_by']}: {rec['compares']} compares, "
+            f"{rec['bytes']} B); every output equal")
+    took = time.perf_counter() - t0
+    say(f"phase 28 in {took:.1f}s")
+    check(took < 60, f"phase 28 took {took:.1f}s")
+    main = timed["packed"] if "packed" in timed else timed["pairs"]
+    return {"name": "knossos_frontier_scan", "route": "cuda",
+            "source": "jepsen_tpu_torch/csrc/knossos_frontier.cu",
+            "replaces": "jepsen_tpu/checker/knossos/packed.py:99",
+            "also_replaces": "jepsen_tpu/checker/knossos/kernels.py:172",
+            "launches": None, "max_abs_err": 0.0, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "variants": timed}
 
 
 def main() -> int:
@@ -5938,6 +6010,7 @@ def main() -> int:
             record = phase_kernels(name)
         paths = {}
         verdicts = {}
+        frontier_start()
         with phase_wall(4):
             paths["append"] = phase_main()
             verdicts["append"] = run_files(WORK / "store")
@@ -5950,7 +6023,8 @@ def main() -> int:
         with phase_wall(7):
             dense_record = phase_knossos(name)
         with phase_wall(8):
-            dense_paths = phase_register(name)
+            reg = phase_register()
+        dense_paths, front_paths = reg["dense"], reg["frontier"]
         with phase_wall(9):
             store_paths = phase_store()
             paths.update(store_paths["closure_square"])
@@ -6017,8 +6091,19 @@ def main() -> int:
             several = phase_devices(name, verdicts)
         paths.update(several["closure_square"])
         dense_paths.update(several["knossos_dense_scan"])
+        front_paths.update(several["knossos_frontier_scan"])
         record["column_blocks"] = several["blocks"]
-        for rec, ps in ((record, paths), (dense_record, dense_paths)):
+        # every other frontier launch of phases 4-27 (a frontier key of
+        # a sweep, a fan-out or a suite)
+        total, total_ms = frontier_stop()
+        check(total > 0, "phases 4-27 never launched knossos_frontier_scan")
+        front_paths["phases 4-27 other"] = (
+            total - sum(n for n, _ in front_paths.values()),
+            total_ms - sum(ms for _, ms in front_paths.values()))
+        with phase_wall(28, say_it=False):
+            front_record = phase_frontier(name, reg["frontier_encs"])
+        for rec, ps in ((record, paths), (dense_record, dense_paths),
+                        (front_record, front_paths)):
             rec["launches"] = sum(n for n, _ in ps.values())
             rec["paths"] = {k: {"launches": n, "device_ms": ms}
                             for k, (n, ms) in ps.items()}
@@ -6035,7 +6120,7 @@ def main() -> int:
         time.sleep(0.05)
     say(f"phase walls (s): {json.dumps(WALLS)}")
     say(f"all phases passed in {time.perf_counter() - t_start:.1f}s")
-    print(json.dumps({"kernels": [record, dense_record]}))
+    print(json.dumps({"kernels": [record, dense_record, front_record]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -97,6 +97,19 @@ PROTOTYPES = {
              ctypes.c_int, ctypes.c_void_p]),
         "knossos_dense_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
+    "knossos_frontier": {
+        # (events, valid, overflow, rounds, peak, explored (both null:
+        #  none), work (null: the shared tier), B, E, F, S, packed, grid,
+        #  device, stream)
+        "knossos_frontier_launch": (
+            ctypes.c_int,
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p]),
+        "knossos_frontier_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    },
     "wgl": {
         "jt_wgl_abi_version": (ctypes.c_int64, []),
         # (events [E,6], E, max_configs, model, out[5])

@@ -1,5 +1,5 @@
 """The bounded sorted frontier: the knossos `linear` search for histories
-past the dense grid's budgets, in plain PyTorch.
+past the dense grid's budgets.
 
 Counterpart of `jepsen_tpu/checker/knossos/kernels.py`. A configuration
 is two integers, (interned register state, bitmask of applied pending
@@ -12,13 +12,17 @@ the configurations that linearized the op. Indeterminate (:info) ops
 hold a slot forever and never filter.
 
 The reference's event walk is a `lax.scan` with a `lax.while_loop` of
-up to S+2 rounds at each step, vmapped over histories. Here the batch
-dimension is written out: a loop over events and, at a step where some
-history completes, over rounds, each round gated per history by its
-own `changed & (round < S+2)` exactly as vmap gates the while_loop (the
-loop ends when no history is still changing, one host read a round).
-The compaction returns the reference's arrays exactly, so the exit
-test, which compares whole arrays, runs the same rounds.
+up to S+2 rounds at each step, vmapped over histories. On a CUDA tensor
+the whole walk is the hand kernel `knossos_frontier_scan`
+(`csrc/knossos_frontier.cu`: one block a history, every event and round
+in one launch, this frontier and its packed twin `.packed` alike). Its
+plain PyTorch version, `_scan_history`, runs for a CPU tensor: the batch
+dimension written out, a loop over events and, at a step where some
+history completes, over rounds, each round gated per history by its own
+`changed & (round < S+2)` exactly as vmap gates the while_loop (the loop
+ends when no history is still changing, one host read a round). The
+compaction returns the reference's arrays exactly, so the exit test,
+which compares whole arrays, runs the same rounds in both.
 
 Overflow (more live configurations than F) degrades the verdict to
 "unknown" (`":frontier-overflow"`), never to a wrong answer; the
@@ -28,9 +32,16 @@ except under stats: as in the reference, only this frontier carries the
 search telemetry (per history the peak frontier width before
 truncation, the expansion rounds and the candidate configurations
 generated).
+
+`knossos_frontier_scan.launches` counts kernel launches (never
+plain-version calls); `knossos_frontier_scan.events`, when set to a
+list, gets a (start, end) CUDA event pair appended around each launch.
 """
 
 from __future__ import annotations
+
+import threading
+from dataclasses import dataclass
 
 import torch
 
@@ -45,6 +56,16 @@ _BIG = 2**31 - 1
 #: slot budget, `encode_register_history(max_slots=24)`) and a state
 #: in 31.
 MAX_SLOTS = 24
+#: The packed configuration `state << S | mask` needs S < 31.
+MAX_SLOTS_PACKED = 30
+#: Shared memory a block may opt into on Hopper (227 KB).
+MAX_SMEM = 232_448
+#: A block's shared bytes past the arrays: the scan's 32 warp totals
+#: (8 bytes each) and the slot table (4 x 32 int32).
+SMEM_TAIL = 32 * 8 + 4 * 32 * 4
+#: The most device memory the global tier's workspace takes: its blocks
+#: (each one history at a time) are as many as fit, at least one.
+WORKSPACE_BYTES = 1 << 30
 
 
 def _step_register(state, f, a1, a2, known):
@@ -151,10 +172,11 @@ def _set_slot(regs: list, at, values: list) -> list:
 
 
 def _scan_history(events, F: int, S: int, with_stats: bool = False):
-    """Run the event walk for a batch. events: [B, E, 6] int32. Returns
-    (valid? [B], overflow [B]), and with `with_stats` also (peak
-    frontier width, expansion rounds, configurations generated) [B]
-    int32, the peak starting at 1."""
+    """Run the event walk for a batch (the plain version of
+    `knossos_frontier_scan`). events: [B, E, 6] int32. Returns (valid?
+    [B], overflow [B], rounds [B] int32, the expansion rounds run), and
+    with `with_stats` also (peak frontier width, configurations
+    generated) [B] int32, the peak starting at 1."""
     B, E, _ = events.shape
     dev = events.device
     ev = events.long()
@@ -166,6 +188,7 @@ def _scan_history(events, F: int, S: int, with_stats: bool = False):
         torch.zeros((B, S), dtype=torch.int64, device=dev)
         for _ in range(3)]                      # slot f, a1, a2, known
     overflow = torch.zeros(B, dtype=torch.bool, device=dev)
+    # peak, rounds, explored
     stats = [torch.ones(B, dtype=torch.int32, device=dev),
              torch.zeros(B, dtype=torch.int32, device=dev),
              torch.zeros(B, dtype=torch.int32, device=dev)]
@@ -182,32 +205,158 @@ def _scan_history(events, F: int, S: int, with_stats: bool = False):
         if not any_comp[e]:
             continue      # no round runs and no filter fires this step
         is_comp = kind == COMPLETE_EV
-        states, masks, valid, ovf, *st = _expand_fixpoint(
-            states, masks, valid, *regs, is_comp, F, S, with_stats)
+        states, masks, valid, ovf, peak, rnd, explored = _expand_fixpoint(
+            states, masks, valid, *regs, is_comp, F, S, with_stats=True)
         overflow |= ovf
-        if st:
-            stats = [torch.maximum(stats[0], st[0]), stats[1] + st[1],
-                     stats[2] + st[2]]
+        stats = [torch.maximum(stats[0], peak), stats[1] + rnd,
+                 stats[2] + explored]
         # completion deadline: only configurations that linearized the
         # op survive; its slot bit retires and the slot frees
         c = is_comp[:, None]
         valid &= ~c | (((masks >> slot[:, None]) & 1) == 1)
         masks = torch.where(c, masks & ~(1 << slot[:, None]), masks)
         regs[0] = torch.where(at & c, -1, regs[0])
-    if with_stats:
-        return (valid.any(1), overflow, *stats)
-    return valid.any(1), overflow
+    out = (valid.any(1), overflow, stats[1])
+    return out + (stats[0], stats[2]) if with_stats else out
+
+
+@dataclass(frozen=True)
+class FrontierPlan:
+    """How `knossos_frontier_scan` launches for one (F, S, variant): the
+    tier ("shared": the round's keys and the frontier in a block's
+    shared memory; "global": in a device-memory workspace), threads a
+    block, the keys a round sorts (`padded`, the power of two at or
+    above F·(S+1)), dynamic shared memory a block, and workspace bytes a
+    block (0 on the shared tier)."""
+
+    tier: str
+    threads: int
+    padded: int
+    smem_bytes: int
+    work_bytes: int
+
+
+def plan_frontier(F: int, S: int, packed: bool) -> FrontierPlan:
+    """The launch of `knossos_frontier_scan` (the kernel computes the
+    same): the shared tier iff the padded keys and the frontier (4
+    bytes a key packed, 8 for two arrays; rounded up to 16 bytes) and
+    SMEM_TAIL fit MAX_SMEM, else the global tier; P/2 threads, within
+    32..1024."""
+    n = F * (S + 1)
+    p = 1 << (n - 1).bit_length()
+    esize = 4 if packed else 8
+    arrays = -(-(p + F) * esize // 16) * 16
+    threads = min(1024, max(32, p // 2))
+    if arrays + SMEM_TAIL <= MAX_SMEM:
+        return FrontierPlan("shared", threads, p, arrays + SMEM_TAIL, 0)
+    return FrontierPlan("global", threads, p, SMEM_TAIL, (p + F) * esize)
+
+
+def _check_frontier_args(events: torch.Tensor, frontier: int, n_slots: int,
+                         packed: bool, with_stats: bool) -> None:
+    if events.dtype != torch.int32:
+        raise TypeError(f"knossos_frontier_scan takes int32 events, got "
+                        f"{events.dtype}")
+    if not events.is_contiguous():
+        raise ValueError("knossos_frontier_scan takes contiguous events")
+    if events.dim() != 3 or events.shape[2] != 6:
+        raise ValueError(f"events must be [B,E,6], got "
+                         f"{tuple(events.shape)}")
+    limit = MAX_SLOTS_PACKED if packed else MAX_SLOTS
+    if not 1 <= n_slots <= limit:
+        raise ValueError(f"the {'packed ' if packed else ''}frontier's "
+                         f"keys take 1..{limit} slots, got {n_slots}")
+    if frontier < 1:
+        raise ValueError(f"the frontier holds at least one configuration, "
+                         f"got {frontier}")
+    if packed and with_stats:
+        raise ValueError("the packed frontier carries no stats")
+
+
+def knossos_frontier_scan(events: torch.Tensor, frontier: int,
+                          n_slots: int, *, packed: bool,
+                          with_stats: bool = False) -> tuple:
+    """The bounded frontier's event walk for a batch (events [B,E,6]
+    int32, contiguous; S <= 24 for two arrays, S <= 30 packed): returns
+    (valid [B] bool, overflow [B] bool, rounds [B] int32), and with
+    `with_stats` (two arrays only) also (peak, explored) [B] int32, from
+    the CUDA kernel for a CUDA tensor (launched on the tensor's device
+    and current stream, as `plan_frontier` plans it) and from the plain
+    versions (`_scan_history`, `.packed._scan_history_packed`) for a
+    CPU tensor. The two agree exactly on every output."""
+    _check_frontier_args(events, frontier, n_slots, packed, with_stats)
+    if events.device.type == "cpu":
+        if packed:
+            from .packed import _scan_history_packed
+            return _scan_history_packed(events, frontier, n_slots)
+        return _scan_history(events, frontier, n_slots, with_stats)
+    if events.device.type != "cuda":
+        raise ValueError(f"knossos_frontier_scan runs on cuda or cpu, not "
+                         f"{events.device}")
+    B, E, _ = events.shape
+    dev = events.device
+    valid = torch.empty(B, dtype=torch.bool, device=dev)
+    overflow = torch.empty(B, dtype=torch.bool, device=dev)
+    rounds = torch.empty(B, dtype=torch.int32, device=dev)
+    stats = tuple(torch.empty(B, dtype=torch.int32, device=dev)
+                  for _ in range(2)) if with_stats else ()
+    out = (valid, overflow, rounds) + stats
+    if B == 0:
+        return out
+    from ... import _build
+
+    plan = plan_frontier(frontier, n_slots, packed)
+    grid, work = B, None
+    if plan.tier == "global":
+        grid = min(B, max(1, WORKSPACE_BYTES // plan.work_bytes))
+        work = torch.empty(grid * plan.work_bytes, dtype=torch.uint8,
+                           device=dev)
+    lib = _build.load("knossos_frontier")
+    stream = torch.cuda.current_stream(dev)
+    events_out = knossos_frontier_scan.events
+    if events_out is not None:
+        start = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+    rc = lib.knossos_frontier_launch(
+        events.data_ptr(), valid.data_ptr(), overflow.data_ptr(),
+        rounds.data_ptr(),
+        *([t.data_ptr() for t in stats] if stats else [None, None]),
+        None if work is None else work.data_ptr(), B, E, frontier, n_slots,
+        int(packed), grid, dev.index, stream.cuda_stream)
+    if rc != 0:
+        msg = lib.knossos_frontier_error_string(rc).decode()
+        raise _build.KernelLaunchError(
+            f"knossos_frontier_scan launch failed (B={B}, E={E}, "
+            f"F={frontier}, S={n_slots}, packed={packed}, "
+            f"stats={with_stats}, {plan}): {msg}")
+    with _COUNT_LOCK:   # launches come from several host threads
+        knossos_frontier_scan.launches += 1
+    if events_out is not None:
+        end = torch.cuda.Event(enable_timing=True)
+        end.record(stream)
+        events_out.append((start, end))
+    return out
+
+
+knossos_frontier_scan.launches = 0
+knossos_frontier_scan.events = None
+#: Guards the read-modify-write of `.launches`: `independent.checker`'s
+#: fan-out and `checker.compose` launch from several threads.
+_COUNT_LOCK = threading.Lock()
 
 
 def check_batch_device(events: torch.Tensor, *, frontier: int = 512,
                        n_slots: int = 16, with_stats: bool = False):
     """Batched entry: events [B, E, 6] int32 -> (valid [B] bool,
     overflow [B] bool), plus (peak, rounds, explored) [B] int32 under
-    `with_stats`."""
-    if n_slots > MAX_SLOTS:
-        raise ValueError(f"the frontier's sort keys take at most "
-                         f"{MAX_SLOTS} slots, got {n_slots}")
-    return _scan_history(events, frontier, n_slots, with_stats)
+    `with_stats` (the reference's order), through
+    `knossos_frontier_scan` (the hand kernel on a CUDA tensor,
+    `_scan_history` on a CPU one)."""
+    valid, overflow, rounds, *st = knossos_frontier_scan(
+        events, frontier, n_slots, packed=False, with_stats=with_stats)
+    if with_stats:
+        return valid, overflow, st[0], rounds, st[1]
+    return valid, overflow
 
 
 def dp_slices(n: int, devices) -> list[tuple[torch.device, slice]]:

@@ -1,4 +1,4 @@
-"""The packed-configuration frontier, in plain PyTorch.
+"""The packed-configuration frontier.
 
 Counterpart of `jepsen_tpu/checker/knossos/packed.py`. When
 `(n_values << n_slots) <= 2^31 - 1`, a configuration packs into one
@@ -7,7 +7,9 @@ compaction then sorts one array (dedup is an adjacent compare on the
 packed key) and the fixpoint's exit test is one array compare.
 Semantics are those of `.kernels` (expansion, completion filter,
 overflow and verdict rules); `kernels.check_encoded_batch` routes here
-when every history of the batch fits.
+when every history of the batch fits. On a CUDA tensor the walk is the
+hand kernel `kernels.knossos_frontier_scan(packed=True)`; the plain
+PyTorch version here, `_scan_history_packed`, runs for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ def _expand_fixpoint_packed(cfgs, slot_f, slot_a1, slot_a2, slot_known,
                             enabled, F: int, S: int):
     """Close each packed frontier under single-op linearization (the
     packed twin of kernels._expand_fixpoint), for the histories in
-    `enabled` [B]. Returns (cfgs, overflow [B])."""
+    `enabled` [B]. Returns (cfgs, overflow [B], rounds [B] int32)."""
     bits = 1 << torch.arange(S, dtype=torch.int32, device=cfgs.device)
     low = (1 << S) - 1
     occupied = (slot_f >= 0)[:, None, :]
@@ -65,7 +67,7 @@ def _expand_fixpoint_packed(cfgs, slot_f, slot_a1, slot_a2, slot_known,
         active &= changed & (rnd < S + 2)
     if _expand_fixpoint_packed.rounds is not None:
         _expand_fixpoint_packed.rounds.append(rnd)
-    return cfgs, overflow
+    return cfgs, overflow, rnd
 
 
 #: When set to a list, each expansion appends its rounds per history
@@ -74,8 +76,10 @@ _expand_fixpoint_packed.rounds = None
 
 
 def _scan_history_packed(events, F: int, S: int):
-    """Event walk for a batch over packed configs. events: [B, E, 6]
-    int32. Returns (valid? [B], overflow [B])."""
+    """Event walk for a batch over packed configs (the plain version of
+    `knossos_frontier_scan(packed=True)`). events: [B, E, 6] int32.
+    Returns (valid? [B], overflow [B], rounds [B] int32, the expansion
+    rounds run)."""
     B, E, _ = events.shape
     dev = events.device
     cfgs = torch.full((B, F), _BIG, dtype=torch.int32, device=dev)
@@ -84,6 +88,7 @@ def _scan_history_packed(events, F: int, S: int):
         torch.zeros((B, S), dtype=torch.int32, device=dev)
         for _ in range(3)]                      # slot f, a1, a2, known
     overflow = torch.zeros(B, dtype=torch.bool, device=dev)
+    rounds = torch.zeros(B, dtype=torch.int32, device=dev)
     slots = torch.arange(S, device=dev)
     kinds = events[:, :, 0].cpu()
     any_inv = (kinds == INVOKE_EV).any(0).tolist()
@@ -97,8 +102,9 @@ def _scan_history_packed(events, F: int, S: int):
         if not any_comp[e]:
             continue      # no round runs and no filter fires this step
         is_comp = kind == COMPLETE_EV
-        cfgs, ovf = _expand_fixpoint_packed(cfgs, *regs, is_comp, F, S)
+        cfgs, ovf, rnd = _expand_fixpoint_packed(cfgs, *regs, is_comp, F, S)
         overflow |= ovf
+        rounds += rnd
         # completion deadline. _BIG has every low bit set, so the
         # sentinel must be exempted explicitly before the bit test.
         sl = slot[:, None]
@@ -107,11 +113,14 @@ def _scan_history_packed(events, F: int, S: int):
         c = is_comp[:, None]
         cfgs = torch.where(c, filtered, cfgs)
         regs[0] = torch.where(at & c, -1, regs[0])
-    return (cfgs != _BIG).any(1), overflow
+    return (cfgs != _BIG).any(1), overflow, rounds
 
 
 def check_batch_device_packed(events: torch.Tensor, *, frontier: int = 512,
                               n_slots: int = 16):
     """Packed entry: events [B, E, 6] int32 -> (valid [B], overflow
-    [B])."""
-    return _scan_history_packed(events, frontier, n_slots)
+    [B]), through `knossos_frontier_scan(packed=True)` (the hand kernel
+    on a CUDA tensor, `_scan_history_packed` on a CPU one)."""
+    from .kernels import knossos_frontier_scan
+    return knossos_frontier_scan(events, frontier, n_slots,
+                                 packed=True)[:2]

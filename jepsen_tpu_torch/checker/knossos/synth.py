@@ -202,3 +202,27 @@ def dense_batch(S: int, V: int, B: int, n_ops: int, seed: int):
     b = pack_dense_batch(encs, DenseBatchShape(
         n_steps=max(e.n_steps for e in encs) + 3, n_slots=S, n_values=V))
     return b["regs"], b["comp"]
+
+
+def frontier_batch(S: int, B: int, n_ops: int, seed: int,
+                   n_values: int = 1000, info_prob: float = 0.05):
+    """B histories at concurrency S, each of its own length (n_ops/2 to
+    n_ops ops), every other one corrupted, encoded for the bounded
+    frontier and packed at exactly S slots with 3 pad events past the
+    longest: events [B,E,6] int32 numpy, the cases the frontier kernel
+    is held to its plain versions on. `n_values` values (1,000: past the
+    dense grid's 64); info ops hold their slots to the end."""
+    from .encode import (RegisterBatchShape, encode_register_history,
+                         pack_register_batch)
+
+    rng = random.Random(f"frontier-batch:{seed}")
+    encs = []
+    for i in range(B):
+        h = synth_register_history(
+            n_ops=rng.randrange(max(1, n_ops // 2), n_ops + 1), n_procs=S,
+            n_values=n_values, info_prob=info_prob,
+            seed=rng.randrange(1 << 30), max_pending=S)
+        encs.append(encode_register_history(
+            corrupt(h, seed=i) if i % 2 else h, max_slots=max(S, 24)))
+    return pack_register_batch(encs, RegisterBatchShape(
+        n_events=max(e.n_events for e in encs) + 3, n_slots=S))["events"]

@@ -41,7 +41,8 @@ from . import cparse, dataflow
 
 _CSRC = "jepsen_tpu_torch/csrc/"
 _NATIVE_SOURCES = (_CSRC + "hist_encode.cc", _CSRC + "wgl.cc",
-                   _CSRC + "closure_square.cu", _CSRC + "knossos_dense.cu")
+                   _CSRC + "closure_square.cu", _CSRC + "knossos_dense.cu",
+                   _CSRC + "knossos_frontier.cu")
 _NATIVE_LIB = "jepsen_tpu_torch/_build.py"
 _STORE = "jepsen_tpu_torch/store.py"
 _ENCODE = "jepsen_tpu_torch/checker/elle/encode.py"

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The port's two hand kernels checked for memory faults on one card:
+"""The port's three hand kernels checked for memory faults on one card:
 compute-sanitizer runs, and guarded launches that need no tool.
 
     python3 -m jepsen_tpu_torch.tools.sanitize_kernels [--tool T ...]
@@ -10,16 +10,17 @@ With the tool: one process per tool (memcheck, racecheck, synccheck,
 initcheck, in that order; `--tool` picks some), each `compute-sanitizer
 --tool T --error-exitcode 86` over this module's own `--child T`,
 filtered to the port's kernels (`closure_square_kernel`,
-`dense_warp_kernel`, `dense_block_kernel`: PyTorch's own kernels are
-not instrumented), with PYTORCH_NO_CUDA_MEMORY_CACHING=1 (the caching
-allocator packs tensors into shared segments, where an overrun into a
-neighbour is no error to memcheck and an unwritten byte may have been
-written by a freed tensor). The child launches both kernels over
-`cases(tool)` and holds every output to its plain version
-(`closure_square_ref`, `scan_dense_ref`) exactly. Then one more
-initcheck process, the canary, launches each kernel on unwritten inputs
-and must be reported: proof that the filter reaches all three kernels
-and the tool sees their reads. A tool's report, an output unequal to
+`dense_warp_kernel`, `dense_block_kernel`, `frontier_kernel`: PyTorch's
+own kernels are not instrumented), with PYTORCH_NO_CUDA_MEMORY_CACHING=1
+(the caching allocator packs tensors into shared segments, where an
+overrun into a neighbour is no error to memcheck and an unwritten byte
+may have been written by a freed tensor). The child launches the three
+kernels over `cases(tool)` and holds every output to its plain version
+(`closure_square_ref`, `scan_dense_ref`, `_scan_history` and
+`_scan_history_packed`) exactly. Then one more initcheck process, the
+canary, launches each kernel on unwritten inputs and must be reported:
+proof that the filter reaches all four kernel functions and the tool
+sees their reads. A tool's report, an output unequal to
 its plain version, a canary not reported, a tool that refuses the
 device ("Device not supported": it then checks nothing) or a missing
 tool fails the run (exit 1). The last line is one JSON object: per
@@ -35,7 +36,8 @@ a pattern, every output starting as the pattern (an input's bands take
 its complement, so a copy that runs past an input shows in an output's
 band), once with each of FILLS: every output must equal its plain
 version, and every band, and outside a column range the rest of out
-and outT, must still hold its pattern. That finds a write past a
+and outT, must still hold its pattern (the frontier's global tier
+also gets its workspace between bands). That finds a write past a
 buffer, a write outside a column range, an output left unwritten, and
 a read of bytes no launch or copy wrote where it changes a result
 (`_ColumnSplit`'s exchange: a column left at the pattern reads as
@@ -60,7 +62,13 @@ and at V=64 (S=8, 9), B in {1, 3, 33} (the warp tier packs two
 histories a block, so an odd B leaves half a block), ragged histories
 (pad steps past each one's end), every other one corrupted, and the
 block tier's shared scratch past the grid (S=13, 14 at V=64) with
-STATS' popcount word one past it.
+STATS' popcount word one past it. `knossos_frontier_scan`: each
+variant (packed; two arrays; two arrays with stats) on the shared tier
+(F=4, every history overflowing, and F=64) and on the global tier
+(F=2048 for two arrays, packed there on the shared tier; F=4096 for
+both), one global case with a workspace of two blocks striding over
+five histories; ragged batches with pad tails, info ops and every
+other history corrupted.
 """
 
 from __future__ import annotations
@@ -80,7 +88,7 @@ from pathlib import Path
 TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")
 #: The kernels' names as compiled (a substring of each mangled name).
 KERNELS = ("closure_square_kernel", "dense_warp_kernel",
-           "dense_block_kernel")
+           "dense_block_kernel", "frontier_kernel")
 #: compute-sanitizer's exit code when it found an error.
 ERROR_EXIT = 86
 #: A tool's process may take this long (s): a hang fails.
@@ -97,8 +105,9 @@ CASES_TAG = "sanitize-cases "
 @dataclass(frozen=True)
 class Case:
     """One launch (or one closure) held to its plain version."""
-    kernel: str                  # "closure_square" or "knossos_dense_scan"
-    kind: str                    # "square", "split" or "scan"
+    kernel: str                  # "closure_square", "knossos_dense_scan"
+    #                              or "knossos_frontier_scan"
+    kind: str                    # "square", "split", "scan", "frontier"
     B: int
     T: int = 0                   # closure_square
     active: tuple | None = None  # closure_square: the active pair
@@ -108,12 +117,19 @@ class Case:
     V: int = 0
     stats: bool = False
     seed: int = 0
+    F: int = 0                   # knossos_frontier_scan: the frontier
+    packed: bool = False
+    blocks: int = 0              # its global tier: workspace blocks (0: B)
 
     @property
     def label(self) -> str:
         if self.kernel == "closure_square":
             return (f"{self.kind} B={self.B} T={self.T} active="
                     f"{self.active} cols={self.cols} mp={self.mp}")
+        if self.kernel == "knossos_frontier_scan":
+            return (f"frontier B={self.B} F={self.F} S={self.S} "
+                    f"packed={self.packed} stats={self.stats} "
+                    f"blocks={self.blocks or self.B}")
         return (f"scan B={self.B} S={self.S} V={self.V} "
                 f"stats={self.stats}")
 
@@ -156,6 +172,15 @@ def cases(tool: str) -> list[Case]:
             for stats in (False, True):
                 out.append(Case("knossos_dense_scan", "scan", B, S=S, V=V,
                                 stats=stats, seed=seed))
+    # knossos_frontier_scan: both tiers, each variant, overflow (F=4),
+    # blocks striding over histories on the global tier
+    for F, S, B, blocks in ((4, 3, 3, 0), (64, 8, 5, 0), (2048, 8, 3, 0),
+                            (4096, 8, 2, 0), (2048, 8, 5, 2)):
+        seed += 1
+        for packed, stats in ((True, False), (False, False), (False, True)):
+            out.append(Case("knossos_frontier_scan", "frontier", B, S=S,
+                            F=F, packed=packed, stats=stats, seed=seed,
+                            blocks=blocks))
     return out
 
 
@@ -235,12 +260,47 @@ def run_case(case: Case, device, plain: dict | None = None,
     from ..checker.elle import kernels as K
     from ..checker.knossos import dense
 
+    from ..checker.knossos import kernels as KK
+    from ..checker.knossos import synth as ksynth
+    from ..checker.knossos.packed import _scan_history_packed
+
     square = cs.closure_square if guard is None else guard.square
     scan = dense.knossos_dense_scan if guard is None else guard.scan
     tag = case.label if guard is None else \
         f"{case.label} fill {guard.fill:#x}"
     u8 = torch.uint8
-    if case.kind == "scan":
+    if case.kind == "frontier":
+        key = ("frontier", case.B, case.F, case.S, case.packed, case.stats,
+               case.seed)
+        plain = {} if plain is None else plain
+        if key not in plain:
+            # ragged histories at concurrency S, info ops, pad events
+            ev = torch.from_numpy(ksynth.frontier_batch(case.S, case.B, 40,
+                                                        case.seed))
+            plain[key] = ev, (_scan_history_packed(ev, case.F, case.S)
+                              if case.packed else KK._scan_history(
+                                  ev, case.F, case.S, case.stats))
+        ev, want = plain[key]
+        if guard is not None:
+            got = guard.frontier(ev.to(device), case.F, case.S, case.packed,
+                                 case.stats, case.blocks)
+        else:
+            saved = KK.WORKSPACE_BYTES
+            if case.blocks:
+                KK.WORKSPACE_BYTES = case.blocks * KK.plan_frontier(
+                    case.F, case.S, case.packed).work_bytes
+            try:
+                got = KK.knossos_frontier_scan(
+                    ev.to(device), case.F, case.S, packed=case.packed,
+                    with_stats=case.stats)
+            finally:
+                KK.WORKSPACE_BYTES = saved
+        assert len(got) == len(want), f"{tag}: {len(got)} outputs"
+        names = ("valid", "overflow", "rounds", "peak", "explored")
+        for part, g, w in zip(names, got, want):
+            assert torch.equal(g.cpu(), w.to(g.dtype)), \
+                f"{tag}: {part} {g.tolist()} != {w.tolist()}"
+    elif case.kind == "scan":
         key = (case.B, case.S, case.V, case.seed)
         plain = {} if plain is None else plain
         if key not in plain:
@@ -292,7 +352,8 @@ def run_canary(device) -> None:
     """Each kernel launched on unwritten device memory (`torch.empty`
     with the caching allocator off: fresh allocations): a skipped
     closure round reads m and mT, each dense tier reads regs and comp.
-    Under initcheck every launch must be reported."""
+    The frontier kernel reads unwritten events. Under initcheck every
+    launch must be reported."""
     import torch
 
     from ..checker.elle import closure_square as cs
@@ -308,6 +369,9 @@ def run_canary(device) -> None:
         comp = torch.full((1, 4), -1, dtype=torch.int32, device=device)
         comp[0, 0] = 0                 # step 0 completes slot 0
         dense.knossos_dense_scan(regs, comp, V, S)
+    from ..checker.knossos import kernels as KK
+    events = torch.empty((1, 4, 6), dtype=torch.int32, device=device)
+    KK.knossos_frontier_scan(events, 4, 3, packed=True)
     torch.cuda.synchronize(device)
 
 
@@ -460,6 +524,42 @@ class Guard:
         got = (gvalid.inner, grounds.inner.view(torch.int32))
         return got + ((gpeak.inner.view(torch.int32),) if with_stats
                       else ())
+
+    def frontier(self, events, F: int, S: int, packed: bool,
+                 with_stats: bool, blocks: int = 0):
+        """knossos_frontier_scan's launch, as `plan_frontier` plans it,
+        its global tier's workspace guarded too (`blocks` of it, 0: one
+        a history): (valid uint8, overflow uint8, rounds int32) [B] and,
+        with stats, (peak, explored) int32 [B]."""
+        import torch
+
+        from .. import _build
+        from ..checker.knossos import kernels as KK
+
+        B, E, _ = events.shape
+        dev = events.device
+        gev = self._buf(events.numel() * 4, dev, events)
+        gvalid, gover = self._buf(B, dev), self._buf(B, dev)
+        outs = [self._buf(4 * B, dev) for _ in range(3 if with_stats
+                                                     else 1)]
+        plan = KK.plan_frontier(F, S, packed)
+        grid, gwork = B, None
+        if plan.tier == "global":
+            grid = blocks or B
+            gwork = self._buf(grid * plan.work_bytes, dev)
+        lib = _build.load("knossos_frontier")
+        rc = lib.knossos_frontier_launch(
+            gev.inner.data_ptr(), gvalid.inner.data_ptr(),
+            gover.inner.data_ptr(), outs[0].inner.data_ptr(),
+            *([o.inner.data_ptr() for o in outs[1:]] if with_stats
+              else [None, None]),
+            None if gwork is None else gwork.inner.data_ptr(), B, E, F, S,
+            int(packed), grid, dev.index, _stream(dev))
+        if rc:
+            raise _build.KernelLaunchError(
+                lib.knossos_frontier_error_string(rc).decode())
+        return (gvalid.inner.view(torch.bool), gover.inner.view(torch.bool),
+                *(o.inner.view(torch.int32) for o in outs))
 
     def untouched(self, tag: str, out, outT, c0: int, c1: int) -> None:
         """Outside columns [c0, c1) out and outT still hold the
@@ -625,7 +725,8 @@ def main(argv=None) -> int:
         print("sanitize_kernels: no CUDA device", file=sys.stderr)
         return 2
     from .. import _build
-    for name in ("closure_square", "knossos_dense"):  # before any tool
+    for name in ("closure_square", "knossos_dense",
+                 "knossos_frontier"):                 # before any tool
         _build.build(name)
     if args.guard:
         t0 = time.perf_counter()

@@ -30,7 +30,8 @@ STORE = f"{PKG}/store.py"
 
 _FIXTURE_FILES = (
     HIST, f"{PKG}/csrc/wgl.cc", f"{PKG}/csrc/closure_square.cu",
-    f"{PKG}/csrc/knossos_dense.cu", BUILD, STORE,
+    f"{PKG}/csrc/knossos_dense.cu", f"{PKG}/csrc/knossos_frontier.cu",
+    BUILD, STORE,
     f"{PKG}/checker/elle/encode.py",
 )
 
@@ -68,17 +69,18 @@ def test_real_repo_is_clean():
 
 
 def test_every_export_of_every_source_is_proved():
-    """The prover sees the four sources' whole C surface (the CUDA
+    """The prover sees the five sources' whole C surface (the CUDA
     sources' single-declaration exports included) and every one of
     them is bound: the jt_ks_* splitter too."""
     ctx = ProjectCtx(REPO, [])
     st = rules_abi._state(ctx)
     assert set(st.native) == {f"{PKG}/csrc/{n}" for n in (
         "hist_encode.cc", "wgl.cc", "closure_square.cu",
-        "knossos_dense.cu")}
+        "knossos_dense.cu", "knossos_frontier.cu")}
     exports = st.exports()
     assert {"closure_square_launch", "closure_square_error_string",
             "knossos_dense_launch", "knossos_dense_error_string",
+            "knossos_frontier_launch", "knossos_frontier_error_string",
             "jt_wgl_run", "jt_ks_split_file", "jt_ks_dims",
             "jt_ks_key_ids", "jt_ks_key_names_json",
             "jt_ks_free"} <= set(exports)

@@ -24,6 +24,7 @@ from jepsen_tpu_torch.checker import knossos as pkn
 from jepsen_tpu_torch.checker import models as pmodels
 from jepsen_tpu_torch.checker.elle import native_encode
 from jepsen_tpu_torch.checker.knossos import dense
+from jepsen_tpu_torch.checker.knossos import kernels as kk
 from jepsen_tpu_torch.checker.knossos import synth as ksynth
 from jepsen_tpu_torch.tools import sanitize_kernels as sk
 from jepsen_tpu_torch.tools import sanitize_native as sn
@@ -212,11 +213,12 @@ def test_kernel_tool_argv_and_env():
                if a == "--kernel-name"]
     assert filters == [f"kns={k}" for k in
                        ("closure_square_kernel", "dense_warp_kernel",
-                        "dense_block_kernel")]
+                        "dense_block_kernel", "frontier_kernel")]
     assert argv[argv.index("-m") + 1:] == [sk.MODULE, "--child",
                                            "racecheck"]
     assert sk.tool_env()["PYTORCH_NO_CUDA_MEMORY_CACHING"] == "1"
-    for name in ("closure_square.cu", "knossos_dense.cu"):
+    for name in ("closure_square.cu", "knossos_dense.cu",
+                 "knossos_frontier.cu"):
         src = (REPO / "jepsen_tpu_torch" / "csrc" / name).read_text()
         assert any(f"{k}(" in src for k in sk.KERNELS)
 
@@ -265,16 +267,35 @@ def test_kernel_cases_cover_the_edges():
         assert {c.stats for c in scratch} == {False, True}
 
 
-@pytest.mark.parametrize("which", ["ragged-range", "split", "odd-scan"])
+def test_frontier_cases_cover_the_edges():
+    for tool in sk.TOOLS:
+        fc = [c for c in sk.cases(tool)
+              if c.kernel == "knossos_frontier_scan"]
+        variants = {(c.packed, c.stats) for c in fc}
+        assert variants == {(True, False), (False, False), (False, True)}
+        tiers = {(kk.plan_frontier(c.F, c.S, c.packed).tier, c.packed)
+                 for c in fc}
+        assert tiers == {(t, p) for t in ("shared", "global")
+                         for p in (True, False)}
+        assert any(c.blocks and c.blocks < c.B
+                   and kk.plan_frontier(c.F, c.S, c.packed).tier == "global"
+                   for c in fc)
+        assert len({c.label for c in fc}) == len(fc)
+
+
+@pytest.mark.parametrize("which", ["ragged-range", "split", "odd-scan",
+                                   "frontier"])
 def test_kernel_cases_run_on_cpu(which):
     """The case builders at their CPU path (plain versions on both
     sides): the ragged column range, the exchange, an odd warp batch
-    with ragged, corrupt histories."""
+    with ragged, corrupt histories, the frontier's overflowing batch."""
     cs = sk.cases("initcheck")
     pick = {"ragged-range": lambda c: c.cols == (256, 384),
             "split": lambda c: c.kind == "split" and c.T == 384,
             "odd-scan": lambda c: c.kernel == "knossos_dense_scan"
-            and c.B == 33 and c.S == 3}[which]
+            and c.B == 33 and c.S == 3,
+            "frontier": lambda c: c.kernel == "knossos_frontier_scan"
+            and c.F == 4}[which]
     chosen = [c for c in cs if pick(c)]
     assert chosen
     plain: dict = {}
@@ -286,6 +307,10 @@ def test_kernel_cases_run_on_cpu(which):
         assert len(set(steps.tolist())) > 1          # ragged
         assert (comp[:, -3:] < 0).all()              # pad steps
         assert set(valid.tolist()) == {True, False}  # corrupt ones fail
+    if which == "frontier":
+        for ev, (valid, overflow, *_rest) in plain.values():
+            assert bool(overflow.all())              # F = 4 overflows
+            assert (ev[:, -3:, 0] == 2).all()        # pad events
 
 
 class _PlainGuard(sk.Guard):
