@@ -468,14 +468,22 @@ failure:
               on the card (`_scan_history`, `_scan_history_packed`):
               (a) the shape sweep of tools/knossos_frontier_check.py's
               CASES, F from 4 to 4,096 (both tiers), S from 1 to 24
-              (two arrays) and 27 (packed), packed, two arrays and two
-              arrays with stats, pad tails, info ops, overflowing
-              histories, and blocks striding over histories on the
-              global tier: valid, overflow, rounds, peak and explored
-              equal; (b) conc-20's frontier histories from phase 8 in
-              each variant: every output equal, the kernel's median ms
-              (CUDA events) beside the plain version's ms, the rounds
-              and the bound. It takes under 30 s.
+              (two arrays) and 27 (packed), the register walk's layout
+              edges (sorts of 256 to 16,384 keys), packed, two arrays
+              and two arrays with stats, pad tails, info ops,
+              overflowing histories, and blocks striding over histories
+              on the global tier: valid, overflow, rounds, peak and
+              explored equal; (b) conc-20's frontier histories from
+              phase 8 in each variant: every output equal, the kernel's
+              median ms (CUDA events) beside the block-sort walk's and
+              the plain version's ms (one `_scan_history` run for both
+              two-array variants), the rounds, the slowest history's
+              rounds and the us a round, the threads and keys a thread,
+              ptxas's registers and spills, and the bound (packed: from
+              the live configurations of each round, one more untimed
+              plain run); then one kernel-only launch of the histories
+              repeated to 264 (packed, two arrays), its outputs equal
+              to the 13-history launch's repeated. It takes under 30 s.
 
 Every phase prints its wall (phases 1-13 through `phase_wall`), and the
 script ends with all of them in one line.
@@ -5935,6 +5943,14 @@ def phase_devices(name: str, verdicts: dict) -> dict:
             "walls": walls}
 
 
+#: knossos_frontier_scan's median ms on conc-20's 13 frontier histories
+#: with the walk before the register walk (a block bitonic sort a round,
+#: a barrier a stage; NVIDIA H100 80GB HBM3, 700 W), printed beside this
+#: run's.
+BLOCK_SORT_FRONTIER_MS = {"packed": 38.573, "pairs": 60.087,
+                          "stats": 60.164}
+
+
 def phase_frontier(name: str, encs: list) -> dict:
     """Phase 28: knossos_frontier_scan against its plain versions on
     the card over the shape sweep, then conc-20's frontier histories
@@ -5955,11 +5971,23 @@ def phase_frontier(name: str, encs: list) -> dict:
     timed = kfc.time_variants(dev, name, encs)
     for label, rec in timed.items():
         say(f"28 (b) conc-20's {rec['B']} frontier histories (F={rec['F']}, "
-            f"S={rec['S']}, E={rec['E']}), {label}, {rec['tier']} tier: "
-            f"kernel median {rec['ms']} ms, plain {rec['plain_ms']} ms, "
-            f"{rec['rounds']} rounds (equal), bound {rec['bound_ms']} ms "
-            f"({rec['bound_by']}: {rec['compares']} compares, "
+            f"S={rec['S']}, E={rec['E']}), {label}, {rec['tier']} tier "
+            f"({rec['threads']} threads x {rec['keys']} keys): "
+            f"kernel median {rec['ms']} ms [block-sort walk: "
+            f"{BLOCK_SORT_FRONTIER_MS[label]} ms], plain {rec['plain_ms']} "
+            f"ms, "
+            f"{rec['rounds']} rounds (equal), the slowest history's "
+            f"{rec['slowest_rounds']} at {rec['us_per_round']:.3f} us a "
+            f"round, ptxas {rec.get('registers')} registers "
+            f"{rec.get('spill_bytes')} spill bytes, bound {rec['bound_ms']} "
+            f"ms ({rec['bound_by']}: {rec['compares']} compares, "
             f"{rec['bytes']} B); every output equal")
+    many = {label: kfc.throughput(dev, encs, label == "packed")
+            for label in ("packed", "pairs") if label in timed}
+    for label, ms in many.items():
+        say(f"28 (b) conc-20's frontier histories repeated to "
+            f"{kfc.THROUGHPUT_B}, {label}: one kernel launch {ms} ms, "
+            f"outputs equal to the {len(encs)}-history launch's repeated")
     took = time.perf_counter() - t0
     say(f"phase 28 in {took:.1f}s")
     check(took < 60, f"phase 28 took {took:.1f}s")
@@ -5971,7 +5999,7 @@ def phase_frontier(name: str, encs: list) -> dict:
             "launches": None, "max_abs_err": 0.0, "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None,
-            "variants": timed}
+            "variants": timed, "throughput_ms": many}
 
 
 def main() -> int:

@@ -61,8 +61,13 @@ MAX_SLOTS_PACKED = 30
 #: Shared memory a block may opt into on Hopper (227 KB).
 MAX_SMEM = 232_448
 #: A block's shared bytes past the arrays: the scan's 32 warp totals
-#: (8 bytes each) and the slot table (4 x 32 int32).
-SMEM_TAIL = 32 * 8 + 4 * 32 * 4
+#: and each warp's last key (8 bytes each), the slot table (4 x 32
+#: int32) and the events' mbarrier (16 bytes). Past them the kernel
+#: stages a history's events where they fit (its decision alone).
+SMEM_TAIL = 32 * 8 + 32 * 8 + 4 * 32 * 4 + 16
+#: Keys a thread of the shared tier's register walk wherever 1,024
+#: threads hold the sort (the kernel's KEYS).
+KEYS = 8
 #: The most device memory the global tier's workspace takes: its blocks
 #: (each one history at a time) are as many as fit, at least one.
 WORKSPACE_BYTES = 1 << 30
@@ -223,33 +228,55 @@ def _scan_history(events, F: int, S: int, with_stats: bool = False):
 @dataclass(frozen=True)
 class FrontierPlan:
     """How `knossos_frontier_scan` launches for one (F, S, variant): the
-    tier ("shared": the round's keys and the frontier in a block's
-    shared memory; "global": in a device-memory workspace), threads a
-    block, the keys a round sorts (`padded`, the power of two at or
-    above F·(S+1)), dynamic shared memory a block, and workspace bytes a
-    block (0 on the shared tier)."""
+    tier ("shared": the round's keys in registers, the frontier and the
+    exchange buffer in a block's shared memory; "global": keys and
+    frontier in a device-memory workspace), threads a block, the power
+    of two at or above F·(S+1) (`padded`; the shared tier sorts
+    threads·keys of them, at least 256), dynamic shared memory a block
+    (past which the kernel may stage the events), workspace bytes a
+    block (0 on the shared tier) and keys a thread (0 on the global
+    tier)."""
 
     tier: str
     threads: int
     padded: int
     smem_bytes: int
     work_bytes: int
+    keys: int = 0
+
+
+def frontier_keys(padded: int) -> int:
+    """Keys a thread of the register walk for a sort of `padded` keys:
+    KEYS, or as many as 1,024 threads need (the kernel's keys_for)."""
+    return max(KEYS, padded // 1024)
+
+
+def _arrays(keys: int, F: int, packed: bool) -> int:
+    """Shared bytes of the register walk's arrays: `keys` sort keys and
+    the frontier, and packed a second F for the live copy, rounded up
+    to 16."""
+    n = (keys + 2 * F) * 4 if packed else (keys + F) * 8
+    return -(-n // 16) * 16
 
 
 def plan_frontier(F: int, S: int, packed: bool) -> FrontierPlan:
     """The launch of `knossos_frontier_scan` (the kernel computes the
-    same): the shared tier iff the padded keys and the frontier (4
-    bytes a key packed, 8 for two arrays; rounded up to 16 bytes) and
-    SMEM_TAIL fit MAX_SMEM, else the global tier; P/2 threads, within
-    32..1024."""
+    same): the shared tier iff the sorted keys and the frontier (4 bytes
+    a key packed, with a second frontier for the live copy; 8 for two
+    arrays; rounded up to 16 bytes) and SMEM_TAIL fit MAX_SMEM, with
+    `frontier_keys` keys a thread and max(32, padded / keys) threads.
+    Else the global tier: P/2 threads within 32..1024 over a workspace
+    the wrapper allocates."""
     n = F * (S + 1)
     p = 1 << (n - 1).bit_length()
     esize = 4 if packed else 8
-    arrays = -(-(p + F) * esize // 16) * 16
-    threads = min(1024, max(32, p // 2))
+    k = frontier_keys(p)
+    threads = max(32, p // k)
+    arrays = _arrays(threads * k, F, packed)
     if arrays + SMEM_TAIL <= MAX_SMEM:
-        return FrontierPlan("shared", threads, p, arrays + SMEM_TAIL, 0)
-    return FrontierPlan("global", threads, p, SMEM_TAIL, (p + F) * esize)
+        return FrontierPlan("shared", threads, p, arrays + SMEM_TAIL, 0, k)
+    return FrontierPlan("global", min(1024, max(32, p // 2)), p, SMEM_TAIL,
+                        (p + F) * esize)
 
 
 def _check_frontier_args(events: torch.Tensor, frontier: int, n_slots: int,

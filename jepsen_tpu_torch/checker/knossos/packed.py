@@ -50,6 +50,9 @@ def _expand_fixpoint_packed(cfgs, slot_f, slot_a1, slot_a2, slot_known,
     rnd = torch.zeros(B, dtype=torch.int32, device=cfgs.device)
     active = enabled.clone()
     while bool(active.any()):
+        if _expand_fixpoint_packed.live is not None:
+            _expand_fixpoint_packed.live.append(
+                torch.where(active, (cfgs != _BIG).sum(1), -1))
         masks = cfgs & low
         ok, new_state = _step_register(
             (cfgs >> S)[:, :, None], slot_f[:, None, :],
@@ -73,6 +76,10 @@ def _expand_fixpoint_packed(cfgs, slot_f, slot_a1, slot_a2, slot_known,
 #: When set to a list, each expansion appends its rounds per history
 #: ([B] int32, on the device; measurement only).
 _expand_fixpoint_packed.rounds = None
+#: When set to a list, each round appends the live configurations it
+#: expands per history ([B], -1 where the history's expansion has
+#: stopped; on the device; measurement only).
+_expand_fixpoint_packed.live = None
 
 
 def _scan_history_packed(events, F: int, S: int):

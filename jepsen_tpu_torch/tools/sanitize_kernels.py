@@ -67,8 +67,11 @@ variant (packed; two arrays; two arrays with stats) on the shared tier
 (F=4, every history overflowing, and F=64) and on the global tier
 (F=2048 for two arrays, packed there on the shared tier; F=4096 for
 both), one global case with a workspace of two blocks striding over
-five histories; ragged batches with pad tails, info ops and every
-other history corrupted.
+five histories, and the register walk's layout edges of
+`knossos_frontier_check.EDGE_CASES` (sorts of 256 keys on one warp to
+16,384 on 1,024 threads of 16 keys; events staged and from device
+memory); ragged batches with pad tails, info ops and every other
+history corrupted.
 """
 
 from __future__ import annotations
@@ -173,9 +176,13 @@ def cases(tool: str) -> list[Case]:
                 out.append(Case("knossos_dense_scan", "scan", B, S=S, V=V,
                                 stats=stats, seed=seed))
     # knossos_frontier_scan: both tiers, each variant, overflow (F=4),
-    # blocks striding over histories on the global tier
+    # blocks striding over histories on the global tier, the register
+    # walk's layout edges
+    from .knossos_frontier_check import EDGE_CASES
+
     for F, S, B, blocks in ((4, 3, 3, 0), (64, 8, 5, 0), (2048, 8, 3, 0),
-                            (4096, 8, 2, 0), (2048, 8, 5, 2)):
+                            (4096, 8, 2, 0), (2048, 8, 5, 2),
+                            *((F, S, B, 0) for F, S, B, *_ in EDGE_CASES)):
         seed += 1
         for packed, stats in ((True, False), (False, False), (False, True)):
             out.append(Case("knossos_frontier_scan", "frontier", B, S=S,
